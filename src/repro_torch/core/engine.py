@@ -1,0 +1,265 @@
+"""RetrievalEngine — one index + one scorer, dispatched via the registry.
+
+index build -> batched scoring -> top-k, with query-batch chunking (the
+[B, N] score buffer bounds the concurrent queries) and metric evaluation,
+as :mod:`repro.core.engine`.  The config's ``engine`` string resolves to a
+:class:`~repro_torch.core.registry.EngineSpec` whose ``build_index`` and
+``score`` this class drives.
+
+The engine lives on one device (``device``, default ``"cuda"``): the docs
+are moved there, the index is built there, queries are moved there, and
+results come back to the host as numpy, as the JAX engine returns them.
+
+Deletions are tombstones masked after scoring; that is exact for the
+engines of this slice, which score the full matrix.  The pruned engines
+(and with them their config knobs and the tau warm-start consumers) come
+with the pruned slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import metrics as metrics_mod
+from repro_torch.core import registry, topk
+from repro_torch.core.sparse import SparseBatch
+from repro_torch.utils import resolve_device
+
+EngineName = Literal["dense", "tiled", "ell"]
+
+
+@dataclasses.dataclass
+class RetrievalConfig:
+    """The JAX config's fields that this slice's engines read.  The pruned,
+    reorder and scheduler knobs come with the slices that read them, so
+    setting one here fails (``TypeError``) instead of doing nothing."""
+
+    engine: EngineName = "tiled"
+    k: int = 1000
+    query_chunk: int = 512  # max concurrent queries (score-buffer bound)
+    term_block: int = 512
+    doc_block: int = 256
+    chunk_size: int = 512
+    topk_block: int = 4096
+    # Query-aware tile skipping (exact): drop chunks whose term block
+    # carries zero query mass before scoring.
+    tile_skip: bool = False
+
+    def __post_init__(self):
+        # Fail invalid configs at construction, not first use.
+        registry.get_engine(self.engine)  # unknown -> ValueError
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.query_chunk < 1:
+            raise ValueError(
+                f"query_chunk must be >= 1, got {self.query_chunk}"
+            )
+
+    @property
+    def spec(self) -> registry.EngineSpec:
+        """The registry entry this config resolves to."""
+        return registry.get_engine(self.engine)
+
+
+class RetrievalEngine:
+    """Exact learned-sparse retrieval over a device-resident index."""
+
+    def __init__(self, docs: SparseBatch,
+                 config: Optional[RetrievalConfig] = None, device="cuda"):
+        self.config = config or RetrievalConfig()
+        self.spec = registry.get_engine(self.config.engine)
+        self.device = resolve_device(device)
+        self.docs = docs.to(self.device)
+        self.num_docs = docs.batch
+        self.vocab_size = docs.vocab_size
+        self._doc_unperm = None  # original-order column gather
+        self._index = self.spec.build_index(self.docs, self.config)
+        # Tombstones, original doc numbering (None = nothing deleted).
+        self._deleted: Optional[np.ndarray] = None
+        self._deleted_dev: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_prebuilt(
+        cls,
+        docs: SparseBatch,
+        config: RetrievalConfig,
+        index,
+        doc_unperm=None,
+        deleted: Optional[np.ndarray] = None,
+        device="cuda",
+    ) -> "RetrievalEngine":
+        """Wrap an already-built index (what ``config.spec.build_index``
+        would produce for ``docs``) without rebuilding it; ``doc_unperm``
+        and ``deleted`` restore a reorder permutation and tombstones."""
+        self = cls.__new__(cls)
+        self.config = config
+        self.spec = registry.get_engine(config.engine)
+        self.device = resolve_device(device)
+        self.docs = docs.to(self.device)
+        self.num_docs = docs.batch
+        self.vocab_size = docs.vocab_size
+        self._doc_unperm = (
+            None if doc_unperm is None
+            else torch.as_tensor(np.asarray(doc_unperm), dtype=torch.int64,
+                                 device=self.device)
+        )
+        self._index = index
+        self._deleted = (
+            None if deleted is None or not np.any(deleted)
+            else np.array(deleted, dtype=bool)
+        )
+        self._deleted_dev = None
+        return self
+
+    # -- deletions ---------------------------------------------------------
+    @property
+    def num_alive(self) -> int:
+        if self._deleted is None:
+            return self.num_docs
+        return self.num_docs - int(self._deleted.sum())
+
+    @property
+    def deleted_mask(self) -> Optional[np.ndarray]:
+        """[num_docs] bool tombstone mask, or ``None`` when clean."""
+        return self._deleted
+
+    def delete_docs(self, doc_ids) -> int:
+        """Tombstone documents by original id (no index rewrite); they are
+        masked to ``-inf`` after scoring.  Idempotent; returns the count of
+        newly deleted docs.  Raises on out-of-range ids."""
+        ids = np.asarray(doc_ids, np.int64).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.num_docs):
+            raise ValueError(
+                f"doc ids must be in [0, {self.num_docs}); got range "
+                f"[{ids.min()}, {ids.max()}]"
+            )
+        if self._deleted is None:
+            self._deleted = np.zeros(self.num_docs, bool)
+        before = int(self._deleted.sum())
+        self._deleted[ids] = True
+        self._deleted_dev = None  # rebuilt on next score
+        return int(self._deleted.sum()) - before
+
+    # -- index stats ------------------------------------------------------
+    def index_bytes(self) -> int:
+        if self.spec.index_type is None:
+            return 0
+        return self._index.memory_bytes()
+
+    # -- scoring ----------------------------------------------------------
+    def score(
+        self,
+        queries: SparseBatch,
+        k: Optional[int] = None,
+        tau_init=None,
+    ) -> torch.Tensor:
+        """[B, num_docs] score matrix (original doc numbering), on the
+        engine's device; tombstoned docs score ``-inf``."""
+        cfg = self.config
+        if tau_init is not None and not self.spec.supports_tau:
+            raise ValueError(
+                f"tau_init needs an engine that supports it, not "
+                f"engine={cfg.engine!r}"
+            )
+        out = self.spec.score(queries.to(self.device), self._index, cfg,
+                              k=k or cfg.k, tau_init=tau_init)
+        if self._doc_unperm is not None:
+            out = out[:, self._doc_unperm]
+        if self._deleted is not None:
+            if self._deleted_dev is None:
+                self._deleted_dev = torch.from_numpy(self._deleted).to(
+                    self.device
+                )
+            out = out.masked_fill(self._deleted_dev[None, :], float("-inf"))
+        return out
+
+    def search(
+        self,
+        queries: SparseBatch,
+        k: Optional[int] = None,
+        tau_init: Optional[np.ndarray] = None,
+        return_tau: bool = False,
+    ):
+        """Chunked top-k search -> (values [B,k], doc ids [B,k]) as numpy.
+
+        Slots with a non-finite value come back with id ``-1``.
+        ``return_tau`` appends the per-query certified threshold (the k-th
+        returned value where finite, else the carried ``tau_init``).
+        """
+        k_req = k or self.config.k
+        k = min(k_req, self.num_docs)
+        out_v, out_i = [], []
+        for s in range(0, queries.batch, self.config.query_chunk):
+            q = queries.slice_rows(s, min(self.config.query_chunk,
+                                          queries.batch - s))
+            t0 = None if tau_init is None else torch.as_tensor(
+                np.asarray(tau_init)[s:s + q.batch], dtype=torch.float32,
+                device=self.device,
+            )
+            scores = self.score(q, k=k, tau_init=t0)
+            v, i = topk.topk_two_stage(scores, k,
+                                       block=self.config.topk_block)
+            out_v.append(v.cpu().numpy())
+            out_i.append(i.cpu().numpy())
+        vals = np.concatenate(out_v, axis=0)
+        ids = np.where(np.isfinite(vals), np.concatenate(out_i, axis=0), -1)
+        if not return_tau:
+            return vals, ids
+        # Certification needs k docs at the *requested* k.
+        tau = topk.certify_tau(vals, k_req, tau_init)
+        return vals, ids, tau
+
+    # -- evaluation -------------------------------------------------------
+    def evaluate(
+        self,
+        queries: SparseBatch,
+        qrels: list[set[int]],
+        k: int = 1000,
+    ) -> dict[str, float]:
+        """Qrels metrics of the top-k."""
+        _, ids = self.search(queries, k=k)
+        return {
+            "mrr@10": metrics_mod.mrr_at_k(ids, qrels, 10),
+            "ndcg@10": metrics_mod.ndcg_at_k(ids, qrels, 10),
+            f"recall@{k}": metrics_mod.recall_at_k(ids, qrels, k),
+        }
+
+
+def stream_search(
+    doc_batches,
+    queries: SparseBatch,
+    config: Optional[RetrievalConfig] = None,
+    k: Optional[int] = None,
+    device="cuda",
+):
+    """Retrieval over a streamed corpus: each batch is indexed, searched
+    and merged into the running top-k, with the stream's certified
+    threshold passed as ``tau_init`` to engines that consume it.
+
+    Returns ``(values [B, k], global doc ids [B, k], tau [B])`` as numpy.
+    """
+    config = config or RetrievalConfig()
+    dev = resolve_device(device)
+    k = k or config.k
+    warm = registry.config_supports_tau(config)
+    tau = np.full((queries.batch,), -np.inf, np.float32)
+    run_v = run_i = None
+    offset = 0
+    for docs in doc_batches:
+        eng = RetrievalEngine(docs, config, device=dev)
+        v, i = eng.search(queries, k=k, tau_init=tau if warm else None)
+        i = np.where(np.isfinite(v), i + offset, -1)  # globalize finite ids
+        offset += docs.batch
+        if run_v is None:
+            run_v, run_i = v, i
+        else:
+            mv, mi = topk.merge_topk(
+                torch.from_numpy(run_v), torch.from_numpy(run_i),
+                torch.from_numpy(v), torch.from_numpy(i), k,
+            )
+            run_v, run_i = mv.numpy(), mi.numpy()
+        tau = topk.certify_tau(run_v, k, tau)
+    return run_v, run_i, tau

@@ -1,0 +1,127 @@
+"""Exact top-k selection with ``lax.top_k``'s tie order.
+
+``jax.lax.top_k`` returns values in descending order and breaks ties
+towards the lower index; ``torch.topk`` promises no order among equal
+values (on CUDA it varies).  Every selection here therefore takes
+``torch.topk``'s candidates, repairs the set where the k-th value is tied
+beyond k, and orders the result by (value descending, index ascending)
+with two stable sorts — so the port returns the JAX package's ids.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.utils import cdiv
+
+NEG_INF = float("-inf")
+
+
+def _by_value_then_key(x: torch.Tensor, pos: torch.Tensor, key: torch.Tensor):
+    """Reorder candidate positions ``pos`` of rows ``x`` by (value desc,
+    ``key`` asc), with two stable sorts."""
+    pos = pos.gather(-1, torch.argsort(key.gather(-1, pos), dim=-1,
+                                       stable=True))
+    order = torch.argsort(x.gather(-1, pos), dim=-1, descending=True,
+                          stable=True)
+    return pos.gather(-1, order)
+
+
+def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
+                    ordered: bool = True):
+    """(values, positions) of the top ``k`` along the last axis, ties to
+    the lower ``key`` (the position when None), as ``lax.top_k`` does;
+    ``k <= scores.shape[-1]``.  ``ordered=False`` returns the exact set in
+    no particular order."""
+    *lead, n = scores.shape
+    x = scores.reshape(-1, n)
+    key = (torch.arange(n, device=x.device).expand_as(x) if key is None
+           else key.reshape(-1, n))
+    vals, pos = torch.topk(x, k, dim=-1, sorted=False)
+    if x.shape[0] and k:
+        # Rows where more than k entries reach the k-th value: topk picked
+        # an arbitrary subset of the tie; take its lowest keys instead.
+        kth = vals.min(dim=-1, keepdim=True).values
+        tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)
+        if tied.numel():
+            full = torch.arange(n, device=x.device).expand(tied.numel(), n)
+            pos[tied] = _by_value_then_key(x[tied], full, key[tied])[:, :k]
+    if ordered:
+        pos = _by_value_then_key(x, pos, key)
+    return x.gather(-1, pos).reshape(*lead, k), pos.reshape(*lead, k)
+
+
+def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain exact top-k over the last axis -> (values, indices)."""
+    return _topk_lower_key(scores, min(k, scores.shape[-1]))
+
+
+def certify_tau(vals, k_req: int, prev=None) -> np.ndarray:
+    """Advance a per-query certified threshold from a top-k result.
+
+    ``vals`` [B, k_ret] are sorted top-k values over everything a query
+    stream has seen so far; the threshold moves up to the ``k_req``-th
+    best value only when it exists and is finite.  Returns
+    ``max(prev, certified k-th)`` as f32 numpy (host-side serving state),
+    as :func:`repro.core.topk.certify_tau`.
+    """
+    vals = vals.cpu().numpy() if torch.is_tensor(vals) else np.asarray(vals)
+    b = vals.shape[0]
+    prev = (np.full((b,), -np.inf, np.float32) if prev is None
+            else np.asarray(prev, np.float32))
+    if vals.shape[1] >= k_req:
+        kth = vals[:, k_req - 1]
+    else:
+        kth = np.full((b,), -np.inf, np.float32)
+    tau = np.maximum(prev, np.where(np.isfinite(kth), kth, -np.inf))
+    return tau.astype(np.float32)
+
+
+def topk_two_stage(
+    scores: torch.Tensor, k: int, block: int = 4096
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blockwise top-k then merge: stage 1 reduces each length-``block``
+    slab to its top-k, stage 2 takes the top-k of the survivors.  Ties go
+    to the lower index in both stages: stage 1 picks each slab's exact set
+    (lowest indices among a tie at its k-th value), stage 2 breaks ties on
+    the survivors' global indices — so the result equals :func:`topk`, and
+    ``repro.core.topk.topk_two_stage``, whose stage 2 breaks ties on
+    position in stage 1's ordered output."""
+    *lead, n = scores.shape
+    k = min(k, n)
+    if n <= block:
+        return _topk_lower_key(scores, k)
+    nb = cdiv(n, block)
+    pad = nb * block - n
+    if pad:
+        scores = torch.cat(
+            [scores, scores.new_full((*lead, pad), NEG_INF)], dim=-1
+        )
+    blocked = scores.reshape(*lead, nb, block)
+    kb = min(k, block)
+    vals, idx = _topk_lower_key(blocked, kb, ordered=False)  # [..., nb, kb]
+    base = torch.arange(nb, device=scores.device)[:, None] * block
+    vals = vals.reshape(*lead, nb * kb)
+    gidx = (idx + base).reshape(*lead, nb * kb)
+    mvals, mpos = _topk_lower_key(vals, k, key=gidx)
+    return mvals, gidx.gather(-1, mpos)
+
+
+def merge_topk(
+    vals_a: torch.Tensor,
+    ids_a: torch.Tensor,
+    vals_b: torch.Tensor,
+    ids_b: torch.Tensor,
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two (value, id) top-k lists into one; ties keep list a's
+    entries first, then position order."""
+    vals = torch.cat([vals_a, vals_b], dim=-1)
+    ids = torch.cat([ids_a, ids_b], dim=-1)
+    mv, mp = _topk_lower_key(vals, min(k, vals.shape[-1]))
+    return mv, ids.gather(-1, mp)
+
+
+def topk_with_ids(scores: torch.Tensor, ids: torch.Tensor, k: int):
+    v, p = _topk_lower_key(scores, min(k, scores.shape[-1]))
+    return v, ids.gather(-1, p)

@@ -1,0 +1,175 @@
+"""Synthetic corpora with the paper's published SPLADE statistics, on device.
+
+The same laws as :mod:`repro.data.synthetic` (vocab 30,522; ~127.2 nnz/doc,
+sigma 34.3; ~49.9 nnz/query, sigma 18.2; log1p-ReLU-shaped weights in
+[0.01, 3.5]; Zipf(1.07) term popularity; queries seeded from a "relevant"
+document plus Zipf expansion terms), drawn from an explicit
+``torch.Generator`` on the target device and vectorised over documents.
+
+Sampling ``k`` distinct terms with probabilities ``p`` — numpy's
+successive sampling without replacement — is drawn here as Gumbel-top-k:
+the ``k`` largest of ``log p_i + G_i`` with ``G_i`` i.i.d. Gumbel(0, 1).
+The two have the same law; they do not give the same numbers, so tests
+that compare the two packages hand both the numpy corpus.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.sparse import PAD_ID, SparseBatch
+from repro_torch.utils import resolve_device
+
+MSMARCO_VOCAB = 30522
+DOC_TERMS_MEAN, DOC_TERMS_STD = 127.2, 34.3
+QUERY_TERMS_MEAN, QUERY_TERMS_STD = 49.9, 18.2
+
+# Rows of [rows, vocab] Gumbel keys drawn at once: bounds the sampler's
+# scratch to 2^27 floats (512 MB) whatever the corpus size.
+_KEY_ELEMS = 1 << 27
+
+
+@dataclasses.dataclass
+class SyntheticCorpus:
+    docs: SparseBatch
+    queries: SparseBatch
+    qrels: list[set[int]]
+    vocab_size: int
+
+
+def _zipf_log_probs(vocab: int, alpha: float, device) -> torch.Tensor:
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=device)
+    p = ranks ** -alpha
+    return torch.log(p / p.sum()).to(torch.float32)
+
+
+def _gumbel_top(logp: torch.Tensor, rows: int, k: int,
+                g: torch.Generator) -> torch.Tensor:
+    """[rows, k] distinct term ids per row, in descending key order: the
+    first ``j`` of a row are a sample of ``j`` terms without replacement."""
+    vocab = logp.shape[0]
+    out = torch.empty((rows, k), dtype=torch.int64, device=logp.device)
+    step = max(1, _KEY_ELEMS // max(vocab, 1))
+    for s in range(0, rows, step):
+        n = min(step, rows - s)
+        e = torch.empty((n, vocab), device=logp.device).exponential_(
+            generator=g
+        )
+        keys = logp - torch.log(e)  # -log(Exp(1)) is Gumbel(0, 1)
+        out[s:s + n] = torch.topk(keys, k, dim=1).indices
+    return out
+
+
+def _log1p_abs_normal(shape, mean: float, std: float,
+                      g: torch.Generator, device) -> torch.Tensor:
+    z = torch.randn(shape, generator=g, device=device) * std + mean
+    return torch.log1p(z.abs()).clamp(0.01, 3.5)
+
+
+def _pack_rows(ids: torch.Tensor, vals: torch.Tensor,
+               vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort each row by term id with the sentinel ``vocab`` last, cut to
+    the widest row, and mark the sentinels as padding."""
+    ids, order = torch.sort(ids, dim=1)
+    vals = vals.gather(1, order)
+    width = max(int((ids < vocab).sum(dim=1).max()) if ids.numel() else 1, 1)
+    ids, vals = ids[:, :width], vals[:, :width]
+    pad = ids >= vocab
+    return (torch.where(pad, PAD_ID, ids).to(torch.int32),
+            torch.where(pad, 0.0, vals).to(torch.float32))
+
+
+def make_corpus(
+    num_docs: int,
+    vocab_size: int = MSMARCO_VOCAB,
+    seed: int = 0,
+    doc_terms: tuple[float, float] = (DOC_TERMS_MEAN, DOC_TERMS_STD),
+    zipf_alpha: float = 1.07,
+    device="cuda",
+    min_terms: int = 4,
+) -> SparseBatch:
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = (torch.randn(num_docs, generator=g, device=dev) * doc_terms[1]
+               + doc_terms[0]).round().clamp(min_terms, vocab_size).long()
+    kmax = int(lengths.max()) if num_docs else 1
+    logp = _zipf_log_probs(vocab_size, zipf_alpha, dev)
+    ids = _gumbel_top(logp, num_docs, kmax, g)
+    live = torch.arange(kmax, device=dev)[None, :] < lengths[:, None]
+    vals = _log1p_abs_normal((num_docs, kmax), 1.0, 1.2, g, dev)
+    ids, vals = _pack_rows(torch.where(live, ids, vocab_size), vals,
+                           vocab_size)
+    return SparseBatch(ids, vals, vocab_size)
+
+
+def make_queries_with_qrels(
+    docs: SparseBatch,
+    num_queries: int,
+    seed: int = 1,
+    query_terms: tuple[float, float] = (QUERY_TERMS_MEAN, QUERY_TERMS_STD),
+    overlap_frac: float = 0.6,
+    device="cuda",
+) -> tuple[SparseBatch, list[set[int]]]:
+    """Queries seeded from relevant docs: ``overlap_frac`` of terms copied
+    from the relevant document (weights jittered by U(0.7, 1.3)), the rest
+    Zipf expansion terms; an expansion term the query already holds is
+    dropped, as in :func:`repro.data.synthetic.make_queries_with_qrels`."""
+    dev = resolve_device(device)
+    docs = docs.to(dev)
+    v = docs.vocab_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rel = torch.randint(docs.batch, (num_queries,), generator=g, device=dev)
+    d_ids = docs.term_ids[rel].long()
+    d_vals = docs.values[rel]
+    d_live = d_ids >= 0
+    k = (torch.randn(num_queries, generator=g, device=dev) * query_terms[1]
+         + query_terms[0]).clamp(3, v).floor().long()
+    k_overlap = torch.minimum((k * overlap_frac).floor().long(),
+                              d_live.sum(dim=1))
+    n_extra = (k - k_overlap).clamp(min=0)
+
+    # Copied terms: a uniform draw of k_overlap of the doc's live slots.
+    width = d_ids.shape[1]
+    keys = torch.rand((num_queries, width), generator=g, device=dev)
+    pick = torch.topk(torch.where(d_live, keys, -1.0), width, dim=1).indices
+    ranks = torch.arange(width, device=dev)[None, :]
+    keep = ranks < k_overlap[:, None]
+    p_ids = torch.where(keep, d_ids.gather(1, pick), v)
+    jitter = torch.rand((num_queries, width), generator=g, device=dev)
+    p_vals = d_vals.gather(1, pick) * (0.7 + 0.6 * jitter)
+
+    # Expansion terms: Zipf draws without replacement.
+    e_max = max(int(n_extra.max()) if num_queries else 0, 1)
+    e_ids = _gumbel_top(_zipf_log_probs(v, 1.07, dev), num_queries, e_max, g)
+    e_ids = torch.where(
+        torch.arange(e_max, device=dev)[None, :] < n_extra[:, None], e_ids, v
+    )
+    e_vals = _log1p_abs_normal((num_queries, e_max), 0.6, 0.8, g, dev)
+
+    # Drop expansion terms the copied terms already hold: sort by
+    # (id, source) so a duplicate id's copied entry comes first.
+    ids = torch.cat([p_ids, e_ids], dim=1)
+    vals = torch.cat([p_vals, e_vals], dim=1)
+    src = torch.cat([torch.zeros_like(p_ids), torch.ones_like(e_ids)], dim=1)
+    order = torch.argsort(ids * 2 + src, dim=1)
+    ids, vals = ids.gather(1, order), vals.gather(1, order)
+    dup = torch.zeros_like(ids, dtype=torch.bool)
+    dup[:, 1:] = ids[:, 1:] == ids[:, :-1]
+    ids = torch.where(dup, v, ids)
+    q_ids, q_vals = _pack_rows(ids, vals, v)
+    qrels = [{int(r)} for r in rel.cpu().tolist()]
+    return SparseBatch(q_ids, q_vals, v), qrels
+
+
+def make_msmarco_like(
+    num_docs: int,
+    num_queries: int,
+    vocab_size: int = MSMARCO_VOCAB,
+    seed: int = 0,
+    device="cuda",
+) -> SyntheticCorpus:
+    docs = make_corpus(num_docs, vocab_size, seed=seed, device=device)
+    queries, qrels = make_queries_with_qrels(docs, num_queries,
+                                             seed=seed + 1, device=device)
+    return SyntheticCorpus(docs, queries, qrels, vocab_size)

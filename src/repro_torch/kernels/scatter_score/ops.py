@@ -1,0 +1,85 @@
+"""Entry of the term-parallel scatter-add scoring kernel.
+
+A CPU tensor runs :func:`scatter_score_ref`; a CUDA tensor runs the CUDA
+kernel in ``src/repro_torch/csrc/scatter_score.cu`` (replacing the Pallas
+``repro.kernels.scatter_score.kernel.scatter_score_kernel``) or raises.
+``launches`` counts kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.scatter_score.ref import scatter_score_ref
+
+NAME = "scatter_score"
+QUERY_TILE = 128  # queries per CTA; csrc/scatter_score.cu's kQueryTile
+launches = 0
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _L, _I, _P)
+
+
+def scatter_score(
+    qw: torch.Tensor,  # f32 [B, V_pad]
+    local_term: torch.Tensor,  # int32 [num_chunks, C]
+    local_doc: torch.Tensor,  # int32 [num_chunks, C]
+    value: torch.Tensor,  # f32 [num_chunks, C]
+    chunk_term_block: torch.Tensor,  # int32 [num_chunks]
+    chunk_doc_block: torch.Tensor,  # int32 [num_chunks]
+    block_chunk_start: torch.Tensor,  # int32 [num_doc_blocks]
+    block_chunk_count: torch.Tensor,  # int32 [num_doc_blocks]
+    *,
+    term_block: int,
+    doc_block: int,
+    num_doc_blocks: int,
+) -> torch.Tensor:
+    """Exact f32 [B, num_doc_blocks * doc_block] scores of a TiledIndex."""
+    global launches
+    if qw.device.type == "cpu":
+        return scatter_score_ref(
+            qw, local_term, local_doc, value, chunk_term_block,
+            chunk_doc_block, term_block=term_block, doc_block=doc_block,
+            num_doc_blocks=num_doc_blocks,
+        )
+    if qw.device.type != "cuda":
+        raise ValueError(f"{NAME}: no kernel for device {qw.device}")
+    dev = qw.device
+    b, v_pad = qw.shape
+    n_chunks, c = local_term.shape
+    if v_pad % term_block or v_pad < term_block:
+        raise ValueError(f"{NAME}: qw width {v_pad} is not a multiple of "
+                         f"term_block {term_block}")
+    i32, f32 = torch.int32, torch.float32
+    build.expect(qw, "qw", f32, device=dev)
+    for t, what in ((local_term, "local_term"), (local_doc, "local_doc")):
+        build.expect(t, what, i32, (n_chunks, c), dev)
+    build.expect(value, "value", f32, (n_chunks, c), dev)
+    build.expect(chunk_term_block, "chunk_term_block", i32, (n_chunks,), dev)
+    for t, what in ((block_chunk_start, "block_chunk_start"),
+                    (block_chunk_count, "block_chunk_count")):
+        build.expect(t, what, i32, (num_doc_blocks,), dev)
+
+    n_pad = num_doc_blocks * doc_block
+    out = torch.empty((b, n_pad), dtype=f32, device=dev)
+    if b == 0 or num_doc_blocks == 0:
+        return out
+    # Term-major, query-padded weights: a posting's weights for a tile of
+    # queries are one contiguous run.
+    b_pad = -(-b // QUERY_TILE) * QUERY_TILE
+    qwt = F.pad(qw, (0, 0, 0, b_pad - b)).t().contiguous()
+    launch = build.load_function(NAME, "scatter_score_launch", _ARGTYPES)
+    err = launch(
+        qwt.data_ptr(), local_term.data_ptr(), local_doc.data_ptr(),
+        value.data_ptr(), chunk_term_block.data_ptr(),
+        block_chunk_start.data_ptr(), block_chunk_count.data_ptr(),
+        out.data_ptr(), b, b_pad, num_doc_blocks, term_block, doc_block, c,
+        n_pad, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(NAME, err)
+    launches += 1
+    return out

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact-retrieval path on one NVIDIA H100.
+"""Drive the PyTorch port's exact and pruned paths on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -7,12 +7,23 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. Build both CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print the card's name and power limit.
-2. Hold each kernel against its plain PyTorch version on the card, at
-   50,000 docs x 64 queries, V = 30,522, over several index geometries
-   (``chunk_size < term_block``, a ragged last doc block, a tile-skipped
-   index whose blanked chunks test the padding rule).
+1. Build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and print the card's name and power
+   limit.
+2. Hold ``scatter_score`` and ``ell_gather`` against their plain PyTorch
+   versions on the card, at 50,000 docs x 64 queries, V = 30,522, over
+   several index geometries (``chunk_size < term_block``, a ragged last
+   doc block, a tile-skipped index whose blanked chunks test the padding
+   rule).
+2b. The same size on a topical corpus reordered by ``df-signature``:
+   ``bmp_scan`` against its plain version (scores, heap and tau within
+   KERNEL_TOL, block and chunk fetch sets and step counts equal) at
+   doc_block 64 / k = 10 and doc_block 256 / k = 1000 (``chunk_size <
+   term_block``), for a flat launch of all rows, the planner's buckets,
+   an alive mask, and a group of more than 128 rows; ``scatter_score``
+   over partial chunk runs; engines ``tiled-pruned`` (bmp, two-pass) and
+   ``tiled-bmp-grouped`` against float64, ``tiled-pruned-approx`` (theta
+   0.8) with its ``recall_vs_exact``.
 3. The main path at the repo's ``serve_1m`` shape (``repro.configs.
    gpusparse``): 1,000,000 docs generated on the card, V = 30,522, 500
    queries, k = 1000, through ``RetrievalEngine.search`` for engines
@@ -20,13 +31,26 @@ Phases (each raises on failure; the script then exits non-zero):
    before and read just after.  Exactness against a float64 oracle on 16
    sampled queries: mean overlap@1000 >= 0.999, returned scores within
    1e-5 relative of float64, and the two engines agreeing the same way.
+3b. The pruned path at serve_1m width: 1,000,000 docs of
+   ``make_topical_corpus`` (seed 0), 500 queries, k = 1000, engine
+   ``tiled-bmp-fused`` with ``reorder_docs`` (``df-signature``), a
+   warm-up and 5 rounds, the ``bmp_scan`` counter zeroed before and read
+   after; then one call each at doc_block 64 / k = 10 and on phase 3's
+   unclustered corpus.  Each held to float64 as in phase 3, the first also
+   to ``tiled``; the scheduler's stats printed.  The flat sweep and the
+   per-group engine run at phase 2b's size only (a cut of depth: at
+   serve width each takes minutes).
 4. Each kernel against its plain version again at the main path's own
    shapes (the serve_1m index, all 500 queries: several query tiles and a
    ragged last one), then per-kernel times with CUDA events at those
    shapes: the kernel, its plain version, one library call computing the
    same scores (``torch.sparse.mm``, used nowhere in the port), and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
-   over 67 TFLOP/s, H100 SXM data sheet).
+   over 67 TFLOP/s, H100 SXM data sheet).  For ``bmp_scan``: a sample of
+   the main path's groups (the bucket with the most rows) against the
+   plain version, its times at those shapes, the bound of the work it did
+   (chunk lines, windows, heaps and weights; 2 x live postings x rows),
+   no library call; and the time of every launch of one search call.
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -66,6 +90,14 @@ class Sizes:
     rounds: int = 5
     reps: int = 5
     geometries: tuple = ((512, 256, 512), (512, 128, 256), (256, 64, 128))
+    # The pruned path: (term_block, doc_block, chunk_size, k) of phase 2b.
+    pruned_geometries: tuple = ((512, 64, 512, 10), (512, 256, 256, 1000))
+    check_groups: int = 4  # groups a launch held against the plain version
+    big_group: int = 160  # rows of the repeated-query group (> 128)
+    engine_k: int = 100  # k of the pruned engines at the phase-2 size
+    small_doc_block: int = 64  # phase 3b's case where retirement shows
+    small_k: int = 10
+    sample_groups: int = 4  # phase 4: main-path groups held against plain
 
 
 def card_line() -> str:
@@ -124,7 +156,9 @@ def tiled_args(index):
     )
 
 
-def compare(name: str, got, want) -> float:
+def compare(name: str, got, want, quiet: bool = False) -> float:
+    """max |got - want|; raises unless it is within KERNEL_TOL of
+    max |want| (both finite and of one shape)."""
     import torch
 
     sync(got.device)
@@ -134,8 +168,9 @@ def compare(name: str, got, want) -> float:
     err = float((got - want).abs().max()) if got.numel() else 0.0
     scale = float(want.abs().max()) if want.numel() else 0.0
     rel = err / max(scale, 1e-30)
-    log(f"  {name}: max_abs_err={err!r} max_abs_plain={scale!r} "
-        f"rel={rel!r}")
+    if not quiet:
+        log(f"  {name}: max_abs_err={err!r} max_abs_plain={scale!r} "
+            f"rel={rel!r}")
     if rel > KERNEL_TOL:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (rel {rel} > {KERNEL_TOL})")
@@ -165,10 +200,7 @@ def check_kernels(dev, sizes: Sizes):
                             idx, c.queries.slice_rows(0, 2)))):
             args = tiled_args(ix)
             got = scatter_score(qw, **args)
-            want = scatter_score_ref(qw, **{
-                k: v for k, v in args.items()
-                if k not in ("block_chunk_start", "block_chunk_count")
-            })
+            want = scatter_score_ref(qw, **args)
             err = compare(f"scatter_score T={tb} D={db} C={cs}{tag}",
                           got, want)
             errs["scatter_score"] = max(errs["scatter_score"], err)
@@ -220,11 +252,382 @@ def check_exact(name: str, vals, ids, oracle, sample, k: int):
         raise AssertionError(f"{name}: not exact (overlap {ov}, rel {rel})")
 
 
+
+def compare_inf(name: str, got, want) -> float:
+    """``compare`` where the plain version may hold infinities: they must
+    sit at the same places with the same sign.  Quiet."""
+    import torch
+
+    sync(got.device)
+    fin = torch.isfinite(want)
+    if (got.shape != want.shape or not torch.equal(torch.isfinite(got), fin)
+            or not torch.equal(got[~fin], want[~fin])):
+        raise AssertionError(f"{name}: infinities differ from the plain "
+                             f"version's")
+    if not bool(fin.any()):
+        return 0.0
+    return compare(name, got[fin], want[fin], quiet=True)
+
+
+def tiled_runs(index):
+    return (index.block_chunk_start, index.block_chunk_count,
+            index.chunk_term_block, index.chunk_doc_block,
+            index.local_term, index.local_doc, index.value)
+
+
+def sweep_launches(index, qw, ub, groups, k_eff, theta=1.0, alive=None,
+                   tau0=None):
+    """The launches ``bmp_scan`` makes for ``groups`` (one per power-of-two
+    bucket, as the fused engine), each as ``(sel, order, ub_sorted, tau,
+    call)`` where ``call()`` launches the kernel on those inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+    from repro_torch.sched import planner
+
+    dev = qw.device
+    b = qw.shape[0]
+    tau0 = np.full(b, -np.inf, np.float32) if tau0 is None else tau0
+    out = []
+    for _, _, sel, tau in planner.bucketed_group_rows(groups, tau0):
+        sel = torch.from_numpy(sel).to(dev)
+        u = ub[sel]
+        order = torch.argsort(-u, dim=-1, stable=True).to(torch.int32)
+        us = u.gather(-1, order.long())
+        tau = torch.from_numpy(tau).to(dev)
+        q = qw[sel]
+        kw = dict(term_block=index.term_block, doc_block=index.doc_block,
+                  k_eff=k_eff, theta=theta, num_docs=index.num_docs)
+        call = (lambda q=q, order=order, us=us, tau=tau, kw=kw:
+                bmp_ops.bmp_sweep(q, order, us, tau, *tiled_runs(index),
+                                  alive, **kw))
+        out.append((sel, order, us, tau, call, kw))
+    return out
+
+
+def check_sweep(name, index, qw, launch, got, groups_to_check, alive=None):
+    """Hold ``groups_to_check`` groups of one ``bmp_sweep`` launch against
+    the plain version on the same order/ub_sorted/tau0: scores, heap and
+    tau within KERNEL_TOL, fetch sets and steps equal."""
+    import torch
+
+    from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
+    from repro_torch.sched.planner import PAD_TAU
+
+    sel, order, us, tau, _, kw = launch
+    err = 0.0
+    for g in range(min(groups_to_check, sel.shape[0])):
+        want = bmp_sweep_ref(qw[sel[g]], order[g], us[g], tau[g],
+                             *tiled_runs(index), alive, **kw)
+        tag = f"{name}, group {g} of {sel.shape[0]} x {sel.shape[1]} rows"
+        e = compare(f"{tag} scores", got[0][g], want[0], quiet=True)
+        e = max(e, compare_inf(f"{tag} heap", got[1][g], want[1]))
+        real = tau[g] < PAD_TAU  # pad rows keep PAD_TAU in both
+        compare_inf(f"{tag} tau",
+                    torch.maximum(tau[g], got[1][g][:, -1])[real],
+                    torch.maximum(tau[g], want[1][:, -1])[real])
+        same = (torch.equal(got[2][g].bool(), want[2])
+                and torch.equal(got[3][g].bool(), want[3])
+                and int(got[4][g, 0]) == want[4])
+        if not same:
+            raise AssertionError(f"{tag}: fetch sets or steps differ from "
+                                 f"the plain version's")
+        log(f"  {tag}: blocks {int(want[2].sum())}/{want[2].numel()}, "
+            f"chunks {int(want[3].sum())}/{want[3].numel()}, steps "
+            f"{want[4]} equal; scores/heap/tau max_abs_err={e!r} (max "
+            f"|plain| {float(want[0].abs().max())!r})")
+        err = max(err, e)
+    return err
+
+
+def oracle_f64(docs, queries, sample):
+    """Float64 scores [N, len(sample)] of the sampled queries."""
+    import torch
+
+    from repro_torch.core import SparseBatch
+
+    sel = torch.from_numpy(sample).to(docs.device)
+    return torch.sparse.mm(
+        docs_csr(docs, torch.float64),
+        SparseBatch(queries.term_ids[sel], queries.values[sel],
+                    queries.vocab_size).to_dense(torch.float64).T,
+    )
+
+
+def check_pruned(dev, sizes: Sizes):
+    """Phase 2b: ``bmp_scan`` against its plain version on a reordered
+    topical corpus, two geometries; the pruned engines at this size against
+    float64; ``scatter_score`` over partial chunk runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core import index as index_mod
+    from repro_torch.core import scoring
+    from repro_torch.data.synthetic import make_topical_corpus
+    from repro_torch.kernels.scatter_score import (
+        scatter_score, scatter_score_ref,
+    )
+    from repro_torch.sched import planner
+
+    c = make_topical_corpus(sizes.check_docs, sizes.check_queries,
+                            vocab_size=sizes.vocab, seed=12, device=dev)
+    docs, _ = index_mod.reorder_docs(c.docs, "df-signature")
+    b = sizes.check_queries
+    err = 0.0
+    for tb, db, cs, k in sizes.pruned_geometries:
+        idx = index_mod.build_tiled_index(docs, tb, db, cs,
+                                          store_term_block_max=True)
+        qw = scoring._pad_queries_to_term_blocks(c.queries, idx)
+        ub = scoring.block_upper_bounds(c.queries, idx, qw=qw)
+        k_eff = min(k, idx.num_docs)
+        tag = f"bmp_scan T={tb} D={db} C={cs} k={k}"
+        plan = planner.plan_micro_batches(
+            ub.cpu().numpy(), idx.block_chunk_count.cpu().numpy())
+        alive = torch.ones(idx.num_docs, dtype=torch.bool, device=dev)
+        alive[::7] = False
+        cases = [("flat", [np.arange(b)], None, b)]
+        cases.append((f"fused ({plan.num_groups} groups)", plan.groups, None,
+                      sizes.check_groups))
+        cases.append(("flat, 1 doc in 7 deleted", [np.arange(b)], alive, b))
+        for name, groups, alv, n_check in cases:
+            for launch in sweep_launches(idx, qw, ub, groups, k_eff,
+                                         alive=alv):
+                got = launch[4]()
+                err = max(err, check_sweep(f"{tag} {name}", idx, qw, launch,
+                                           got, n_check, alv))
+        # A group above the TPU kernel's 128-row cap: the queries repeated.
+        rows = torch.arange(sizes.big_group, device=dev) % b
+        (launch,) = sweep_launches(idx, qw[rows], ub[rows],
+                                   [np.arange(sizes.big_group)], k_eff)
+        err = max(err, check_sweep(f"{tag} {sizes.big_group} rows", idx,
+                                   qw[rows], launch, launch[4](), 1))
+        # scatter_score over the chunk runs of every third block only.
+        keep = torch.arange(idx.num_doc_blocks, device=dev) % 3 == 0
+        args = dict(tiled_args(idx), block_chunk_count=(
+            idx.block_chunk_count * keep.to(torch.int32)))
+        compare(f"scatter_score T={tb} D={db} C={cs} partial runs",
+                scatter_score(qw, **args), scatter_score_ref(qw, **args))
+
+    # The pruned engines at this size, against float64.
+    sample = np.arange(b)
+    oracle = oracle_f64(c.docs, c.queries, sample)
+    cfg = dict(k=sizes.engine_k, doc_block=64, reorder_docs=True,
+               reorder_method="df-signature")
+    for engine, extra in (("tiled-pruned", {}),
+                          ("tiled-pruned", {"traversal": "two-pass"}),
+                          ("tiled-bmp-grouped", {})):
+        eng = RetrievalEngine(c.docs, RetrievalConfig(engine=engine, **cfg,
+                                                      **extra), device=dev)
+        vals, ids = eng.search(c.queries)
+        st = eng.prune_stats(c.queries)
+        log(f"  {engine} {extra}: blocks {st.blocks_scored}/"
+            f"{st.num_doc_blocks}, chunks {st.chunks_scored}/"
+            f"{st.chunks_total}, steps {st.sweep_steps}")
+        check_exact(f"{engine} {extra}", vals, ids, oracle, sample,
+                    sizes.engine_k)
+    approx = RetrievalEngine(c.docs, RetrievalConfig(
+        engine="tiled-pruned-approx", theta=0.8, **cfg), device=dev)
+    metrics = approx.evaluate(c.queries, c.qrels, k=sizes.engine_k)
+    log(f"  tiled-pruned-approx theta=0.8: {metrics}")
+    return err
+
+
+def time_search(name, eng, queries, k, rounds):
+    """A warm-up and ``rounds`` timed searches (host clock; results come
+    back as numpy, so each call ends on the host) -> (values, ids, ms: the
+    median round, or the warm-up call when ``rounds`` is 0)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    vals, ids = eng.search(queries, k=k)
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        vals, ids = eng.search(queries, k=k)
+        times.append(time.perf_counter() - t0)
+    if times:
+        ms = 1e3 * float(np.median(times))
+        b = queries.batch
+        log(f"  {name}: search {ms!r} ms/batch (median of {rounds}, all "
+            f"{[1e3 * t for t in times]!r}; warm-up {1e3 * first!r}), "
+            f"{b / ms * 1e3!r} QPS at the median, "
+            f"{b * rounds / sum(times)!r} QPS over the whole window of "
+            f"{rounds} rounds")
+    else:
+        ms = 1e3 * first
+        log(f"  {name}: one search call {ms!r} ms")
+    if vals.shape != (queries.batch, min(k, eng.num_docs)):
+        raise AssertionError(f"{name}: result shape {vals.shape}")
+    if not np.all(np.isfinite(vals)):
+        raise AssertionError(f"{name}: non-finite scores")
+    return vals, ids, ms
+
+
+def serve_pruned(dev, sizes: Sizes, msmarco):
+    """Phase 3b: the fused engine at serve_1m width on a reordered topical
+    corpus (its launch counter zeroed before and read after each case),
+    then at doc_block 64 / k = 10, then on the unclustered corpus."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.data.synthetic import make_topical_corpus
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+
+    t0 = time.perf_counter()
+    corpus = make_topical_corpus(sizes.docs, sizes.queries,
+                                 vocab_size=sizes.vocab, seed=0, device=dev)
+    sync(dev)
+    log(f"  topical corpus on device: {time.perf_counter() - t0:.3f} s; "
+        f"{int((corpus.docs.term_ids >= 0).sum()) / sizes.docs:.2f} nnz/doc, "
+        f"K={corpus.docs.max_terms}")
+    g = torch.Generator().manual_seed(6)
+    sample = torch.randperm(sizes.queries, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle = oracle_f64(corpus.docs, corpus.queries, sample)
+    base = dict(engine="tiled-bmp-fused", reorder_docs=True,
+                reorder_method="df-signature")
+    out = {}
+    for case, docs, queries, orc, k, extra, rounds in (
+            ("main", corpus.docs, corpus.queries, oracle, sizes.k, {},
+             sizes.rounds),
+            (f"doc_block {sizes.small_doc_block}, k={sizes.small_k}",
+             corpus.docs, corpus.queries, oracle, sizes.small_k,
+             {"doc_block": sizes.small_doc_block}, 0),
+            ("unclustered (make_msmarco_like)", msmarco.docs,
+             msmarco.queries, None, sizes.k, {}, 0)):
+        t0 = time.perf_counter()
+        eng = RetrievalEngine(docs, RetrievalConfig(k=k, **base, **extra),
+                              device=dev)
+        sync(dev)
+        log(f"  tiled-bmp-fused, {case}: index build with reordering "
+            f"{time.perf_counter() - t0:.3f} s, {eng.index_bytes()} B")
+        torch.cuda.reset_peak_memory_stats(dev)
+        bmp_ops.launches = 0
+        vals, ids, ms = time_search(f"tiled-bmp-fused, {case}", eng,
+                                    queries, k, rounds)
+        launches = bmp_ops.launches
+        log(f"  tiled-bmp-fused, {case}: bmp_scan launches {launches}, peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev)} B")
+        if launches <= 0:
+            raise AssertionError(f"bmp_scan was not launched ({case})")
+        if orc is None:
+            orc = oracle_f64(docs, queries, sample)
+        check_exact(f"tiled-bmp-fused, {case}", vals, ids, orc, sample, k)
+        _, st = bmp_ops.bmp_scan(queries, eng._index, k, return_stats=True,
+                                 plan_cache=eng.config.plan_cache)
+        buckets = collections.Counter(st.padded_group_sizes)
+        log(f"  tiled-bmp-fused, {case}: {st.num_groups} groups, buckets "
+            f"{dict(sorted(buckets.items()))}, launches "
+            f"{st.kernel_launches}; blocks {st.blocks_scored_union}/"
+            f"{st.num_doc_blocks}, chunks {st.chunks_scored_union}/"
+            f"{st.chunks_total} (union), steps {st.sweep_steps}; chunk work "
+            f"{st.chunk_work} live, {st.padded_chunk_work} padded, against "
+            f"{st.flat_chunk_work(st.chunks_total)} for every chunk x B")
+        out[case] = dict(engine=eng, vals=vals, ids=ids, ms=ms,
+                         launches=launches, stats=st, queries=queries)
+    main = out["main"]
+    exact = RetrievalEngine(corpus.docs, RetrievalConfig(engine="tiled",
+                                                         k=sizes.k),
+                            device=dev)
+    tv, ti = exact.search(corpus.queries, k=sizes.k)
+    ov = overlap(main["ids"], ti, sizes.k)
+    rel = float(np.max(np.abs(main["vals"] - tv)
+                       / np.maximum(np.abs(tv), 1e-30)))
+    log(f"  tiled-bmp-fused vs tiled on the topical corpus: overlap@"
+        f"{sizes.k} = {ov!r}, max rel = {rel!r}")
+    if ov < OVERLAP_MIN or rel > SCORE_RTOL:
+        raise AssertionError("tiled-bmp-fused and tiled disagree")
+    main["corpus"] = corpus
+    return main
+
+
+def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
+    """Phase 4 for ``bmp_scan``: a sample of the main path's groups against
+    the plain version, then times at those shapes, the bound of the work
+    they did, and the kernel time of a whole search call."""
+    import numpy as np
+
+    from repro_torch.core import scoring
+    from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
+    from repro_torch.sched import planner
+
+    eng, queries = main["engine"], main["queries"]
+    idx = eng._index
+    k_eff = min(sizes.k, idx.num_docs)
+    t0 = time.perf_counter()
+    qw = scoring._pad_queries_to_term_blocks(queries, idx)
+    ub = scoring.block_upper_bounds(queries, idx, qw=qw)
+    sync(dev)
+    bounds_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = planner.plan_micro_batches(ub.cpu().numpy(),
+                                      idx.block_chunk_count.cpu().numpy())
+    plan_s = time.perf_counter() - t0
+    launches = sweep_launches(idx, qw, ub, plan.groups, k_eff)
+    t0 = time.perf_counter()
+    for launch in launches:
+        launch[4]()
+    sync(dev)
+    all_s = time.perf_counter() - t0
+    log(f"  a search call's parts: bounds {1e3 * bounds_s!r} ms, plan "
+        f"{1e3 * plan_s!r} ms, {len(launches)} bmp_scan launches "
+        f"{1e3 * all_s!r} ms (host clock, synchronised)")
+    # The sample: the first groups of the bucket with the most rows.
+    tau0 = np.full(qw.shape[0], -np.inf, np.float32)
+    *_, (_, entries, _, _) = planner.bucketed_group_rows(plan.groups, tau0)
+    (sample,) = sweep_launches(
+        idx, qw, ub, [g for _, g in entries[: sizes.sample_groups]], k_eff)
+    sel_full, order, us, tau, _, kw = sample
+    got = sample[4]()
+    err = max(err, check_sweep("bmp_scan at serve_1m", idx, qw, sample, got,
+                               sizes.sample_groups))
+    kernel_ms = event_ms(sample[4], sizes.reps, dev)
+    plain = (lambda: [bmp_sweep_ref(qw[sel_full[g]], order[g], us[g], tau[g],
+                                    *tiled_runs(idx), None, **kw)
+                      for g in range(sel_full.shape[0])])
+    plain_ms = event_ms(plain, 1, dev)
+    bsc, csc = got[2].bool(), got[3].bool()
+    gs, rows = sel_full.shape
+    live = (idx.local_doc >= 0).sum(dim=1)
+    postings = int(sum(int(live[csc[g]].sum()) for g in range(gs)))
+    nbytes = (int(csc.sum()) * idx.chunk_size * 12  # chunk lines fetched
+              + int(bsc.sum()) * rows * idx.doc_block * 4  # windows written
+              + gs * rows * k_eff * 4  # heaps written
+              + gs * rows * qw.shape[1] * 4)  # query weights read
+    flops = 2.0 * postings * rows
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    row = {
+        "name": "bmp_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/bmp_scan.cu",
+        "replaces": "src/repro/kernels/bmp_scan/kernel.py:297",
+        "launches": main["launches"], "max_abs_err": err, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+    log(f"  bmp_scan on {gs} groups x {rows} rows of the main path: kernel "
+        f"{kernel_ms!r} ms, plain {plain_ms!r} ms, bound "
+        f"{row['bound_ms']!r} ms ({row['bound_by']}: {nbytes} B, {flops!r} "
+        f"flop), library: none")
+    all_ms = event_ms(lambda: [launch[4]() for launch in launches], 1, dev)
+    log(f"  bmp_scan, every launch of one search call: {all_ms!r} ms "
+        f"(CUDA events)")
+    return row
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
 
-    from repro_torch.core import RetrievalConfig, RetrievalEngine, SparseBatch
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
     from repro_torch.core.topk import topk_two_stage
     from repro_torch.data.synthetic import make_msmarco_like
     from repro_torch.kernels import build
@@ -246,6 +649,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
     log(f"phase 2: kernels vs plain, {sizes.check_docs} docs x "
         f"{sizes.check_queries} queries, V={sizes.vocab}")
     errs = check_kernels(dev, sizes)
+    log(f"phase 2b: bmp_scan vs plain and the pruned engines, "
+        f"{sizes.check_docs} topical docs x {sizes.check_queries} queries")
+    errs["bmp_scan"] = check_pruned(dev, sizes)
 
     # 3. main path
     log(f"phase 3: main path, {sizes.docs} docs x {sizes.queries} queries, "
@@ -271,22 +677,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
         log(f"  {name}: index build {time.perf_counter() - t0:.3f} s, "
             f"{eng.index_bytes()} B ({eng.index_bytes() / sizes.docs:.1f} "
             f"B/doc)")
-        results[name] = eng.search(corpus.queries, k=sizes.k)  # warm-up
-        times = []
-        for _ in range(sizes.rounds):
-            t0 = time.perf_counter()
-            vals, ids = eng.search(corpus.queries, k=sizes.k)
-            times.append(time.perf_counter() - t0)
-        ms = 1e3 * float(np.median(times))
-        log(f"  {name}: search {ms!r} ms/batch (median of {sizes.rounds}, "
-            f"all {[1e3 * t for t in times]!r}), "
-            f"{sizes.queries / ms * 1e3!r} QPS at the median, "
-            f"{sizes.queries * sizes.rounds / sum(times)!r} QPS over the "
-            f"whole window of {sizes.rounds} rounds")
-        if vals.shape != (sizes.queries, sizes.k):
-            raise AssertionError(f"{name}: result shape {vals.shape}")
-        if not np.all(np.isfinite(vals)):
-            raise AssertionError(f"{name}: non-finite scores")
+        vals, ids, _ = time_search(name, eng, corpus.queries, sizes.k,
+                                   sizes.rounds)
+        results[name] = vals, ids
         engines[name] = eng
     launches = {"scatter_score": scatter_ops.launches,
                 "ell_gather": ell_ops.launches}
@@ -298,12 +691,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     g = torch.Generator().manual_seed(5)
     sample = torch.randperm(sizes.queries, generator=g)[
         :sizes.oracle_queries].sort().values.numpy()
-    sel = torch.from_numpy(sample).to(dev)
-    oracle = torch.sparse.mm(
-        docs_csr(corpus.docs, torch.float64),
-        SparseBatch(corpus.queries.term_ids[sel], corpus.queries.values[sel],
-                    sizes.vocab).to_dense(torch.float64).T,
-    )
+    oracle = oracle_f64(corpus.docs, corpus.queries, sample)
     for name, (vals, ids) in results.items():
         check_exact(name, vals, ids, oracle, sample, sizes.k)
     (tv, ti), (ev, ei) = results["tiled"], results["ell"]
@@ -312,6 +700,11 @@ def run(dev, sizes: Sizes) -> list[dict]:
     log(f"  tiled vs ell: overlap@{sizes.k} = {ov!r}, max rel = {rel!r}")
     if ov < OVERLAP_MIN or rel > SCORE_RTOL:
         raise AssertionError("tiled and ell disagree")
+
+    # 3b. the pruned path
+    log(f"phase 3b: the pruned path, tiled-bmp-fused, {sizes.docs} topical "
+        f"docs x {sizes.queries} queries, k={sizes.k}")
+    pruned = serve_pruned(dev, sizes, corpus)
 
     # 4. kernels vs plain at the main path's shapes, then times per kernel
     log("phase 4: kernels vs plain at the main shapes; times (CUDA events)")
@@ -323,9 +716,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     specs = {
         "scatter_score": dict(
             kernel=lambda: scatter_ops.scatter_score(qw_t, **tiled_args(tiled)),
-            plain=lambda: scatter_score_ref(qw_t, **{
-                k: v for k, v in tiled_args(tiled).items()
-                if k not in ("block_chunk_start", "block_chunk_count")}),
+            plain=lambda: scatter_score_ref(qw_t, **tiled_args(tiled)),
             bytes=(tiled.num_chunks * tiled.chunk_size * 12
                    + tiled.num_chunks * 4 + tiled.num_doc_blocks * 8
                    + b * qw_t.shape[1] * 4
@@ -375,7 +766,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
             f"library {library_ms!r} ms, bound {row['bound_ms']!r} ms "
             f"({row['bound_by']}: {s['bytes']} B, {flops!r} flop)")
         rows.append(row)
-    log(f"peak device memory: {torch.cuda.max_memory_allocated(dev)} B")
+    rows.append(bmp_row(dev, sizes, pruned, errs["bmp_scan"]))
+    log(f"peak device memory since phase 3b's last case: "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
     return rows
 
 

@@ -349,6 +349,44 @@ def build_ell_index(
     return EllIndex(terms, values, n, v)
 
 
+def reorder_docs(
+    docs: SparseBatch, method: str = "signature"
+) -> tuple[SparseBatch, torch.Tensor]:
+    """Cluster-friendly document permutation, on ``docs``' device
+    (:func:`repro.core.index.reorder_docs`, the same permutation).
+
+    ``"signature"`` stably sorts documents by their top-weighted term id;
+    ``"df-signature"`` by the highest-document-frequency term among each
+    document's 8 top-weighted terms (the first such in ascending weight
+    order on a tie of frequencies); ``"none"`` keeps the order.  Empty
+    documents go last.  Returns the permuted batch and ``perm`` (int64,
+    on the device) with ``new_row[i] = old_row[perm[i]]``.
+    """
+    ids, vals = docs.term_ids, docs.values
+    dev, v = docs.device, docs.vocab_size
+    live = ids >= 0
+    masked = torch.where(live, vals, float("-inf"))
+    if method == "none":
+        perm = torch.arange(docs.batch, device=dev)
+    elif method == "signature":
+        top = ids.gather(1, masked.argmax(dim=1, keepdim=True))[:, 0]
+        sig = torch.where(top >= 0, top, v)
+        perm = torch.sort(sig, stable=True).indices
+    elif method == "df-signature":
+        df = torch.bincount(torch.where(live, ids, v).reshape(-1).long(),
+                            minlength=v + 1)
+        df[v] = -1  # padding never wins
+        n_top = min(8, ids.shape[1])
+        top_slots = torch.sort(masked, dim=1, stable=True).indices[:, -n_top:]
+        cand = ids.gather(1, top_slots).long()
+        cand = torch.where(cand >= 0, cand, v)
+        sig = cand.gather(1, df[cand].argmax(dim=1, keepdim=True))[:, 0]
+        perm = torch.sort(sig, stable=True).indices
+    else:
+        raise ValueError(f"unknown reorder method {method!r}")
+    return SparseBatch(ids[perm], vals[perm], v), perm
+
+
 def filter_tiled_index(index: TiledIndex, queries: SparseBatch) -> TiledIndex:
     """Query-aware tile skipping (exact): drop chunks whose term block
     carries zero query mass.  Every doc block keeps at least one chunk (its

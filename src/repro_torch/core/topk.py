@@ -56,6 +56,29 @@ def topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return _topk_lower_key(scores, min(k, scores.shape[-1]))
 
 
+def partial_topk_threshold(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-row k-th best score over a subset of the collection (others
+    masked to ``-inf``): at least k documents score ``>=`` it, so a
+    document provably below it cannot enter the exact top-k
+    (:func:`repro.core.topk.partial_topk_threshold`)."""
+    k = min(k, scores.shape[-1])
+    return torch.topk(scores, k, dim=-1).values[..., -1]
+
+
+def update_topk_heap(heap_vals: torch.Tensor, new_vals: torch.Tensor,
+                     k: int | None = None):
+    """Fold newly scored values [..., m] into a descending top-k value heap
+    [..., k] (``-inf`` in unfilled slots) -> (heap, its k-th value), the
+    running threshold of the BMP sweep
+    (:func:`repro.core.topk.update_topk_heap`).  Values only: any exact
+    selection returns ``lax.top_k``'s values, whatever its tie order."""
+    if k is None:
+        k = heap_vals.shape[-1]
+    merged = torch.cat([heap_vals, new_vals], dim=-1)
+    heap = torch.topk(merged, k, dim=-1).values
+    return heap, heap[..., -1]
+
+
 def certify_tau(vals, k_req: int, prev=None) -> np.ndarray:
     """Advance a per-query certified threshold from a top-k result.
 

@@ -3,8 +3,9 @@
 The same laws as :mod:`repro.data.synthetic` (vocab 30,522; ~127.2 nnz/doc,
 sigma 34.3; ~49.9 nnz/query, sigma 18.2; log1p-ReLU-shaped weights in
 [0.01, 3.5]; Zipf(1.07) term popularity; queries seeded from a "relevant"
-document plus Zipf expansion terms), drawn from an explicit
-``torch.Generator`` on the target device and vectorised over documents.
+document plus Zipf expansion terms; and the topical corpus of
+:func:`make_topical_corpus`), drawn from an explicit ``torch.Generator`` on
+the target device and vectorised over documents.
 
 Sampling ``k`` distinct terms with probabilities ``p`` — numpy's
 successive sampling without replacement — is drawn here as Gumbel-top-k:
@@ -173,3 +174,77 @@ def make_msmarco_like(
     queries, qrels = make_queries_with_qrels(docs, num_queries,
                                              seed=seed + 1, device=device)
     return SyntheticCorpus(docs, queries, qrels, vocab_size)
+
+
+def make_topical_corpus(
+    num_docs: int,
+    num_queries: int,
+    vocab_size: int = MSMARCO_VOCAB,
+    num_topics: int = 40,
+    seed: int = 0,
+    doc_terms: tuple[float, float] = (DOC_TERMS_MEAN, DOC_TERMS_STD),
+    query_terms: int = 40,
+    shared_frac: float = 0.3,
+    shared_vocab_frac: float = 0.03,
+    topic_vocab: int = 1200,
+    device="cuda",
+) -> SyntheticCorpus:
+    """Topically clustered corpus with IDF-correlated weights, the laws of
+    :func:`repro.data.synthetic.make_topical_corpus`.
+
+    Each document picks a topic uniformly and ``clip(N(mean, std), 8, V)``
+    terms: ``shared_frac`` of them from a Zipf-weighted shared head (the
+    first ``max(int(V * shared_vocab_frac), 16)`` ids) at stopword-grade
+    weights U(0.05, 0.4), the rest uniformly from its topic's pool of
+    ``topic_vocab`` ids at ``clip(log1p|N(1, 1.2)|, 0.05, 3.5)``.  A query
+    copies up to ``query_terms`` terms of a uniformly drawn relevant
+    document, weights jittered by U(0.7, 1.3).  Documents come in shuffled
+    topic order: index-side reordering (``reorder_docs``) has to recover
+    the clusters.
+    """
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = vocab_size
+    shared = max(int(v * shared_vocab_frac), 16)
+    n_pool = min(topic_vocab, v - shared)
+    pools = shared + _gumbel_top(torch.zeros(v - shared, device=dev),
+                                 num_topics, n_pool, g)  # [T, n_pool]
+    topics = torch.randint(num_topics, (num_docs,), generator=g, device=dev)
+    k = (torch.randn(num_docs, generator=g, device=dev, dtype=torch.float64)
+         * doc_terms[1] + doc_terms[0]).clamp(8, v).long()
+    k_shared = (k.double() * shared_frac).long()
+    n_sh = k_shared.clamp(max=shared)
+    n_tp = (k - k_shared).clamp(max=n_pool)
+
+    sh_max = max(int(n_sh.max()) if num_docs else 0, 1)
+    sh = _gumbel_top(_zipf_log_probs(shared, 1.07, dev), num_docs, sh_max, g)
+    sh = torch.where(torch.arange(sh_max, device=dev)[None, :]
+                     < n_sh[:, None], sh, v)
+    tp_max = max(int(n_tp.max()) if num_docs else 0, 1)
+    slots = _gumbel_top(torch.zeros(n_pool, device=dev), num_docs, tp_max, g)
+    tp = pools[topics[:, None], slots]
+    tp = torch.where(torch.arange(tp_max, device=dev)[None, :]
+                     < n_tp[:, None], tp, v)
+    ids = torch.cat([sh, tp], dim=1)
+    stop_w = 0.05 + 0.35 * torch.rand(ids.shape, generator=g, device=dev)
+    z = torch.randn(ids.shape, generator=g, device=dev) * 1.2 + 1.0
+    topic_w = torch.log1p(z.abs()).clamp(0.05, 3.5)
+    vals = torch.where(ids < shared, stop_w, topic_w)
+    d_ids, d_vals = _pack_rows(ids, vals, v)
+    docs = SparseBatch(d_ids, d_vals, v)
+
+    rel = torch.randint(num_docs, (num_queries,), generator=g, device=dev)
+    q_ids = d_ids[rel].long()
+    q_live = q_ids >= 0
+    width = q_ids.shape[1]
+    keys = torch.rand((num_queries, width), generator=g, device=dev)
+    pick = torch.topk(torch.where(q_live, keys, -1.0), width, dim=1).indices
+    n_pick = q_live.sum(dim=1).clamp(max=query_terms)
+    keep = torch.arange(width, device=dev)[None, :] < n_pick[:, None]
+    jitter = 0.7 + 0.6 * torch.rand((num_queries, width), generator=g,
+                                    device=dev)
+    p_ids = torch.where(keep, q_ids.gather(1, pick), v)
+    p_vals = d_vals[rel].gather(1, pick) * jitter
+    q_ids, q_vals = _pack_rows(p_ids, p_vals, v)
+    qrels = [{int(r)} for r in rel.cpu().tolist()]
+    return SyntheticCorpus(docs, SparseBatch(q_ids, q_vals, v), qrels, v)

@@ -38,12 +38,15 @@ def scatter_score(
     doc_block: int,
     num_doc_blocks: int,
 ) -> torch.Tensor:
-    """Exact f32 [B, num_doc_blocks * doc_block] scores of a TiledIndex."""
+    """Exact f32 [B, num_doc_blocks * doc_block] scores of the chunks in
+    the runs ``block_chunk_start/count`` of a TiledIndex (0 in blocks
+    whose runs are empty)."""
     global launches
     if qw.device.type == "cpu":
         return scatter_score_ref(
             qw, local_term, local_doc, value, chunk_term_block,
-            chunk_doc_block, term_block=term_block, doc_block=doc_block,
+            chunk_doc_block, block_chunk_start, block_chunk_count,
+            term_block=term_block, doc_block=doc_block,
             num_doc_blocks=num_doc_blocks,
         )
     if qw.device.type != "cuda":

@@ -7,14 +7,18 @@ dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
-products summed in another order.
+products summed in another order.  The ``bmp_scan`` sweep must also fetch
+exactly the plain version's blocks and chunks in the same number of steps.
 """
 import pytest
 import torch
 
 from repro_torch.core import index as tidx
+from repro_torch.core import scoring
 from repro_torch.core.engine import RetrievalConfig, RetrievalEngine
-from repro_torch.data.synthetic import make_msmarco_like
+from repro_torch.data.synthetic import make_msmarco_like, make_topical_corpus
+from repro_torch.kernels.bmp_scan import ops as bmp_ops
+from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
 from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
 from repro_torch.kernels.scatter_score import ops as scatter_ops
@@ -31,9 +35,14 @@ def cuda():
 
 
 def _close(got, want):
+    """Within TOL of max |want| where finite; the same infinities."""
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    assert err <= TOL * want.abs().max().item(), err
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[~fin], want[~fin])
+    if fin.any():
+        err = (got[fin] - want[fin]).abs().max().item()
+        assert err <= TOL * want[fin].abs().max().item(), err
 
 
 def _tiled_args(t):
@@ -58,7 +67,8 @@ def test_scatter_score_kernel_matches_plain(cuda, tb, db, cs, b):
             qw, *_tiled_args(ix), ix.block_chunk_start, ix.block_chunk_count,
             term_block=tb, doc_block=db, num_doc_blocks=ix.num_doc_blocks)
         assert scatter_ops.launches == before + 1
-        want = scatter_score_ref(qw, *_tiled_args(ix), term_block=tb,
+        want = scatter_score_ref(qw, *_tiled_args(ix), ix.block_chunk_start,
+                                 ix.block_chunk_count, term_block=tb,
                                  doc_block=db,
                                  num_doc_blocks=ix.num_doc_blocks)
         _close(got, want)
@@ -83,11 +93,108 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(scatter_ops, "scatter_score_ref", boom)
     monkeypatch.setattr(ell_ops, "ell_gather_ref", boom)
+    monkeypatch.setattr(bmp_ops, "bmp_sweep_ref", boom)
     c = make_msmarco_like(500, 8, vocab_size=2000, seed=1, device=cuda)
-    for name in ("tiled", "ell"):
+    for name in ("tiled", "ell", "tiled-pruned", "tiled-bmp-fused"):
         v, i = RetrievalEngine(c.docs, RetrievalConfig(engine=name, k=10),
                                device=cuda).search(c.queries)
         assert v.shape == (8, 10)
     e = tidx.build_ell_index(c.docs)
     with pytest.raises(TypeError):
         ell_ops.ell_gather(c.queries.to_dense(), e.terms.long(), e.values)
+
+
+def test_scatter_score_kernel_honours_partial_runs(cuda):
+    """Runs over a subset of blocks: the kernel scores those blocks as the
+    full runs do and leaves 0 elsewhere, as its plain version."""
+    c = make_msmarco_like(2001, 16, vocab_size=3000, seed=3, device=cuda)
+    t = tidx.build_tiled_index(c.docs, 256, 32, 64)
+    qw = torch.nn.functional.pad(c.queries.to_dense(),
+                                 (0, t.num_term_blocks * 256 - 3000))
+    keep = torch.arange(t.num_doc_blocks, device=cuda) % 3 == 1
+    count = t.block_chunk_count * keep.int()
+    args = (qw, *_tiled_args(t), t.block_chunk_start)
+    kw = dict(term_block=256, doc_block=32, num_doc_blocks=t.num_doc_blocks)
+    got = scatter_ops.scatter_score(*args, count, **kw)
+    full = scatter_ops.scatter_score(*args, t.block_chunk_count, **kw)
+    cols = keep.repeat_interleave(32)
+    assert torch.equal(got[:, cols], full[:, cols])
+    assert not got[:, ~cols].any()
+    _close(got, scatter_score_ref(*args, count, **kw))
+
+
+def _sweep_inputs(cuda, n_docs, b, db, k, cs=64, seed=0):
+    c = make_topical_corpus(n_docs, b, vocab_size=4000, num_topics=8,
+                            topic_vocab=300, seed=seed, device=cuda)
+    docs, _ = tidx.reorder_docs(c.docs, "df-signature")
+    t = tidx.build_tiled_index(docs, 256, db, cs, store_term_block_max=True)
+    qw = scoring._pad_queries_to_term_blocks(c.queries, t)
+    ub = scoring.block_upper_bounds(c.queries, t, qw=qw)
+    order = torch.argsort(-ub, dim=-1, stable=True)
+    return t, qw, order.int(), ub.gather(-1, order)
+
+
+def _runs(t):
+    return (t.block_chunk_start, t.block_chunk_count, t.chunk_term_block,
+            t.chunk_doc_block, t.local_term, t.local_doc, t.value)
+
+
+@pytest.mark.parametrize("db,k,groups,theta,warm,dead", [
+    (16, 5, [[0, 1, 2], [3], [4, 5, 6, 7]], 1.0, False, False),
+    (64, 40, [[0, 1, 2, 3, 4, 5, 6, 7]], 0.8, True, True),
+    (32, 10, [list(range(40))], 1.0, False, True),  # one 64-row group
+])
+def test_bmp_sweep_kernel_matches_plain(cuda, db, k, groups, theta, warm,
+                                        dead):
+    b = max(max(g) for g in groups) + 1
+    t, qw, order, ub_sorted = _sweep_inputs(cuda, 1500, b, db, k)
+    size = max(1 << (len(g) - 1).bit_length() for g in groups)
+    sel = torch.tensor([g + [0] * (size - len(g)) for g in groups],
+                       device=cuda)
+    tau0 = torch.full(sel.shape, float("-inf"), device=cuda)
+    if warm:
+        tau0[:, 0] = 2.0
+    for i, g in enumerate(groups):
+        tau0[i, len(g):] = 3.4e38 / 4  # PAD_TAU
+    alive = None
+    if dead:
+        alive = torch.ones(t.num_docs, dtype=torch.bool, device=cuda)
+        alive[::7] = False
+    kw = dict(term_block=256, doc_block=db, k_eff=k, theta=theta,
+              num_docs=t.num_docs)
+    before = bmp_ops.launches
+    got = bmp_ops.bmp_sweep(qw[sel], order[sel], ub_sorted[sel], tau0,
+                            *_runs(t), alive, **kw)
+    assert bmp_ops.launches == before + 1
+    torch.cuda.synchronize()
+    for gi in range(len(groups)):
+        want = bmp_sweep_ref(qw[sel[gi]], order[sel[gi]],
+                             ub_sorted[sel[gi]], tau0[gi], *_runs(t), alive,
+                             **kw)
+        _close(got[0][gi], want[0])
+        _close(got[1][gi], want[1])
+        assert torch.equal(got[2][gi].bool(), want[2])
+        assert torch.equal(got[3][gi].bool(), want[3])
+        assert int(got[4][gi, 0]) == want[4]
+
+
+@pytest.mark.parametrize("engine", ["tiled-pruned", "tiled-bmp-grouped",
+                                    "tiled-bmp-fused"])
+@pytest.mark.parametrize("reorder", [False, True])
+def test_pruned_engines_on_the_card_match_tiled(cuda, engine, reorder):
+    c = make_topical_corpus(3000, 24, vocab_size=4000, num_topics=8,
+                            topic_vocab=300, seed=2, device=cuda)
+    geo = dict(k=20, term_block=256, doc_block=32, chunk_size=64)
+    exact = RetrievalEngine(c.docs, RetrievalConfig(engine="tiled", **geo),
+                            device=cuda).search(c.queries)
+    eng = RetrievalEngine(c.docs, RetrievalConfig(
+        engine=engine, reorder_docs=reorder, reorder_method="df-signature",
+        **geo), device=cuda)
+    before = bmp_ops.launches
+    v, i = eng.search(c.queries)
+    assert bmp_ops.launches > before
+    if reorder:  # other blocks, so sums in another order
+        torch.testing.assert_close(torch.from_numpy(v),
+                                   torch.from_numpy(exact[0]))
+    else:  # scored blocks carry scatter_score's very bits (the same fold)
+        assert (v == exact[0]).all() and (i == exact[1]).all()

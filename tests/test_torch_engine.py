@@ -2,32 +2,22 @@
 
 Both packages search the same numpy corpus (``repro.data.synthetic``).
 Top-k values must be allclose (rtol 1e-5, atol 1e-6: f32 sums in another
-order) and ids equal, compared tie-aware: inside a run of reference values
-closer than that tolerance (an f32 near-tie, which the two packages may
-order either way) only the set of ids must match, and in the run that
-reaches the k-th slot — which may go on past the cut — each port id must
-carry its float64 score instead.
+order) and ids equal, compared tie-aware (``_torch_parity.
+assert_same_topk``).
 """
 import numpy as np
 import pytest
-import torch
 
+from _torch_parity import RTOL, ATOL, assert_same_topk, port_batch
 from repro.core import engine as jeng
 from repro.core import scoring as jscoring
 from repro.data.synthetic import make_msmarco_like
 from repro_torch.core import engine as teng
-from repro_torch.core.sparse import SparseBatch as TBatch
 
-RTOL, ATOL = 1e-5, 1e-6
 GEOM = dict(term_block=128, doc_block=32, chunk_size=64)
 ENGINES = [("dense", {}), ("tiled", {}), ("tiled", {"tile_skip": True}),
            ("ell", {})]
 IDS = ["dense", "tiled", "tiled-tile_skip", "ell"]
-
-
-def _port(batch):
-    return TBatch(torch.from_numpy(np.array(batch.term_ids)),
-                  torch.from_numpy(np.array(batch.values)), batch.vocab_size)
 
 
 @pytest.fixture(scope="module")
@@ -37,31 +27,9 @@ def corpus():
     return c, oracle
 
 
-def assert_same_topk(port, ref, oracle, deleted=None):
-    (pv, pi), (rv, ri) = port, ref
-    np.testing.assert_allclose(pv, rv, rtol=RTOL, atol=ATOL)
-    k = rv.shape[1]
-    for row in range(rv.shape[0]):
-        v = rv[row]
-        with np.errstate(invalid="ignore"):  # -inf - -inf
-            same = (v[1:] == v[:-1]) | (
-                np.abs(v[1:] - v[:-1]) <= ATOL + RTOL * np.abs(v[1:]))
-        starts = np.concatenate([[0], np.nonzero(~same)[0] + 1])
-        ends = np.concatenate([starts[1:], [k]])
-        for s, e in zip(starts, ends):
-            if e < k:
-                assert set(pi[row, s:e]) == set(ri[row, s:e]), (row, s, e)
-        live = np.isfinite(pv[row])
-        assert np.all(pi[row][~live] == -1)
-        got = oracle[row, pi[row][live]]
-        np.testing.assert_allclose(pv[row][live], got, rtol=RTOL, atol=ATOL)
-        if deleted is not None:
-            assert not np.any(deleted[pi[row][live]])
-
-
 def _pair(c, engine, extra, **kw):
     cfg = dict(engine=engine, **GEOM, **extra, **kw)
-    return (teng.RetrievalEngine(_port(c.docs), teng.RetrievalConfig(**cfg),
+    return (teng.RetrievalEngine(port_batch(c.docs), teng.RetrievalConfig(**cfg),
                                  device="cpu"),
             jeng.RetrievalEngine(c.docs, jeng.RetrievalConfig(**cfg)))
 
@@ -70,7 +38,7 @@ def _pair(c, engine, extra, **kw):
 def test_search_in_query_chunks(corpus, engine, extra):
     c, oracle = corpus
     port, ref = _pair(c, engine, extra, query_chunk=3, k=20)
-    assert_same_topk(port.search(_port(c.queries)), ref.search(c.queries),
+    assert_same_topk(port.search(port_batch(c.queries)), ref.search(c.queries),
                      oracle)
 
 
@@ -78,17 +46,17 @@ def test_search_in_query_chunks(corpus, engine, extra):
 def test_k_larger_than_num_docs_and_tau(corpus, engine, extra):
     c, oracle = corpus
     port, ref = _pair(c, engine, extra)
-    pv, pi, pt = port.search(_port(c.queries), k=400, return_tau=True)
+    pv, pi, pt = port.search(port_batch(c.queries), k=400, return_tau=True)
     rv, ri, rt = ref.search(c.queries, k=400, return_tau=True)
     assert pv.shape == (7, 257)
     assert_same_topk((pv, pi), (rv, ri), oracle)
     np.testing.assert_array_equal(pt, rt)  # fewer than k docs: -inf
-    pv, pi, pt = port.search(_port(c.queries), k=10, return_tau=True)
+    pv, pi, pt = port.search(port_batch(c.queries), k=10, return_tau=True)
     rv, ri, rt = ref.search(c.queries, k=10, return_tau=True)
     assert_same_topk((pv, pi), (rv, ri), oracle)
     np.testing.assert_allclose(pt, rt, rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="tau_init"):
-        port.search(_port(c.queries), k=10, tau_init=pt)
+        port.search(port_batch(c.queries), k=10, tau_init=pt)
 
 
 @pytest.mark.parametrize("engine,extra", ENGINES, ids=IDS)
@@ -100,7 +68,7 @@ def test_delete_docs(corpus, engine, extra):
     assert port.delete_docs([5]) == 0
     assert port.num_alive == ref.num_alive == 250
     for k in (15, 253):  # 253 > alive: the tail is -inf, id -1
-        assert_same_topk(port.search(_port(c.queries), k=k),
+        assert_same_topk(port.search(port_batch(c.queries), k=k),
                          ref.search(c.queries, k=k), oracle,
                          deleted=port.deleted_mask)
     with pytest.raises(ValueError, match="doc ids"):
@@ -113,7 +81,7 @@ def test_stream_search(corpus, engine, extra):
     cuts = [(0, 100), (100, 100), (200, 57)]
     cfg = dict(engine=engine, k=12, **GEOM, **extra)
     pv, pi, pt = teng.stream_search(
-        [_port(c.docs.slice_rows(s, n)) for s, n in cuts], _port(c.queries),
+        [port_batch(c.docs.slice_rows(s, n)) for s, n in cuts], port_batch(c.queries),
         teng.RetrievalConfig(**cfg), device="cpu",
     )
     rv, ri, rt = jeng.stream_search(
@@ -127,21 +95,28 @@ def test_stream_search(corpus, engine, extra):
 def test_evaluate_index_bytes_and_from_prebuilt(corpus):
     c, _ = corpus
     port, ref = _pair(c, "tiled", {})
-    assert port.evaluate(_port(c.queries), c.qrels, k=50) == pytest.approx(
+    assert port.evaluate(port_batch(c.queries), c.qrels, k=50) == pytest.approx(
         ref.evaluate(c.queries, c.qrels, k=50))
     assert port.index_bytes() == ref.index_bytes()
     deleted = np.zeros(257, bool)
     deleted[3] = True
     again = teng.RetrievalEngine.from_prebuilt(
-        _port(c.docs), port.config, port._index, deleted=deleted,
+        port_batch(c.docs), port.config, port._index, deleted=deleted,
         device="cpu",
     )
-    v, i = again.search(_port(c.queries), k=5)
+    v, i = again.search(port_batch(c.queries), k=5)
     assert not np.any(i == 3)
 
 
 def test_config_validation_matches_jax():
-    for bad in (dict(k=0), dict(query_chunk=0), dict(engine="nope")):
+    for bad in (dict(k=0), dict(query_chunk=0), dict(engine="nope"),
+                dict(theta=0.5),  # theta on an exact engine
+                dict(engine="tiled-pruned-approx", theta=0.0),
+                dict(engine="tiled-bmp-grouped", traversal="two-pass"),
+                dict(engine="tiled-pruned", bounds_format="coo"),
+                dict(engine="tiled-bmp-fused", sched_top_m=0),
+                dict(engine="tiled-bmp-fused", sched_max_group=0),
+                dict(engine="tiled-bmp-grouped", sched_min_share=1.5)):
         with pytest.raises(ValueError):
             jeng.RetrievalConfig(**bad)
         with pytest.raises(ValueError):
@@ -149,8 +124,7 @@ def test_config_validation_matches_jax():
     # The JAX knobs of later slices are not fields of the port's config
     # yet: setting one fails instead of being ignored.
     jax_fields = jeng.RetrievalConfig.__dataclass_fields__
-    for name in ("theta", "bounds_format", "reorder_docs", "use_f32_scores",
-                 "sched_top_m", "pad_to"):
+    for name in ("use_f32_scores", "pad_to", "obs"):
         assert name in jax_fields
         with pytest.raises(TypeError):
             teng.RetrievalConfig(**{name: jax_fields[name].default})

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import carry_tiled
 from repro.core import index as jidx
 from repro.data.synthetic import make_msmarco_like
 from repro.kernels.ell_gather import ell_score
@@ -25,14 +26,6 @@ from repro_torch.kernels.scatter_score.ref import scatter_score_ref
 RTOL, ATOL = 1e-5, 1e-6
 
 
-def _carry_tiled(j):
-    fields = tidx.TILED_ARRAY_FIELDS + tidx.TILED_OPTIONAL_ARRAY_FIELDS
-    return tidx.tiled_index_from_numpy(
-        {f: getattr(j, f) for f in fields if getattr(j, f) is not None},
-        {f: getattr(j, f) for f in tidx.TILED_SCALAR_FIELDS}, device="cpu",
-    )
-
-
 def _padded_qw(queries, index):
     qw = np.asarray(queries.to_dense())
     v_pad = index.num_term_blocks * index.term_block
@@ -42,8 +35,9 @@ def _padded_qw(queries, index):
 def _port_scatter(qw, t):
     return scatter_score_ref(
         torch.from_numpy(qw), t.local_term, t.local_doc, t.value,
-        t.chunk_term_block, t.chunk_doc_block, term_block=t.term_block,
-        doc_block=t.doc_block, num_doc_blocks=t.num_doc_blocks,
+        t.chunk_term_block, t.chunk_doc_block, t.block_chunk_start,
+        t.block_chunk_count, term_block=t.term_block, doc_block=t.doc_block,
+        num_doc_blocks=t.num_doc_blocks,
     ).numpy()
 
 
@@ -60,7 +54,7 @@ def test_scatter_score_ref_matches_pallas(n_docs, vocab, tb, db, cs,
     c = make_msmarco_like(n_docs, 6, vocab_size=vocab, seed=n_docs)
     j = jidx.build_tiled_index(c.docs, term_block=tb, doc_block=db,
                                chunk_size=cs)
-    t = _carry_tiled(j)
+    t = carry_tiled(j)
     got = _port_scatter(_padded_qw(c.queries, j), t)[:, :n_docs]
     want = np.asarray(jax_scatter(c.queries, j, use_gather=use_gather))
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
@@ -77,7 +71,7 @@ def test_scatter_score_ref_matches_jax_ref_on_blanked_chunks():
     assert np.any((np.asarray(jf.local_doc) < 0)
                   & (np.asarray(jf.local_term) < jf.term_block))
     qw = _padded_qw(c.queries, jf)
-    got = _port_scatter(qw, _carry_tiled(jf))
+    got = _port_scatter(qw, carry_tiled(jf))
     want = jax_scatter_ref(
         qw, jf.local_term, jf.local_doc, jf.value, jf.chunk_term_block,
         jf.chunk_doc_block, jf.chunk_first, term_block=jf.term_block,
@@ -114,7 +108,7 @@ def test_cpu_tensors_take_the_plain_version():
     c = make_msmarco_like(80, 3, vocab_size=200, seed=2)
     j = jidx.build_tiled_index(c.docs, term_block=64, doc_block=16,
                                chunk_size=32)
-    t = _carry_tiled(j)
+    t = carry_tiled(j)
     je = jidx.build_ell_index(c.docs)
     e = tidx.ell_index_from_numpy(je.terms, je.values, je.num_docs,
                                   je.vocab_size, device="cpu")
@@ -131,3 +125,26 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(ell_ops.ell_gather(q, e.terms, e.values),
                        ell_gather_ref(q, e.terms, e.values))
     assert (scatter_ops.launches, ell_ops.launches) == before
+
+
+def test_scatter_score_ref_honours_chunk_runs():
+    """Runs over a subset of blocks (as the two-pass path passes them):
+    the plain version scores those blocks as the full runs do and leaves 0
+    elsewhere, as the CUDA kernel does."""
+    c = make_msmarco_like(300, 4, vocab_size=700, seed=8)
+    j = jidx.build_tiled_index(c.docs, term_block=256, doc_block=32,
+                               chunk_size=64)
+    t = carry_tiled(j)
+    qw = torch.from_numpy(_padded_qw(c.queries, j))
+    args = (qw, t.local_term, t.local_doc, t.value, t.chunk_term_block,
+            t.chunk_doc_block, t.block_chunk_start)
+    kw = dict(term_block=256, doc_block=32, num_doc_blocks=t.num_doc_blocks)
+    full = scatter_score_ref(*args, t.block_chunk_count, **kw)
+    keep = torch.tensor([1, 0, 0, 1, 1, 0, 1, 0, 1, 0], dtype=torch.bool)
+    got = scatter_score_ref(*args, t.block_chunk_count * keep.int(), **kw)
+    cols = keep.repeat_interleave(32)
+    assert torch.equal(got[:, cols], full[:, cols])
+    assert not got[:, ~cols].any() and full[:, ~cols].any()
+    assert torch.equal(
+        scatter_ops.scatter_score(*args, t.block_chunk_count * keep.int(),
+                                  **kw), got)

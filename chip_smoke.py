@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact and pruned paths on one NVIDIA H100.
+"""Drive the PyTorch port's exact and pruned paths, and SPLADE query
+encoding in front of the exact one, on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -7,14 +8,17 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. Build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
    limit.
 2. Hold ``scatter_score`` and ``ell_gather`` against their plain PyTorch
    versions on the card, at 50,000 docs x 64 queries, V = 30,522, over
    several index geometries (``chunk_size < term_block``, a ragged last
    doc block, a tile-skipped index whose blanked chunks test the padding
-   rule).
+   rule); ``splade_head`` against its plain version at (B, T, d, V) =
+   (1, 7, 64, 1000), (3, 130, 96, 513) and (64, 256, 768, 30,522), W
+   given contiguous and as the strided ``embed.T`` view, a fractional mask
+   and an all-zero row.
 2b. The same size on a topical corpus reordered by ``df-signature``:
    ``bmp_scan`` against its plain version (scores, heap and tau within
    KERNEL_TOL, block and chunk fetch sets and step counts equal) at
@@ -31,6 +35,18 @@ Phases (each raises on failure; the script then exits non-zero):
    before and read just after.  Exactness against a float64 oracle on 16
    sampled queries: mean overlap@1000 >= 0.999, returned scores within
    1e-5 relative of float64, and the two engines agreeing the same way.
+3a. SPLADE encoding in front of phase 3's engines: ``SpladeEncoder`` at
+   the full width of the gpusparse ``ENCODER`` (12 layers, d = 768, V =
+   30,522; ``repro_torch.configs.gpusparse``) with seeded random weights
+   encodes 500 queries of T = 64 tokens (ids uniform over V, 8-64 valid
+   tokens each) with ``use_kernel=True`` under ``inference_mode``; the
+   encoding is thresholded at 0.05, made sparse on the card and searched
+   at k = 1000 by ``tiled`` and ``ell``.  The ``splade_head``,
+   ``scatter_score`` and ``ell_gather`` counters are zeroed just before
+   and read just after.  Encode ms and encode -> search ms per call (host
+   clock, synchronised; a warm-up, 5 rounds, their median and the whole
+   window's rate); exactness against float64 as in phase 3; the kernel's
+   encoding against ``use_kernel=False`` within KERNEL_TOL.
 3b. The pruned path at serve_1m width: 1,000,000 docs of
    ``make_topical_corpus`` (seed 0), 500 queries, k = 1000, engine
    ``tiled-bmp-fused`` with ``reorder_docs`` (``df-signature``), a
@@ -51,6 +67,11 @@ Phases (each raises on failure; the script then exits non-zero):
    plain version, its times at those shapes, the bound of the work it did
    (chunk lines, windows, heaps and weights; 2 x live postings x rows),
    no library call; and the time of every launch of one search call.
+   For ``splade_head``: its time at phase 3a's shapes (the encoder's own
+   hidden states, B = 500, T = 64), the plain version's, one
+   ``torch.matmul`` of h [B T, d] by W (the product alone, used nowhere in
+   the port) and the bound of 2 x valid tokens x d V f32 operations (a
+   token of mask 0 needs no product).
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -98,6 +119,14 @@ class Sizes:
     small_doc_block: int = 64  # phase 3b's case where retirement shows
     small_k: int = 10
     sample_groups: int = 4  # phase 4: main-path groups held against plain
+    # splade_head against its plain version (phase 2): (B, T, d, V).
+    head_shapes: tuple = ((1, 7, 64, 1000), (3, 130, 96, 513),
+                          (64, 256, 768, 30522))
+    # The encoder (phase 3a): a config of repro_torch.configs.gpusparse.
+    encoder: str = "ENCODER"
+    encode_len: int = 64  # T of the query batch
+    encode_min_len: int = 8  # valid tokens per query: 8..encode_len
+    threshold: float = 0.05  # the serve example's query threshold
 
 
 def card_line() -> str:
@@ -213,6 +242,37 @@ def check_kernels(dev, sizes: Sizes):
     errs["ell_gather"] = compare("ell_gather", got,
                                  ell_gather_ref(qw, ell.terms, ell.values))
     return errs
+
+
+def check_head(dev, sizes: Sizes) -> float:
+    """Phase 2: ``splade_head`` against its plain version, both W layouts,
+    a fractional mask and (B > 1) an all-zero row."""
+    import torch
+
+    from repro_torch.kernels.splade_head import splade_head, splade_head_ref
+
+    err = 0.0
+    for b, t, d, v in sizes.head_shapes:
+        g = torch.Generator(device=dev).manual_seed(b + t + d + v)
+        h = torch.randn(b, t, d, generator=g, device=dev)
+        mask = (torch.rand(b, t, generator=g, device=dev) > 0.25).float()
+        mask[:, 1::4] *= 0.5
+        if b > 1:
+            mask[-1] = 0.0
+        embed = torch.randn(v, d, generator=g, device=dev) * 0.05
+        bias = torch.randn(v, generator=g, device=dev) * 0.1
+        for layout, w in (("embed.T", embed.T),
+                          ("contiguous", embed.T.contiguous())):
+            got = splade_head(h, mask, w, bias)
+            err = max(err, compare(f"splade_head B={b} T={t} d={d} V={v} "
+                                   f"W {layout}", got,
+                                   splade_head_ref(h, mask, w, bias)))
+            if b > 1 and bool(got[-1].any()):
+                raise AssertionError("splade_head: a fully masked row is "
+                                     "not 0")
+            if not torch.equal(got, splade_head(h, mask, w, bias)):
+                raise AssertionError("splade_head is not deterministic")
+    return err
 
 
 def docs_csr(docs, dtype):
@@ -434,31 +494,45 @@ def check_pruned(dev, sizes: Sizes):
     return err
 
 
-def time_search(name, eng, queries, k, rounds):
-    """A warm-up and ``rounds`` timed searches (host clock; results come
-    back as numpy, so each call ends on the host) -> (values, ids, ms: the
-    median round, or the warm-up call when ``rounds`` is 0)."""
+def host_rounds(name, fn, rounds, dev, batch):
+    """A warm-up and ``rounds`` calls of ``fn`` on the host clock, the
+    device synchronised after each -> (the last result, ms: the median
+    round, or the warm-up call when ``rounds`` is 0).  Logs every round and
+    the rate of ``batch`` queries a call at the median and over the whole
+    window of rounds."""
     import numpy as np
 
     t0 = time.perf_counter()
-    vals, ids = eng.search(queries, k=k)
+    out = fn()
+    sync(dev)
     first = time.perf_counter() - t0
     times = []
     for _ in range(rounds):
         t0 = time.perf_counter()
-        vals, ids = eng.search(queries, k=k)
+        out = fn()
+        sync(dev)
         times.append(time.perf_counter() - t0)
-    if times:
-        ms = 1e3 * float(np.median(times))
-        b = queries.batch
-        log(f"  {name}: search {ms!r} ms/batch (median of {rounds}, all "
-            f"{[1e3 * t for t in times]!r}; warm-up {1e3 * first!r}), "
-            f"{b / ms * 1e3!r} QPS at the median, "
-            f"{b * rounds / sum(times)!r} QPS over the whole window of "
-            f"{rounds} rounds")
-    else:
+    if not times:
         ms = 1e3 * first
-        log(f"  {name}: one search call {ms!r} ms")
+        log(f"  {name}: one call {ms!r} ms")
+        return out, ms
+    ms = 1e3 * float(np.median(times))
+    log(f"  {name}: {ms!r} ms per call (median of {rounds}, all "
+        f"{[1e3 * t for t in times]!r}; warm-up {1e3 * first!r}), "
+        f"{batch / ms * 1e3!r} QPS at the median, "
+        f"{batch * rounds / sum(times)!r} QPS over the whole window of "
+        f"{rounds} rounds")
+    return out, ms
+
+
+def time_search(name, eng, queries, k, rounds, dev):
+    """:func:`host_rounds` of ``eng.search`` (results come back as numpy,
+    so each call ends on the host) -> (values, ids, ms)."""
+    import numpy as np
+
+    (vals, ids), ms = host_rounds(f"{name}: search",
+                                  lambda: eng.search(queries, k=k), rounds,
+                                  dev, queries.batch)
     if vals.shape != (queries.batch, min(k, eng.num_docs)):
         raise AssertionError(f"{name}: result shape {vals.shape}")
     if not np.all(np.isfinite(vals)):
@@ -510,7 +584,7 @@ def serve_pruned(dev, sizes: Sizes, msmarco):
         torch.cuda.reset_peak_memory_stats(dev)
         bmp_ops.launches = 0
         vals, ids, ms = time_search(f"tiled-bmp-fused, {case}", eng,
-                                    queries, k, rounds)
+                                    queries, k, rounds, dev)
         launches = bmp_ops.launches
         log(f"  tiled-bmp-fused, {case}: bmp_scan launches {launches}, peak "
             f"device memory {torch.cuda.max_memory_allocated(dev)} B")
@@ -545,6 +619,149 @@ def serve_pruned(dev, sizes: Sizes, msmarco):
         raise AssertionError("tiled-bmp-fused and tiled disagree")
     main["corpus"] = corpus
     return main
+
+
+def encode_search(dev, sizes: Sizes, corpus, engines) -> dict:
+    """Phase 3a: SPLADE encoding at the encoder's full width in front of
+    phase 3's engines, the kernels' counters zeroed before and read after;
+    times, float64 exactness and the kernel against ``use_kernel=False``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import gpusparse
+    from repro_torch.core.sparse import dense_to_sparse
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+    from repro_torch.kernels.splade_head import ops as head_ops
+    from repro_torch.models.splade import SpladeEncoder
+
+    cfg = getattr(gpusparse, sizes.encoder)
+    if cfg.vocab_size != sizes.vocab:
+        raise AssertionError(f"encoder vocab {cfg.vocab_size} != corpus "
+                             f"vocab {sizes.vocab}")
+    t0 = time.perf_counter()
+    enc = SpladeEncoder(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    sync(dev)
+    n_params = sum(p.numel() for p in enc.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads, d_ff={cfg.d_ff}, V={cfg.vocab_size}, "
+        f"{cfg.act}; num_params {cfg.num_params()} (+ {cfg.vocab_size} "
+        f"mlm_bias = {n_params} tensors' elements); seeded init "
+        f"{time.perf_counter() - t0:.3f} s")
+    g = torch.Generator(device=dev).manual_seed(1)
+    b, t = sizes.queries, sizes.encode_len
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+    lens = torch.randint(sizes.encode_min_len, t + 1, (b,), generator=g,
+                         device=dev)
+    mask = (torch.arange(t, device=dev)[None, :] < lens[:, None]).float()
+    thr = sizes.threshold
+
+    def encode():
+        return enc.encode(tokens, mask, use_kernel=True)
+
+    def queries_of(x):
+        return dense_to_sparse(torch.where(x > thr, x, 0.0), device=dev)
+
+    out = {}
+    with torch.inference_mode():
+        head_ops.launches = 0
+        scatter_ops.launches = 0
+        ell_ops.launches = 0
+        x, encode_ms = host_rounds(
+            f"encode {b} x {t} tokens (use_kernel=True)", encode,
+            sizes.rounds, dev, b)
+        for name, eng in engines.items():
+            def call(eng=eng):
+                q = queries_of(encode())
+                return q, eng.search(q, k=sizes.k)
+            (q, (vals, ids)), ms = host_rounds(f"encode -> {name} search",
+                                              call, sizes.rounds, dev, b)
+            out[name] = (q, vals, ids, ms)
+        launches = {"splade_head": head_ops.launches,
+                    "scatter_score": scatter_ops.launches,
+                    "ell_gather": ell_ops.launches}
+    log(f"  launches on the encode -> search path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the encode -> "
+                                 f"search path")
+
+    with torch.inference_mode():
+        if (tuple(x.shape) != (b, cfg.vocab_size)
+                or not bool(torch.isfinite(x).all()) or bool((x < 0).any())):
+            raise AssertionError("encode: not a finite non-negative [B, V]")
+        nnz = (x > thr).sum(dim=1).float()
+        log(f"  terms above {thr} per query: min {int(nnz.min())}, median "
+            f"{float(nnz.median())!r}, max {int(nnz.max())}; max weight "
+            f"{float(x.max())!r}")
+        err = compare("encode, use_kernel=True vs False", x,
+                      enc.encode(tokens, mask, use_kernel=False))
+    sample = torch.randperm(b, generator=torch.Generator().manual_seed(7))[
+        :sizes.oracle_queries].sort().values.numpy()
+    for name, (q, vals, ids, _) in out.items():
+        check_exact(f"encode -> {name}", vals, ids,
+                    oracle_f64(corpus.docs, q, sample), sample, sizes.k)
+    (tq, tv, ti, _), (eq, ev, ei, _) = out["tiled"], out["ell"]
+    if not (torch.equal(tq.term_ids, eq.term_ids)
+            and torch.equal(tq.values, eq.values)):
+        raise AssertionError("encode is not deterministic across calls")
+    ov = overlap(ti, ei, sizes.k)
+    rel = float(np.max(np.abs(tv - ev) / np.maximum(np.abs(ev), 1e-30)))
+    log(f"  encode -> tiled vs ell: overlap@{sizes.k} = {ov!r}, max rel = "
+        f"{rel!r}")
+    if ov < OVERLAP_MIN or rel > SCORE_RTOL:
+        raise AssertionError("encode -> tiled and ell disagree")
+    return dict(enc=enc, tokens=tokens, mask=mask, err=err,
+                encode_ms=encode_ms, launches=launches["splade_head"])
+
+
+def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
+    """Phase 4 for ``splade_head``: kernel, plain version and one
+    ``torch.matmul`` of the product alone, at phase 3a's shapes."""
+    import torch
+
+    from repro_torch.kernels.splade_head import ops as head_ops
+    from repro_torch.kernels.splade_head.ref import splade_head_ref
+
+    enc, mask = enc_run["enc"], enc_run["mask"]
+    with torch.inference_mode():
+        h = enc.hidden(enc_run["tokens"])
+        w, bias = enc.head_weight(), enc.mlm_bias
+        b, t, d = h.shape
+        v = w.shape[1]
+        err = max(err, compare(f"splade_head at B={b} T={t} d={d} V={v}",
+                               head_ops.splade_head(h, mask, w, bias),
+                               splade_head_ref(h, mask, w, bias)))
+        kernel_ms = event_ms(lambda: head_ops.splade_head(h, mask, w, bias),
+                             sizes.reps, dev)
+        plain_ms = event_ms(lambda: splade_head_ref(h, mask, w, bias),
+                            max(1, sizes.reps // 2), dev)
+        library_ms = event_ms(lambda: torch.matmul(h.view(b * t, d), w),
+                              sizes.reps, dev)
+    # A token of mask 0 adds an exact 0 to a max of non-negative terms, so
+    # the function needs the product only for the valid tokens' rows.
+    rows = int((mask != 0).sum())
+    nbytes = 4 * (rows * d + b * t + d * v + v + b * v)
+    flops = 2.0 * rows * d * v
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    row = {
+        "name": "splade_head", "route": "cuda",
+        "source": "src/repro_torch/csrc/splade_head.cu",
+        "replaces": "src/repro/kernels/splade_head/kernel.py:46",
+        "launches": enc_run["launches"], "max_abs_err": err, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+    log(f"  splade_head: kernel {kernel_ms!r} ms ({kernel_ms / enc_run['encode_ms']!r} "
+        f"of an encode call), plain {plain_ms!r} ms, library (matmul alone) "
+        f"{library_ms!r} ms, bound {row['bound_ms']!r} ms "
+        f"({row['bound_by']}: {rows} valid token rows of {b * t}, {nbytes} "
+        f"B, {flops!r} flop)")
+    return row
 
 
 def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
@@ -649,6 +866,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     log(f"phase 2: kernels vs plain, {sizes.check_docs} docs x "
         f"{sizes.check_queries} queries, V={sizes.vocab}")
     errs = check_kernels(dev, sizes)
+    errs["splade_head"] = check_head(dev, sizes)
     log(f"phase 2b: bmp_scan vs plain and the pruned engines, "
         f"{sizes.check_docs} topical docs x {sizes.check_queries} queries")
     errs["bmp_scan"] = check_pruned(dev, sizes)
@@ -678,7 +896,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
             f"{eng.index_bytes()} B ({eng.index_bytes() / sizes.docs:.1f} "
             f"B/doc)")
         vals, ids, _ = time_search(name, eng, corpus.queries, sizes.k,
-                                   sizes.rounds)
+                                   sizes.rounds, dev)
         results[name] = vals, ids
         engines[name] = eng
     launches = {"scatter_score": scatter_ops.launches,
@@ -700,6 +918,11 @@ def run(dev, sizes: Sizes) -> list[dict]:
     log(f"  tiled vs ell: overlap@{sizes.k} = {ov!r}, max rel = {rel!r}")
     if ov < OVERLAP_MIN or rel > SCORE_RTOL:
         raise AssertionError("tiled and ell disagree")
+
+    # 3a. SPLADE encoding in front of the exact engines
+    log(f"phase 3a: encode -> search, {sizes.encoder} x {sizes.queries} "
+        f"queries of {sizes.encode_len} tokens, k={sizes.k}")
+    enc_run = encode_search(dev, sizes, corpus, engines)
 
     # 3b. the pruned path
     log(f"phase 3b: the pruned path, tiled-bmp-fused, {sizes.docs} topical "
@@ -767,6 +990,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
             f"({row['bound_by']}: {s['bytes']} B, {flops!r} flop)")
         rows.append(row)
     rows.append(bmp_row(dev, sizes, pruned, errs["bmp_scan"]))
+    rows.append(head_row(dev, sizes, enc_run, errs["splade_head"]))
     log(f"peak device memory since phase 3b's last case: "
         f"{torch.cuda.max_memory_allocated(dev)} B")
     return rows

@@ -1,0 +1,59 @@
+"""The transformer configuration: the fields of ``repro.configs.base.
+TransformerConfig`` that the port reads, with the same names and defaults.
+
+A knob the port does not implement is not a field, so setting it is a
+``TypeError`` rather than a silent no-op: no sliding window, compute dtype,
+remat, layer scan, attention chunking or sequence parallelism, none of
+which the SPLADE encoder reads, in JAX or here.  The port has no experts and
+keeps its parameters in f32: a config with ``moe`` set or another
+``param_dtype`` raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    moe: Optional[object] = None
+    act: str = "swiglu"
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(
+                f"{self.name}: mixture-of-experts layers are not ported")
+        if self.param_dtype != "float32":
+            raise NotImplementedError(
+                f"{self.name}: param_dtype {self.param_dtype!r}; the port "
+                f"keeps its parameters in float32")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def num_params(self) -> int:
+        """Analytic parameter count (embeddings + blocks + head)."""
+        d, dh = self.d_model, self.head_dim
+        attn = d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh) + (
+            self.n_heads * dh
+        ) * d
+        mlp = (3 if self.act == "swiglu" else 2) * d * self.d_ff
+        block = attn + mlp + 2 * d
+        embed = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return embed + self.n_layers * block + head + d

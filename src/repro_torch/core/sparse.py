@@ -129,12 +129,24 @@ def to_numpy_rows(
 def dense_to_sparse(
     dense, pad_to: Optional[int] = None, device="cuda"
 ) -> SparseBatch:
-    """Convert a dense [B, V] matrix (numpy or tensor) into a SparseBatch."""
-    dense = dense.cpu().numpy() if torch.is_tensor(dense) else np.asarray(dense)
-    ids, vals = [], []
-    for row in dense:
-        nz = np.nonzero(row)[0]
-        ids.append(nz.astype(np.int32))
-        vals.append(row[nz].astype(np.float32))
-    return from_lists(ids, vals, vocab_size=dense.shape[1], pad_to=pad_to,
-                      device=device)
+    """Convert a dense [B, V] matrix (numpy or tensor) into a SparseBatch.
+
+    Built on ``device`` with one ``nonzero`` and a per-row count: each row's
+    nonzero ids ascending, values cast to f32, padded to the longest row
+    (at least 1, and at least ``pad_to``) as :func:`from_lists` pads.
+    """
+    dev = resolve_device(device)
+    x = dense if torch.is_tensor(dense) else torch.from_numpy(np.asarray(dense))
+    x = x.to(dev)
+    b, v = x.shape
+    nz = x != 0
+    counts = nz.sum(dim=1)
+    maxk = max(int(counts.max()) if b else 0, 1, pad_to or 0)
+    rows, cols = nz.nonzero(as_tuple=True)  # row-major: ids ascending per row
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(rows.numel(), device=dev) - starts[rows]
+    ids = torch.full((b, maxk), PAD_ID, dtype=torch.int32, device=dev)
+    vals = torch.zeros((b, maxk), dtype=torch.float32, device=dev)
+    ids[rows, slot] = cols.to(torch.int32)
+    vals[rows, slot] = x[rows, cols].to(torch.float32)
+    return SparseBatch(ids, vals, vocab_size=v)

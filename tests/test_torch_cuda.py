@@ -9,6 +9,8 @@ dependencies:
 Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
 products summed in another order.  The ``bmp_scan`` sweep must also fetch
 exactly the plain version's blocks and chunks in the same number of steps.
+``splade_head`` sums d-long dot products in another order; its max over
+tokens is exact.
 """
 import pytest
 import torch
@@ -23,6 +25,8 @@ from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
 from repro_torch.kernels.scatter_score import ops as scatter_ops
 from repro_torch.kernels.scatter_score.ref import scatter_score_ref
+from repro_torch.kernels.splade_head import ops as head_ops
+from repro_torch.kernels.splade_head.ref import splade_head_ref
 
 TOL = 1e-5
 
@@ -198,3 +202,54 @@ def test_pruned_engines_on_the_card_match_tiled(cuda, engine, reorder):
                                    torch.from_numpy(exact[0]))
     else:  # scored blocks carry scatter_score's very bits (the same fold)
         assert (v == exact[0]).all() and (i == exact[1]).all()
+
+
+@pytest.mark.parametrize("b,t,d,v,layout", [
+    (3, 37, 64, 1000, "contiguous"),  # ragged T and V
+    (2, 130, 96, 513, "embed.T"),  # T over three token tiles
+    (1, 64, 768, 30522, "embed.T"),  # B = 1 at the encoder's width
+    (4, 200, 768, 2000, "contiguous"),
+    (2, 7, 64, 257, "embed.T"),
+])
+def test_splade_head_kernel_matches_plain(cuda, b, t, d, v, layout):
+    g = torch.Generator(device=cuda).manual_seed(b * t + v)
+    h = torch.randn(b, t, d, generator=g, device=cuda)
+    mask = (torch.rand(b, t, generator=g, device=cuda) > 0.3).float()
+    mask[:, 1::3] *= 0.5  # a fractional mask
+    if b > 1:
+        mask[-1] = 0.0  # an all-zero row
+    embed = torch.randn(v, d, generator=g, device=cuda) * 0.05
+    w = embed.T if layout == "embed.T" else embed.T.contiguous()
+    bias = torch.randn(v, generator=g, device=cuda) * 0.1
+    before = head_ops.launches
+    got = head_ops.splade_head(h, mask, w, bias)
+    assert head_ops.launches == before + 1
+    _close(got, splade_head_ref(h, mask, w, bias))
+    assert torch.equal(got, head_ops.splade_head(h, mask, w, bias))
+    if b > 1:
+        assert not got[-1].any()
+
+
+def test_encoder_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
+    from repro_torch.configs.gpusparse import ENCODER_SMOKE
+    from repro_torch.models.splade import SpladeEncoder
+
+    enc = SpladeEncoder(ENCODER_SMOKE, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, ENCODER_SMOKE.vocab_size, (5, 40),
+                           generator=g, device=cuda)
+    mask = (torch.rand(5, 40, generator=g, device=cuda) > 0.2).float()
+    with pytest.raises(RuntimeError, match="backward"):
+        enc.encode(tokens, mask, use_kernel=True)
+    with torch.inference_mode():
+        want = enc.encode(tokens, mask)
+
+        def boom(*a, **k):
+            raise AssertionError("plain version called on a CUDA tensor")
+
+        monkeypatch.setattr(head_ops, "splade_head_ref", boom)
+        before = head_ops.launches
+        got = enc.encode(tokens, mask, use_kernel=True)
+    assert head_ops.launches == before + 1
+    _close(got, want)

@@ -28,7 +28,10 @@ def _modules():
 
 def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.kernels.scatter_score.ops" in mods
+    for m in ("repro_torch.kernels.scatter_score.ops",
+              "repro_torch.models.splade",
+              "repro_torch.kernels.splade_head.ops"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{SRC!r}, {ROOT!r}]\n"

@@ -46,6 +46,29 @@ def test_dense_to_sparse_matches_jax():
         np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
 
 
+def test_dense_to_sparse_equals_the_per_row_build():
+    """The vectorised build gives what the per-row host loop gave: each
+    row's nonzero ids ascending, values as f32, the same padding."""
+    rng = np.random.default_rng(3)
+    dense = np.where(rng.uniform(size=(5, 40)) < 0.4,
+                     rng.normal(size=(5, 40)), 0.0)  # f64, signed values
+    dense[2] = 0.0  # an all-zero row
+    dense[4, :] = rng.uniform(0.1, 1.0, size=40)  # a full row: K = V
+    for pad_to in (None, 50):
+        ids = [np.nonzero(r)[0].astype(np.int32) for r in dense]
+        vals = [r[np.nonzero(r)[0]].astype(np.float32) for r in dense]
+        old = tsparse.from_lists(ids, vals, vocab_size=40, pad_to=pad_to,
+                                 device="cpu")
+        new = tsparse.dense_to_sparse(torch.from_numpy(dense), pad_to=pad_to,
+                                      device="cpu")
+        assert new.vocab_size == 40
+        assert torch.equal(new.term_ids, old.term_ids)
+        assert torch.equal(new.values, old.values)
+    empty = tsparse.dense_to_sparse(np.zeros((0, 7), np.float32),
+                                    device="cpu")
+    assert tuple(empty.term_ids.shape) == (0, 1)
+
+
 def test_from_lists_rejects_ragged_input():
     with pytest.raises(ValueError, match="rows"):
         tsparse.from_lists(ROWS, VALS[:2], vocab_size=7, device="cpu")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's exact and pruned paths, and SPLADE query
-encoding in front of the exact one, on one NVIDIA H100.
+"""Drive the PyTorch port's exact and pruned paths, SPLADE query encoding
+in front of the exact one, and LM serving (prefill and decode), on one
+NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -8,7 +9,7 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. Build the four CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Build the five CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
    limit.
 2. Hold ``scatter_score`` and ``ell_gather`` against their plain PyTorch
@@ -72,6 +73,27 @@ Phases (each raises on failure; the script then exits non-zero):
    ``torch.matmul`` of h [B T, d] by W (the product alone, used nowhere in
    the port) and the bound of 2 x valid tokens x d V f32 operations (a
    token of mask 0 needs no product).
+5a. With the earlier phases' data freed: ``flash_attention`` against its
+   plain version and a float64 softmax, f32 and bf16, over JAX's
+   ``test_flash_attention_sweep`` geometries at Dh 64, qwen2-0.5b's heads
+   (Hq 14 over 2) with S = 1000 and 2048 (windowed), Dh 128 (Hq 32 over 8),
+   windows and MQA (FLASH_TOL), and that it is deterministic.
+5. LM serving at the full width and depth of ``qwen2-0.5b``
+   (``repro_torch.configs.qwen2_0_5b.FULL``: 24 layers, d 896, 14 heads
+   over 2, d_ff 4864, V = 151,936, bf16 compute) with seeded random
+   weights.  ``TransformerLM.prefill`` of 1 x 32,768 tokens from
+   ``make_lm_batch`` (``prefill_32k`` with its batch cut from 32 to 1): a
+   warm-up and 5 rounds on the host clock, the ``flash_attention`` counter
+   zeroed before and read after (24 launches a prefill).  The kernel
+   against its plain version on layer 0's own q, k, v at that shape, then
+   its time, the plain version's, one ``scaled_dot_product_attention``
+   call's (used nowhere in the port) and its bound (4 B Hq Dh x the visible
+   (query, key) pairs over 989 TFLOP/s of bf16, or the q, k, v, o bytes
+   over 3.35 TB/s).  The whole prefill through the kernel against the plain
+   path at 2 x 4,096 tokens, in bf16 and in f32.  Then ``decode_step`` for
+   16 steps of 32 sequences (``decode_32k`` with its batch cut from 128 to
+   32) from a cache whose first 32,768 slots hold seeded bf16 K/V: ms per
+   step against the bound of the cache bytes over 3.35 TB/s.
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -91,12 +113,26 @@ SRC = os.path.join(ROOT, "src")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 # Kernel vs plain version: both sum the same f32 products in another order
 # (the plain version's index_add_ in atomic order, the kernel serially with
 # fma), over at most a few hundred products per score.
 KERNEL_TOL = 1e-5  # max |kernel - plain| <= KERNEL_TOL * max |plain|
 OVERLAP_MIN = 0.999  # the paper's exactness bar; residue: f32 near-ties
 SCORE_RTOL = 1e-5  # returned f32 scores vs float64
+# flash_attention in f32: atol = rtol = 2e-5, the JAX package's bar for the
+# kernel (tests/test_kernels.py::test_flash_attention_sweep).  In bf16 the
+# kernel and its plain version both compute in f32 and round once to bf16,
+# so they may differ by one bf16 ulp of the output on top of that bar; so
+# may the kernel and the float64 softmax rounded once.
+FLASH_TOL = 2e-5
+# The whole prefill, kernel path against plain path: f32 logits within
+# 1e-4 of max |plain| (24 layers of the same f32 arithmetic in another
+# order); bf16 logits no farther apart than the plain path's own bf16
+# logits are from its f32 ones (each side rounds its attention output to
+# bf16 once a layer, so the two may differ by an ulp there, and bf16 noise
+# carries that through the layers).
+PREFILL_F32_RTOL = 1e-4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +163,25 @@ class Sizes:
     encode_len: int = 64  # T of the query batch
     encode_min_len: int = 8  # valid tokens per query: 8..encode_len
     threshold: float = 0.05  # the serve example's query threshold
+    # flash_attention against its plain version and float64 (phase 5a):
+    # (B, S, Hq, Hkv, Dh, causal, window).  JAX's test_flash_attention_sweep
+    # geometries at Dh 64 (the kernel takes Dh 64 and 128), qwen2-0.5b's
+    # heads with a ragged S, Dh 128 (Hq 32 over 8), windows and MQA.
+    flash_shapes: tuple = (
+        (2, 64, 4, 2, 64, True, None), (1, 128, 6, 3, 64, True, 24),
+        (2, 32, 2, 2, 64, False, None), (1, 96, 8, 1, 64, True, None),
+        (2, 1000, 14, 2, 64, True, None), (1, 2048, 14, 2, 64, True, 300),
+        (1, 777, 32, 8, 128, True, None), (2, 300, 32, 8, 128, False, 100),
+        (1, 500, 16, 1, 128, True, None))
+    # The LM (phase 5): a config of repro_torch.configs.qwen2_0_5b.
+    lm: str = "FULL"
+    prefill_batch: int = 1  # LM_SHAPES' prefill_32k, its batch cut 32 -> 1
+    prefill_len: int = 32768
+    check_batch: int = 2  # the whole prefill, kernel against plain path
+    check_len: int = 4096
+    decode_batch: int = 32  # LM_SHAPES' decode_32k, its batch cut 128 -> 32
+    decode_context: int = 32768  # cache slots filled before decoding
+    decode_steps: int = 16
 
 
 def card_line() -> str:
@@ -494,12 +549,12 @@ def check_pruned(dev, sizes: Sizes):
     return err
 
 
-def host_rounds(name, fn, rounds, dev, batch):
+def host_rounds(name, fn, rounds, dev, batch, unit="QPS"):
     """A warm-up and ``rounds`` calls of ``fn`` on the host clock, the
     device synchronised after each -> (the last result, ms: the median
     round, or the warm-up call when ``rounds`` is 0).  Logs every round and
-    the rate of ``batch`` queries a call at the median and over the whole
-    window of rounds."""
+    the rate of ``batch`` queries (or tokens) a call at the median and over
+    the whole window of rounds."""
     import numpy as np
 
     t0 = time.perf_counter()
@@ -519,8 +574,8 @@ def host_rounds(name, fn, rounds, dev, batch):
     ms = 1e3 * float(np.median(times))
     log(f"  {name}: {ms!r} ms per call (median of {rounds}, all "
         f"{[1e3 * t for t in times]!r}; warm-up {1e3 * first!r}), "
-        f"{batch / ms * 1e3!r} QPS at the median, "
-        f"{batch * rounds / sum(times)!r} QPS over the whole window of "
+        f"{batch / ms * 1e3!r} {unit} at the median, "
+        f"{batch * rounds / sum(times)!r} {unit} over the whole window of "
         f"{rounds} rounds")
     return out, ms
 
@@ -840,6 +895,281 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
     return row
 
 
+def flash_within(name: str, got, want) -> float:
+    """max |got - want|; raises unless every element is within FLASH_TOL
+    (atol and rtol) of ``want``, plus one bf16 ulp of the output when
+    ``got`` is bf16 (both finite and of one shape)."""
+    import torch
+
+    sync(got.device)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    g, w = got.double(), want.double()
+    bar = FLASH_TOL * (1 + w.abs())
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(g.abs(), w.abs())
+        bar = bar + torch.ldexp(torch.ones_like(big),
+                                torch.frexp(big).exponent - 8)
+    err = (g - w).abs()
+    worst = float((err / bar).max()) if err.numel() else 0.0
+    if worst > 1.0:
+        raise AssertionError(f"{name}: outside its tolerance ({worst!r} of "
+                             f"the bar; max err {float(err.max())!r})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def attention_f64(q, k, v, causal, window):
+    """The naive float64 softmax, [B, Sq, Hq, Dh]; a row with no visible key
+    gives 0."""
+    import math
+
+    import torch
+
+    b, sq, hq, dh = q.shape
+    skv, g = k.shape[1], hq // k.shape[2]
+    qq = q.double().transpose(1, 2)
+    kk = k.double().repeat_interleave(g, dim=2).transpose(1, 2)
+    vv = v.double().repeat_interleave(g, dim=2).transpose(1, 2)
+    logits = qq @ kk.transpose(-1, -2) / math.sqrt(dh)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    p = torch.softmax(logits.masked_fill(~mask, float("-inf")), dim=-1)
+    return (p.nan_to_num(0.0) @ vv).transpose(1, 2)
+
+
+def check_flash(dev, sizes: Sizes) -> float:
+    """Phase 5a: ``flash_attention`` against its plain version and the
+    float64 softmax over ``sizes.flash_shapes``, f32 and bf16; and that
+    it is deterministic."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    err = 0.0
+    for b, s, hq, hkv, dh, causal, window in sizes.flash_shapes:
+        g = torch.Generator(device=dev).manual_seed(s * hq + dh)
+        base = [torch.randn(b, s, h, dh, generator=g, device=dev)
+                for h in (hq, hkv, hkv)]
+        exact = attention_f64(*base, causal, window)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype) for x in base)
+            tag = (f"flash_attention B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} "
+                   f"causal={causal} window={window} {dtype}")
+            got = flash_ops.flash_attention(q, k, v, causal, window)
+            e = flash_within(f"{tag} vs plain", got,
+                             flash_attention_ref(q, k, v, causal, window))
+            if dtype == torch.float32:
+                e64 = flash_within(f"{tag} vs float64", got, exact)
+            else:  # the float64 softmax of the bf16 inputs
+                e64 = flash_within(f"{tag} vs float64", got, attention_f64(
+                    q, k, v, causal, window))
+            if not torch.equal(got, flash_ops.flash_attention(q, k, v, causal,
+                                                              window)):
+                raise AssertionError(f"{tag}: not deterministic")
+            log(f"  {tag}: max_abs_err vs plain {e!r}, vs float64 {e64!r}")
+            err = max(err, e)
+    return err
+
+
+def attention_flops(b, s, hq, dh, window) -> float:
+    """4 B Hq Dh x the (query, key) pairs the causal (and window) mask
+    leaves visible: q k^T and p v, two operations a multiply-add each."""
+    w = s if window is None else min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return 4.0 * b * hq * dh * pairs
+
+
+def serve_lm(dev, sizes: Sizes, err: float) -> dict:
+    """Phase 5: LM serving at the full width and depth of ``sizes.lm``
+    (seeded random weights).  5b: prefill of ``prefill_batch`` x
+    ``prefill_len`` tokens through ``flash_attention``, its counter zeroed
+    before and read after; the kernel against its plain version on layer
+    0's own q, k, v, then its time, the plain version's, one
+    ``scaled_dot_product_attention`` call's and its bound; the whole prefill
+    against the plain path at ``check_len``, bf16 and f32.  5c: decode
+    ``decode_steps`` tokens for ``decode_batch`` sequences from a cache
+    whose first ``decode_context`` slots hold seeded bf16 K/V."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import TransformerLM
+
+    cfg = getattr(qwen2_0_5b, sizes.lm)
+    t0 = time.perf_counter()
+    lm = TransformerLM(cfg, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    sync(dev)
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}, V={cfg.vocab_size}, qkv_bias={cfg.qkv_bias}, "
+        f"tied={cfg.tie_embeddings}, {cfg.dtype} compute over f32 "
+        f"parameters; num_params {cfg.num_params()} (+ qkv biases = "
+        f"{sum(p.numel() for p in lm.parameters())}); seeded init "
+        f"{time.perf_counter() - t0:.3f} s")
+    b, s = sizes.prefill_batch, sizes.prefill_len
+    tokens = torch.from_numpy(make_lm_batch(b, s, cfg.vocab_size,
+                                            seed=0)["tokens"]).to(dev)
+    out = {}
+    with torch.inference_mode():
+        # 5b. the main path: prefill through the kernel
+        flash_ops.launches = 0
+        logits, prefill_ms = host_rounds(
+            f"prefill {b} x {s} tokens", lambda: lm.prefill(tokens),
+            sizes.rounds, dev, b * s, unit="tokens/s")
+        launches = flash_ops.launches
+        calls = sizes.rounds + 1
+        log(f"  flash_attention launches: {launches} in {calls} prefill "
+            f"calls ({launches / calls!r} a prefill)")
+        if launches != calls * cfg.n_layers:
+            raise AssertionError(f"flash_attention launched {launches} "
+                                 f"times, not {cfg.n_layers} a prefill")
+        if (tuple(logits.shape) != (b, 1, cfg.vocab_size)
+                or not bool(torch.isfinite(logits).all())):
+            raise AssertionError("prefill: not finite [B, 1, V] logits")
+
+        # the kernel on layer 0's own q, k, v at the full shape
+        dt = cfg.compute_dtype
+        p = lm.blocks[0].cast(dt)
+        positions = torch.arange(s, device=dev)
+        x = L.rms_norm(lm.embed_tokens(tokens).to(dt), p["ln_attn"],
+                       cfg.norm_eps)
+        q, k, v = L.qkv(p["attn"], x, cfg, positions)
+        del x
+        win = cfg.sliding_window
+        err = max(err, flash_within(
+            f"flash_attention, layer 0 at {tuple(q.shape)} {q.dtype}",
+            flash_ops.flash_attention(q, k, v, True, win),
+            flash_attention_ref(q, k, v, True, win)))
+        kernel_ms = event_ms(lambda: flash_ops.flash_attention(q, k, v, True,
+                                                               win),
+                             sizes.reps, dev)
+        plain_ms = event_ms(lambda: flash_attention_ref(q, k, v, True, win),
+                            1, dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), sizes.reps, dev)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        flops = attention_flops(b, s, cfg.n_heads, cfg.head_dim, win)
+        peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        row = {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:110",
+            "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+        }
+        log(f"  flash_attention at {tuple(q.shape)} {q.dtype}: kernel "
+            f"{kernel_ms!r} ms ({kernel_ms * cfg.n_layers!r} ms a prefill, "
+            f"{cfg.n_layers * kernel_ms / prefill_ms!r} of it), plain "
+            f"{plain_ms!r} ms, library (scaled_dot_product_attention) "
+            f"{library_ms!r} ms, bound {row['bound_ms']!r} ms "
+            f"({row['bound_by']}: {nbytes} B, {flops!r} flop; "
+            f"{row['bound_ms'] * cfg.n_layers!r} ms a prefill); "
+            f"{flops / kernel_ms / 1e9!r} TFLOP/s")
+        del q, k, v, qt, kt, vt, p
+
+        # the whole prefill, kernel path against plain path
+        cb, cs = sizes.check_batch, sizes.check_len
+        ctoks = torch.from_numpy(make_lm_batch(cb, cs, cfg.vocab_size,
+                                               seed=1)["tokens"]).to(dev)
+        lm32 = TransformerLM(dataclasses.replace(cfg, dtype="float32"),
+                             device=dev)
+        lm32.load_state_dict(lm.state_dict())
+        got16, plain16 = lm.prefill(ctoks), lm.prefill(ctoks, use_kernel=False)
+        got32 = lm32.prefill(ctoks)
+        plain32 = lm32.prefill(ctoks, use_kernel=False)
+        del lm32
+        e32 = float((got32 - plain32).abs().max())
+        scale = float(plain32.abs().max())
+        e16 = float((got16 - plain16).abs().max())
+        drift = float((plain16 - plain32).abs().max())
+        top2 = plain16[:, 0].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        clear = margin > 2 * e16
+        same = bool((got16[:, 0].argmax(-1) == plain16[:, 0].argmax(-1))[
+            clear].all())
+        log(f"  prefill {cb} x {cs}, kernel vs plain path: f32 max err "
+            f"{e32!r} (max |plain| {scale!r}); bf16 max err {e16!r}, the "
+            f"plain path's own bf16-vs-f32 drift {drift!r}; top-2 margins "
+            f"{margin.tolist()!r}, argmax equal where clear: {same}")
+        if (e32 > PREFILL_F32_RTOL * scale or e16 > drift or not same
+                or not bool(torch.isfinite(got16).all())):
+            raise AssertionError("prefill: the kernel path disagrees with "
+                                 "the plain path")
+        out["prefill"] = dict(ms=prefill_ms, tokens=b * s, err32=e32,
+                              err16=e16, drift=drift)
+        del got16, plain16, got32, plain32
+
+        # 5c. decode from a long cache
+        db, ctx = sizes.decode_batch, sizes.decode_context
+        steps = sizes.decode_steps
+        cache = lm.init_cache(db, ctx + steps)
+        g = torch.Generator(device=dev).manual_seed(3)
+        kv_shape = (db, ctx, cfg.n_kv_heads, cfg.head_dim)
+        for li in range(cfg.n_layers):
+            for name in ("k", "v"):
+                cache[name][li, :, :ctx] = torch.randn(
+                    kv_shape, generator=g, device=dev).to(dt)
+        cache["pos"][:, :ctx] = torch.arange(ctx, dtype=torch.int32,
+                                             device=dev)
+        dtoks = torch.from_numpy(make_lm_batch(db, steps, cfg.vocab_size,
+                                               seed=2)["tokens"]).to(dev)
+        cache_bytes = 2 * cache["k"].element_size() * cfg.n_layers * db * (
+            ctx + steps) * cfg.n_kv_heads * cfg.head_dim
+        log(f"  decode: cache {tuple(cache['k'].shape)} {cache['k'].dtype} "
+            f"x 2 = {cache_bytes} B, first {ctx} slots filled")
+        times = []
+        for i in range(steps):
+            sync(dev)
+            t0 = time.perf_counter()
+            dl, cache = lm.decode_step(cache, dtoks[:, i], ctx + i)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        if (tuple(dl.shape) != (db, cfg.vocab_size)
+                or not bool(torch.isfinite(dl).all())):
+            raise AssertionError("decode: not finite [B, V] logits")
+        if not torch.equal(cache["pos"][:, ctx:ctx + steps].cpu(),
+                           torch.arange(ctx, ctx + steps, dtype=torch.int32)
+                           .expand(cfg.n_layers, steps)):
+            raise AssertionError("decode: the cache positions were not "
+                                 "written")
+        step_ms = 1e3 * float(np.median(times[1:]))
+        bound_ms = cache_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"  decode {db} x {steps} steps from {ctx} cached positions: "
+            f"{step_ms!r} ms per step (median of steps 2-{steps}, all "
+            f"{[1e3 * t for t in times]!r}), {db / step_ms * 1e3!r} tokens/s "
+            f"at the median, {db * (steps - 1) / sum(times[1:])!r} tokens/s "
+            f"over steps 2-{steps}; bound {bound_ms!r} ms (the cache bytes "
+            f"over {HBM_BYTES_PER_S} B/s)")
+        out["decode"] = dict(ms=step_ms, bound_ms=bound_ms)
+        del cache
+    out["row"] = row
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -992,6 +1322,22 @@ def run(dev, sizes: Sizes) -> list[dict]:
     rows.append(bmp_row(dev, sizes, pruned, errs["bmp_scan"]))
     rows.append(head_row(dev, sizes, enc_run, errs["splade_head"]))
     log(f"peak device memory since phase 3b's last case: "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+
+    # 5. LM serving; the earlier phases' corpora, indices and encoder go
+    del corpus, engines, results, pruned, enc_run, tiled, ell, qw_t, qw
+    torch.cuda.empty_cache()
+    log(f"phase 5a: flash_attention vs plain and float64, "
+        f"{len(sizes.flash_shapes)} shapes x f32, bf16")
+    err = check_flash(dev, sizes)
+    log(f"phase 5: LM serving, {sizes.lm} of repro_torch.configs.qwen2_0_5b: "
+        f"prefill {sizes.prefill_batch} x {sizes.prefill_len}, decode "
+        f"{sizes.decode_batch} x {sizes.decode_steps} steps from "
+        f"{sizes.decode_context}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm_run = serve_lm(dev, sizes, err)
+    rows.append(lm_run["row"])
+    log(f"peak device memory in phase 5: "
         f"{torch.cuda.max_memory_allocated(dev)} B")
     return rows
 

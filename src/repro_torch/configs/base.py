@@ -1,17 +1,24 @@
 """The transformer configuration: the fields of ``repro.configs.base.
 TransformerConfig`` that the port reads, with the same names and defaults.
 
-A knob the port does not implement is not a field, so setting it is a
-``TypeError`` rather than a silent no-op: no sliding window, compute dtype,
-remat, layer scan, attention chunking or sequence parallelism, none of
-which the SPLADE encoder reads, in JAX or here.  The port has no experts and
-keeps its parameters in f32: a config with ``moe`` set or another
-``param_dtype`` raises ``NotImplementedError``.
+The LM path reads ``sliding_window``, the compute ``dtype`` (``"float32"``
+or ``"bfloat16"``; anything else raises ``ValueError``) and the chunk sizes
+of the plain attention, ``attn_q_chunk`` and ``attn_kv_chunk``.  The SPLADE
+encoder reads none of them, in JAX or here: it runs f32 whatever ``dtype``
+says.  A knob the port does not implement is not a field, so setting it is
+a ``TypeError`` rather than a silent no-op: remat, layer scan, unrolled
+attention and sequence parallelism only matter for training or for XLA.
+The port has no experts and keeps its parameters in f32: a config with
+``moe`` set or another ``param_dtype`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+import torch
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,11 +34,15 @@ class TransformerConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    sliding_window: Optional[int] = None  # tokens; None = full attention
     moe: Optional[object] = None
     act: str = "swiglu"
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    dtype: str = "bfloat16"  # activation/compute dtype of the LM
     param_dtype: str = "float32"
+    attn_q_chunk: int = 512  # tiles of the plain chunked attention
+    attn_kv_chunk: int = 1024
 
     def __post_init__(self):
         if self.moe is not None:
@@ -41,6 +52,14 @@ class TransformerConfig:
             raise NotImplementedError(
                 f"{self.name}: param_dtype {self.param_dtype!r}; the port "
                 f"keeps its parameters in float32")
+        if self.dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"{self.name}: dtype {self.dtype!r}; the port computes in "
+                f"{' or '.join(COMPUTE_DTYPES)}")
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return COMPUTE_DTYPES[self.dtype]
 
     @property
     def head_dim(self) -> int:

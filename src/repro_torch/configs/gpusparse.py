@@ -27,5 +27,6 @@ ENCODER_SMOKE = TransformerConfig(
     vocab_size=512,
     act="gelu",
     tie_embeddings=True,
+    dtype="float32",
     param_dtype="float32",
 )

@@ -5,7 +5,8 @@ sigma 34.3; ~49.9 nnz/query, sigma 18.2; log1p-ReLU-shaped weights in
 [0.01, 3.5]; Zipf(1.07) term popularity; queries seeded from a "relevant"
 document plus Zipf expansion terms; and the topical corpus of
 :func:`make_topical_corpus`), drawn from an explicit ``torch.Generator`` on
-the target device and vectorised over documents.
+the target device and vectorised over documents.  :func:`make_lm_batch`
+is the JAX LM batch, drawn with numpy as there.
 
 Sampling ``k`` distinct terms with probabilities ``p`` — numpy's
 successive sampling without replacement — is drawn here as Gumbel-top-k:
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.sparse import PAD_ID, SparseBatch
@@ -248,3 +250,19 @@ def make_topical_corpus(
     q_ids, q_vals = _pack_rows(p_ids, p_vals, v)
     qrels = [{int(r)} for r in rel.cpu().tolist()]
     return SyntheticCorpus(docs, SparseBatch(q_ids, q_vals, v), qrels, v)
+
+
+def make_lm_batch(batch: int, seq_len: int, vocab_size: int,
+                  seed: int = 0) -> dict:
+    """An LM batch as numpy arrays, the very numbers of ``repro.data.
+    synthetic.make_lm_batch`` for one seed: int32 ``tokens`` [B, S] uniform
+    over the vocabulary, ``targets`` (tokens shifted left by one, wrapping)
+    and an all-ones f32 ``loss_mask``."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, vocab_size, size=(batch, seq_len),
+                          dtype=np.int32)
+    return {
+        "tokens": tokens,
+        "targets": np.roll(tokens, -1, axis=1),
+        "loss_mask": np.ones((batch, seq_len), dtype=np.float32),
+    }

@@ -1,12 +1,15 @@
-"""Transformer building blocks the SPLADE encoder reads, as plain functions
-on tensors (``repro.models.layers``).
+"""Transformer building blocks of the SPLADE encoder and the LM, as plain
+functions on tensors (``repro.models.layers``).
 
 Weights keep the JAX layout, ``[in, out]`` (``x @ w``), and live in
 dict-like containers with the JAX names, so the two packages compute the
 same thing from the same numbers.  Norms, RoPE, softmax and accumulation
-run in f32.  Attention is plain PyTorch (``einsum`` and a masked online
-softmax, as the JAX chunk loop); it is not a Pallas kernel in the JAX
-package, so there is no kernel to port here.
+run in f32; everything else in the activations' dtype.  The plain
+attention is PyTorch (``einsum`` and a masked online softmax, as the JAX
+chunk loop); the LM's prefill attention can instead go through the CUDA
+``flash_attention`` kernel (:func:`attention_block`), which computes the
+same function.  Single-token decode against a KV cache stays plain PyTorch,
+as it has no Pallas kernel in the JAX package either.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.kernels.flash_attention import flash_attention
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: Optional[float] = None,
@@ -164,6 +168,70 @@ def chunked_attention(
         # [B, Hkv, G, qc, Dh] -> [B, qc, Hkv*G, Dh]
         outs.append(out.movedim(3, 1).reshape(b, q_chunk, hq, dh))
     return torch.cat(outs, dim=1)
+
+
+def attention_block(
+    params,
+    x: torch.Tensor,  # [B, S, D]
+    cfg: TransformerConfig,
+    positions: torch.Tensor,  # [S]
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+    use_kernel: bool = False,
+):
+    """Causal self-attention over a full sequence (prefill), with
+    ``cfg.sliding_window``: ``(out @ wo, (k, v))``.  ``use_kernel`` runs
+    :func:`flash_attention` (the CUDA kernel on a CUDA tensor), which counts
+    positions from 0, as the backbone's ``positions = arange(S)`` do;
+    otherwise :func:`chunked_attention` with the given chunks."""
+    b, s, _ = x.shape
+    q, k, v = qkv(params, x, cfg, positions)
+    if use_kernel:
+        out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        out = chunked_attention(q, k, v, positions, positions,
+                                window=cfg.sliding_window, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return out @ params["wo"], (k, v)
+
+
+def decode_attention(
+    params,
+    x: torch.Tensor,  # [B, 1, D]
+    cfg: TransformerConfig,
+    cache_k: torch.Tensor,  # [B, S_cache, Hkv, Dh]
+    cache_v: torch.Tensor,
+    position: int,  # absolute position of the token
+    cache_positions: torch.Tensor,  # int32 [S_cache], 2**31 - 1 = empty
+):
+    """Single-token decode against a KV cache, a ring buffer when S_cache is
+    shorter than the context: the token's k, v and position go to slot
+    ``position % S_cache``, then an f32 softmax over the slots holding a
+    position <= ``position`` (and within the window).  The cache tensors
+    are updated in place (the JAX function returns new arrays: in place
+    saves a copy of the cache a step) and returned as JAX returns them."""
+    b = x.shape[0]
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    g = hq // hkv
+    q, k_new, v_new = qkv(params, x, cfg,
+                          torch.tensor([position], device=x.device))
+    slot = position % cache_k.shape[1]
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    cache_positions[slot] = position
+
+    qh = q.reshape(b, hkv, g, dh).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qh,
+                          cache_k.float()) / math.sqrt(dh)
+    valid = cache_positions <= position
+    if cfg.sliding_window is not None:
+        valid &= position - cache_positions < cfg.sliding_window
+    logits = torch.where(valid, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
+    out = out.reshape(b, 1, hq * dh).to(x.dtype)
+    return out @ params["wo"], (cache_k, cache_v, cache_positions)
 
 
 def init_mlp(gen: torch.Generator, cfg: TransformerConfig, dtype,

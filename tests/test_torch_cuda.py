@@ -10,7 +10,9 @@ Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
 products summed in another order.  The ``bmp_scan`` sweep must also fetch
 exactly the plain version's blocks and chunks in the same number of steps.
 ``splade_head`` sums d-long dot products in another order; its max over
-tokens is exact.
+tokens is exact.  ``flash_attention`` in f32: atol = rtol = 2e-5 (the JAX
+package's bar for this kernel); in bf16 both versions compute in f32 and
+round once, so within one bf16 ulp of the output plus that f32 bar.
 """
 import pytest
 import torch
@@ -25,6 +27,8 @@ from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
 from repro_torch.kernels.scatter_score import ops as scatter_ops
 from repro_torch.kernels.scatter_score.ref import scatter_score_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.splade_head import ops as head_ops
 from repro_torch.kernels.splade_head.ref import splade_head_ref
 
@@ -253,3 +257,104 @@ def test_encoder_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
         got = enc.encode(tokens, mask, use_kernel=True)
     assert head_ops.launches == before + 1
     _close(got, want)
+
+
+def _flash_within(got, want):
+    """f32: atol = rtol = 2e-5; bf16: one bf16 ulp of the output on top
+    (|x| in [2^(e-1), 2^e) has a bf16 ulp of 2^(e-8))."""
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    bar = 2e-5 * (1 + w.abs())
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(g.abs(), w.abs())
+        bar = bar + torch.ldexp(torch.ones_like(big),
+                                torch.frexp(big).exponent - 8)
+    err = (g - w).abs()
+    assert torch.isfinite(g).all() and (err <= bar).all(), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hkv,dh,causal,window", [
+    (2, 64, 4, 2, 64, True, None),
+    (1, 200, 14, 2, 64, True, None),  # qwen2-0.5b's heads, ragged S
+    (2, 130, 6, 3, 64, True, 24),  # window across tile edges
+    (1, 96, 8, 1, 64, True, None),  # MQA
+    (2, 77, 4, 4, 64, False, None),
+    (1, 300, 32, 8, 128, True, None),  # Dh 128, ragged S
+    (1, 150, 32, 8, 128, False, 40),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, hq, hkv,
+                                              dh, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(s * hq + dh)
+    q, k, v = (torch.randn(b, s, h, dh, generator=g, device=cuda).to(dtype)
+               for h in (hq, hkv, hkv))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, hq, dh)
+    _flash_within(got, flash_attention_ref(q, k, v, causal, window))
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=causal,
+                                                      window=window))
+
+
+def test_flash_attention_reads_strided_heads(cuda):
+    """q, k, v as views of one fused [B, S, Hq + 2 Hkv, Dh] projection."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(2, 100, 14 + 4, 64, generator=g, device=cuda)
+    q, k, v = qkv[:, :, :14], qkv[:, :, 14:16], qkv[:, :, 16:]
+    got = flash_ops.flash_attention(q, k, v)
+    _flash_within(got, flash_attention_ref(q.contiguous(), k.contiguous(),
+                                           v.contiguous()))
+
+
+def test_flash_attention_refuses_what_it_cannot_run(cuda):
+    q = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 64, 2, 64, device=cuda)
+    before = flash_ops.launches
+    with pytest.raises(RuntimeError, match="backward"):
+        flash_ops.flash_attention(q, k, k)
+    q = q.detach()
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention(q, k.bfloat16(), k.bfloat16())
+    with pytest.raises(ValueError, match="Dh"):
+        flash_ops.flash_attention(q[..., :32].contiguous(),
+                                  k[..., :32].contiguous(),
+                                  k[..., :32].contiguous())
+    with pytest.raises(ValueError):
+        flash_ops.flash_attention(q, torch.randn(1, 64, 3, 64, device=cuda),
+                                  torch.randn(1, 64, 3, 64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 3).contiguous().transpose(
+            1, 3), k, k)
+    assert flash_ops.launches == before
+
+
+def test_lm_prefill_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs.qwen2_0_5b import FULL
+    from repro_torch.models.transformer import TransformerLM
+
+    # qwen2-0.5b's head geometry (Dh 64, a group of 7), narrow and shallow
+    cfg = dataclasses.replace(FULL, n_layers=2, d_model=448, n_heads=7,
+                              n_kv_heads=1, d_ff=256, vocab_size=512,
+                              dtype="float32")
+    lm = TransformerLM(cfg, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(0, 512, (2, 90), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    with pytest.raises(RuntimeError, match="backward"):
+        lm.prefill(tokens)
+    with torch.inference_mode():
+        want = lm.prefill(tokens, use_kernel=False)
+
+        def boom(*a, **k):
+            raise AssertionError("plain version called on a CUDA tensor")
+
+        monkeypatch.setattr(flash_ops, "flash_attention_ref", boom)
+        before = flash_ops.launches
+        got = lm.prefill(tokens)
+    assert flash_ops.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

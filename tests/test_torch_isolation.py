@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_repro():
     mods = _modules()
     for m in ("repro_torch.kernels.scatter_score.ops",
               "repro_torch.models.splade",
-              "repro_torch.kernels.splade_head.ops"):
+              "repro_torch.kernels.splade_head.ops",
+              "repro_torch.models.transformer",
+              "repro_torch.kernels.flash_attention.ops"):
         assert m in mods
     code = (
         "import importlib, sys\n"

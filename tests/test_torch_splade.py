@@ -248,16 +248,40 @@ def test_encoder_defaults_to_cuda_and_checks_token_ids():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sliding_window", 8), ("dtype", "bfloat16"), ("remat", True),
-    ("scan_layers", False), ("attn_q_chunk", 16), ("attn_kv_chunk", 16),
-    ("attn_unroll", True), ("seq_parallel", True),
+    ("remat", True), ("scan_layers", False), ("attn_unroll", True),
+    ("seq_parallel", True),
 ])
 def test_config_has_no_unported_knob(knob, value):
-    """A JAX knob the encoder does not read is no field of the port's
-    config: setting it fails instead of being ignored."""
+    """A JAX knob the port does not read is no field of the port's config:
+    setting it fails instead of being ignored."""
     assert hasattr(jcfg.ENCODER, knob)
     with pytest.raises(TypeError):
         dataclasses.replace(tcfg.ENCODER_SMOKE, **{knob: value})
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("sliding_window", 8), ("dtype", "bfloat16"), ("attn_q_chunk", 16),
+    ("attn_kv_chunk", 16),
+])
+def test_lm_fields_have_the_jax_defaults_and_leave_encode_alone(knob, value):
+    """The LM path's fields exist with JAX's defaults; the encoder reads
+    none of them (the JAX ``encode`` never casts to ``dtype`` either)."""
+    for t, j in ((tcfg.ENCODER, jcfg.ENCODER),
+                 (tcfg.ENCODER_SMOKE, jcfg.ENCODER_SMOKE)):
+        assert getattr(t, knob) == getattr(j, knob)
+    _, _, port = _carry(jcfg.ENCODER_SMOKE, tcfg.ENCODER_SMOKE, seed=1)
+    toks, mask = _tokens(2, 20, tcfg.ENCODER_SMOKE.vocab_size, seed=2)
+    with torch.no_grad():
+        want = port.encode(_t(toks), _t(mask))
+        port.cfg = dataclasses.replace(tcfg.ENCODER_SMOKE, **{knob: value})
+        got = port.encode(_t(toks), _t(mask))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def test_config_refuses_an_unported_compute_dtype():
+    with pytest.raises(ValueError, match="float16"):
+        dataclasses.replace(tcfg.ENCODER_SMOKE, dtype="float16")
 
 
 @pytest.mark.parametrize("param_dtype", ["bfloat16", "float16"])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact and pruned paths, SPLADE query encoding
-in front of the exact one, and LM serving (prefill and decode), on one
-NVIDIA H100.
+in front of the exact one, LM serving (prefill and decode) and recsys
+serving (DIN, DIEN, AutoInt, xDeepFM), on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -9,7 +9,7 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
 Phases (each raises on failure; the script then exits non-zero):
 
-1. Build the five CUDA kernels from ``src/repro_torch/csrc`` (one
+1. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and print the card's name and power
    limit.
 2. Hold ``scatter_score`` and ``ell_gather`` against their plain PyTorch
@@ -94,6 +94,29 @@ Phases (each raises on failure; the script then exits non-zero):
    16 steps of 32 sequences (``decode_32k`` with its batch cut from 128 to
    32) from a cache whose first 32,768 slots hold seeded bf16 K/V: ms per
    step against the bound of the cache bytes over 3.35 TB/s.
+6a. With phase 5's data freed: ``embedding_bag`` against its plain version
+   and float64 (BAG_TOL) at (N, L, V, D) = (7, 1, 50, 10), (130, 5, 1000,
+   18) with pads and ids at or past V, (19,968, 8, 1,000,003, 10)
+   (xDeepFM's serve_p99 lookup at H = 8) and (4,096, 100, 100,000, 16),
+   each with an all-pad bag and duplicate ids, weights given and None;
+   two launches bitwise equal.
+6. Recsys serving at the full width of ``repro_torch.configs.{xdeepfm,
+   autoint,din,dien}.FULL`` (the Criteo-39 tables, 16,596,850 rows, and
+   the Amazon-style ones, 1,111,110 context rows and 1,000,000 items) with
+   seeded random weights.  6b: ``forward`` of ``RECSYS_SHAPES``'
+   serve_p99 batch (B = 512, ``make_recsys_batch``) at H = 1 and 8, a
+   warm-up and 5 rounds on the host clock, one ``embedding_bag`` launch a
+   forward, logits within RECSYS_TOL of the plain path.  6c:
+   ``retrieval_cand`` — one user, ``score_candidates`` over 1,000,000
+   candidates (DIN 65,536: its [C, 100, 72] attention features do not fit
+   one card at 1,000,000), then the top 100, against the plain path
+   (scores within RECSYS_TOL, ids tie-aware).  The counter is zeroed
+   before 6b and read after 6c.  6d: xDeepFM's lookup alone at
+   serve_bulk's batch (262,144 x 39 bags of 8; its CIN would need 82 GB
+   there): the kernel against its plain version, then CUDA-event times of
+   the kernel, the plain version and one ``F.embedding_bag`` call (used
+   nowhere in the port), and the bound (each id, each distinct row and
+   the output once, over 3.35 TB/s).
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -133,6 +156,13 @@ FLASH_TOL = 2e-5
 # bf16 once a layer, so the two may differ by an ulp there, and bf16 noise
 # carries that through the layers).
 PREFILL_F32_RTOL = 1e-4
+# embedding_bag against its plain version and float64: atol = rtol = 1e-5
+# elementwise (an f32 sum of at most 100 products in another order; the
+# JAX package's bar for its kernel is 1e-4).  The recsys models, kernel
+# path against plain path: logits and retrieval scores within 1e-5 of
+# max |plain| (the same f32 arithmetic; only the bag sums' order differs).
+BAG_TOL = 1e-5
+RECSYS_TOL = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +212,22 @@ class Sizes:
     decode_batch: int = 32  # LM_SHAPES' decode_32k, its batch cut 128 -> 32
     decode_context: int = 32768  # cache slots filled before decoding
     decode_steps: int = 16
+    # embedding_bag against its plain version and float64 (phase 6a):
+    # (N, L, V, D).  The second shape also holds pads and ids at or past V;
+    # the third is xDeepFM's serve_p99 lookup at H = 8 (512 x 39 bags).
+    bag_shapes: tuple = ((7, 1, 50, 10), (130, 5, 1000, 18),
+                         (19_968, 8, 1_000_003, 10),
+                         (4096, 100, 100_000, 16))
+    # The recsys models (phase 6): configs of repro_torch.configs.<model>.
+    recsys_models: tuple = ("xdeepfm", "autoint", "din", "dien")
+    recsys_config: str = "FULL"
+    serve_batch: int = 512  # RECSYS_SHAPES' serve_p99
+    hots: tuple = (1, 8)  # bag sizes of the served batches
+    candidates: int = 1_000_000  # RECSYS_SHAPES' retrieval_cand
+    din_candidates: int = 65_536  # DIN's retrieval, cut to fit one card
+    retrieval_k: int = 100
+    bulk_batch: int = 262_144  # RECSYS_SHAPES' serve_bulk (6d)
+    bulk_hot: int = 8
 
 
 def card_line() -> str:
@@ -1170,6 +1216,272 @@ def serve_lm(dev, sizes: Sizes, err: float) -> dict:
     return out
 
 
+def bag_f64(ids, weights, table):
+    """The float64 bag sum of f32 inputs (an id outside [0, V) adds 0)."""
+    import torch
+
+    live = (ids >= 0) & (ids < table.shape[0])
+    w = (torch.ones(ids.shape, dtype=torch.float64, device=ids.device)
+         if weights is None else weights.double())
+    g = table.double()[torch.where(live, ids, 0).long()]
+    return (g * torch.where(live, w, 0.0)[..., None]).sum(dim=1)
+
+
+def bag_within(name: str, got, want) -> float:
+    """max |got - want|; raises unless every element is within BAG_TOL
+    (atol and rtol) of ``want`` (both finite and of one shape)."""
+    import torch
+
+    sync(got.device)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    worst = float((err / (BAG_TOL * (1 + w.abs()))).max()) \
+        if err.numel() else 0.0
+    if worst > 1.0:
+        raise AssertionError(f"{name}: outside its tolerance ({worst!r} of "
+                             f"the bar; max err {float(err.max())!r})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_bags(dev, sizes: Sizes) -> float:
+    """Phase 6a: ``embedding_bag`` against its plain version and float64
+    over ``sizes.bag_shapes``, weights given and None, an all-pad bag and
+    duplicate ids in each (N > 1, L > 1), pads and ids at or past V in the
+    second shape; and that two launches agree bitwise."""
+    import torch
+
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    err = 0.0
+    for i, (n, l, v, d) in enumerate(sizes.bag_shapes):
+        g = torch.Generator(device=dev).manual_seed(n + l + v + d)
+        low, high = (-1, v + v // 10) if i == 1 else (0, v)
+        ids = torch.randint(low, high, (n, l), generator=g, device=dev,
+                            dtype=torch.int32)
+        if n > 1:
+            ids[0] = -1  # an all-pad bag
+            ids[1, 1:] = ids[1, 0].clone()  # duplicate ids
+        table = torch.randn(v, d, generator=g, device=dev)
+        for w in (None, torch.randn(n, l, generator=g, device=dev)):
+            tag = (f"embedding_bag N={n} L={l} V={v} D={d} "
+                   f"weights={'none' if w is None else 'given'}")
+            got = bag_ops.embedding_bag(ids, table, w)
+            e = bag_within(f"{tag} vs plain", got,
+                           embedding_bag_ref(ids, w, table))
+            e64 = bag_within(f"{tag} vs float64", got,
+                             bag_f64(ids, w, table))
+            if n > 1 and bool(got[0].any()):
+                raise AssertionError(f"{tag}: an all-pad bag is not 0")
+            if not torch.equal(got, bag_ops.embedding_bag(ids, table, w)):
+                raise AssertionError(f"{tag}: not deterministic")
+            log(f"  {tag}: max_abs_err vs plain {e!r}, vs float64 {e64!r}")
+            err = max(err, e)
+    return err
+
+
+def to_device(batch: dict, dev) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def same_topk(name, got, want, scores, tol) -> float:
+    """Kernel top-k (values, ids) against the plain path's, tie-aware: at
+    each rank the values agree within ``tol`` and the id the kernel chose
+    carries a plain score within ``tol`` of the plain value there (a swap
+    inside a near-tie passes, a wrong id does not).  Returns the share of
+    ranks with the same id."""
+    (gv, gi), (wv, wi) = got, want
+    sync(gv.device)
+    if gv.shape != wv.shape:
+        raise AssertionError(f"{name}: top-k shape {tuple(gv.shape)} vs "
+                             f"{tuple(wv.shape)}")
+    bad = float((gv - wv).abs().max())
+    carried = float((scores[0, gi[0].long()] - wv[0]).abs().max())
+    if bad > tol or carried > tol:
+        raise AssertionError(f"{name}: top-k differs (values {bad!r}, ids' "
+                             f"plain scores {carried!r}, bar {tol!r})")
+    return float((gi == wi).float().mean())
+
+
+def serve_recsys(dev, sizes: Sizes, err: float) -> dict:
+    """Phase 6: the four recsys models at ``sizes.recsys_config`` with
+    seeded weights.  6b: ``forward`` of a ``serve_batch`` batch from
+    ``make_recsys_batch`` at each bag size in ``sizes.hots`` (a warm-up and
+    ``rounds`` calls, one ``embedding_bag`` launch each), against the plain
+    path.  6c: ``retrieval_cand`` — one user (the first of the multi-hot
+    batch), ``score_candidates`` then the top ``retrieval_k``, against the
+    plain path.  The ``embedding_bag`` counter is zeroed before 6b and read
+    after 6c.  6d: xDeepFM's lookup alone at ``bulk_batch``: the kernel,
+    its plain version, one ``F.embedding_bag`` call (used nowhere in the
+    port) and the bound (each id, each distinct row and the output
+    once)."""
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.topk import topk
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.models.recsys import build_model
+
+    out = {"serve": {}, "retrieval": {}}
+    bulk_model = None
+    bag_ops.launches = 0
+    for name in sizes.recsys_models:
+        cfg = getattr(importlib.import_module(f"repro_torch.configs.{name}"),
+                      sizes.recsys_config)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, seed=0)
+        sync(dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {cfg.name}: {len(cfg.vocab_sizes)} fields, "
+            f"{model.embedding.total_rows} table rows x D={cfg.embed_dim}, "
+            f"{n_params} parameters ({4 * n_params} B); seeded init "
+            f"{time.perf_counter() - t0:.3f} s")
+        with torch.inference_mode():
+            user = None
+            for hot in sizes.hots:
+                batch = to_device(make_recsys_batch(
+                    sizes.serve_batch, cfg.n_sparse, cfg.vocab_sizes,
+                    cfg.seq_len, cfg.item_vocab, multi_hot=hot, seed=0), dev)
+                before = bag_ops.launches
+                logits, ms = host_rounds(
+                    f"{cfg.name} forward B={sizes.serve_batch} H={hot}",
+                    lambda: model(batch), sizes.rounds, dev,
+                    sizes.serve_batch, unit="examples/s")
+                calls = sizes.rounds + 1
+                if bag_ops.launches - before != calls:
+                    raise AssertionError(
+                        f"{cfg.name}: {bag_ops.launches - before} "
+                        f"embedding_bag launches in {calls} forwards")
+                plain = model(batch, use_kernel=False)
+                if (tuple(logits.shape) != (sizes.serve_batch,)
+                        or not bool(torch.isfinite(logits).all())):
+                    raise AssertionError(f"{cfg.name}: not finite [B] "
+                                         f"logits")
+                e = float((logits - plain).abs().max())
+                scale = float(plain.abs().max())
+                log(f"  {cfg.name} H={hot}: kernel vs plain path max err "
+                    f"{e!r} (max |logit| {scale!r}); 1 launch a forward")
+                if e > RECSYS_TOL * scale:
+                    raise AssertionError(f"{cfg.name}: the kernel path "
+                                         f"disagrees with the plain path")
+                out["serve"][(name, hot)] = dict(ms=ms, err=e, scale=scale)
+                user = {k: v[:1] for k, v in batch.items()}
+
+            # 6c. retrieval_cand: one user, every candidate, top-k
+            c = sizes.din_candidates if name == "din" else sizes.candidates
+            cand = torch.arange(c, dtype=torch.int32, device=dev)
+            k = min(sizes.retrieval_k, c)
+
+            def retrieve(use_kernel=True):
+                # candidate ids are positions (arange), as same_topk reads
+                scores = model.score_candidates(user, cand, use_kernel)
+                vals, idx = topk(scores, k)
+                return scores, vals, cand[idx]
+
+            before = bag_ops.launches
+            (scores, vals, ids), ms = host_rounds(
+                f"{cfg.name} retrieval {c} candidates, top-{k}", retrieve,
+                sizes.rounds, dev, 1, unit="users/s")
+            launched = bag_ops.launches - before
+            plain, pvals, pids = retrieve(use_kernel=False)
+            if (tuple(scores.shape) != (1, c)
+                    or not bool(torch.isfinite(scores).all())):
+                raise AssertionError(f"{cfg.name}: not finite [1, C] scores")
+            scale = float(plain.abs().max())
+            e = float((scores - plain).abs().max())
+            share = same_topk(f"{cfg.name} retrieval", (vals, ids),
+                              (pvals, pids), plain, RECSYS_TOL * scale)
+            log(f"  {cfg.name} retrieval: scores max err {e!r} (max |score| "
+                f"{scale!r}), top-{k} ids equal at {share!r} of ranks, "
+                f"{launched} embedding_bag launches in {sizes.rounds + 1} "
+                f"calls")
+            if e > RECSYS_TOL * scale:
+                raise AssertionError(f"{cfg.name}: retrieval scores disagree")
+            out["retrieval"][name] = dict(ms=ms, candidates=c, err=e,
+                                          scale=scale, same_ids=share)
+            del scores, plain, cand, user, batch
+        if name == "xdeepfm":
+            bulk_model = model
+        del model
+        torch.cuda.empty_cache()
+    launches = bag_ops.launches
+    log(f"  embedding_bag launches on the main path (6b, 6c): {launches}")
+    if launches <= 0:
+        raise AssertionError("embedding_bag was not launched on the main "
+                             "path")
+
+    # 6d. xDeepFM's lookup alone at serve_bulk: real work for the kernel
+    if bulk_model is None:
+        from repro_torch.configs import xdeepfm
+
+        bulk_model = build_model(getattr(xdeepfm, sizes.recsys_config),
+                                 device=dev, seed=0)
+    cfg = bulk_model.cfg
+    table = bulk_model.fields["table"].detach()
+    t0 = time.perf_counter()
+    flat = bulk_model.embedding.flat_ids(torch.from_numpy(make_recsys_batch(
+        sizes.bulk_batch, cfg.n_sparse, cfg.vocab_sizes,
+        multi_hot=sizes.bulk_hot, seed=1)["sparse_ids"]).to(dev))
+    sync(dev)
+    n, l = flat.shape
+    d = table.shape[1]
+    log(f"  6d: {n} bags x {l} ids over {tuple(table.shape)} "
+        f"({table.numel() * 4} B); batch {time.perf_counter() - t0:.3f} s")
+    with torch.inference_mode():
+        got = bag_ops.embedding_bag(flat, table)
+        err = max(err, bag_within(f"embedding_bag N={n} L={l} vs plain", got,
+                                  embedding_bag_ref(flat, None, table)))
+        if not torch.equal(got, bag_ops.embedding_bag(flat, table)):
+            raise AssertionError("embedding_bag is not deterministic")
+        live = flat >= 0
+        lib_ids = torch.where(live, flat, 0)
+        lib_w = live.float()  # pads (none here) to row 0 at weight 0
+        lib = F.embedding_bag(lib_ids, table, mode="sum",
+                              per_sample_weights=lib_w)
+        lib_err = bag_within("F.embedding_bag vs the kernel", lib, got)
+        del got, lib
+        kernel_ms = event_ms(lambda: bag_ops.embedding_bag(flat, table),
+                             sizes.reps * 4, dev)
+        plain_ms = event_ms(lambda: embedding_bag_ref(flat, None, table),
+                            sizes.reps, dev)
+        library_ms = event_ms(lambda: F.embedding_bag(
+            lib_ids, table, mode="sum", per_sample_weights=lib_w),
+            sizes.reps * 4, dev)
+    # The bound reads each id once, each distinct row it names once (a
+    # repeated row is needed once) and writes the output once.
+    distinct = int(torch.unique(flat[flat >= 0]).numel())
+    nbytes = n * l * 4 + distinct * d * 4 + n * d * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    gathered = n * l * 4 + n * l * d * 4 + n * d * 4  # every row per id
+    log(f"  embedding_bag at N={n} L={l} D={d}: kernel {kernel_ms!r} ms, "
+        f"plain {plain_ms!r} ms, library (F.embedding_bag, max err "
+        f"{lib_err!r}) {library_ms!r} ms, bound {bound_ms!r} ms (bytes: "
+        f"{n * l} ids, {distinct} distinct rows of {d * 4} B, {n * d * 4} B "
+        f"out = {nbytes} B over {HBM_BYTES_PER_S} B/s); counting a row per "
+        f"id instead, {gathered} B: {gathered / HBM_BYTES_PER_S * 1e3!r} "
+        f"ms, {gathered / kernel_ms / 1e9!r} TB/s")
+    out["row"] = {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:58",
+        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": library_ms,
+    }
+    del bulk_model, table, flat, lib_ids, lib_w
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -1338,6 +1650,21 @@ def run(dev, sizes: Sizes) -> list[dict]:
     lm_run = serve_lm(dev, sizes, err)
     rows.append(lm_run["row"])
     log(f"peak device memory in phase 5: "
+        f"{torch.cuda.max_memory_allocated(dev)} B")
+
+    # 6. recsys serving; phase 5's model and cache are gone
+    del lm_run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    log(f"phase 6a: embedding_bag vs plain and float64, "
+        f"{len(sizes.bag_shapes)} shapes")
+    err = check_bags(dev, sizes)
+    log(f"phase 6: recsys serving, {sizes.recsys_config} of "
+        f"{', '.join(sizes.recsys_models)}: serve {sizes.serve_batch} at "
+        f"H = {sizes.hots}, retrieval over {sizes.candidates} candidates "
+        f"(DIN {sizes.din_candidates}), lookup at {sizes.bulk_batch}")
+    rows.append(serve_recsys(dev, sizes, err)["row"])
+    log(f"peak device memory in phase 6: "
         f"{torch.cuda.max_memory_allocated(dev)} B")
     return rows
 

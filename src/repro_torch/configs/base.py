@@ -10,11 +10,15 @@ a ``TypeError`` rather than a silent no-op: remat, layer scan, unrolled
 attention and sequence parallelism only matter for training or for XLA.
 The port has no experts and keeps its parameters in f32: a config with
 ``moe`` set or another ``param_dtype`` raises ``NotImplementedError``.
+
+``RecsysConfig`` copies ``repro.configs.base.RecsysConfig`` field for
+field.  No recsys model reads ``dtype`` (they run f32, in JAX and here), so
+any other value raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Literal, Optional
 
 import torch
 
@@ -76,3 +80,34 @@ class TransformerConfig:
         embed = self.vocab_size * d
         head = 0 if self.tie_embeddings else self.vocab_size * d
         return embed + self.n_layers * block + head + d
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    model: Literal["din", "dien", "autoint", "xdeepfm"]
+    n_sparse: int
+    embed_dim: int
+    vocab_sizes: tuple[int, ...] = ()  # per-field vocab; filled by helper
+    mlp_dims: tuple[int, ...] = (200, 80)
+    # DIN/DIEN
+    seq_len: int = 0
+    item_vocab: int = 0
+    attn_mlp: tuple[int, ...] = (80, 40)
+    gru_dim: int = 0
+    # AutoInt
+    n_attn_layers: int = 0
+    n_attn_heads: int = 0
+    d_attn: int = 0
+    # xDeepFM
+    cin_layers: tuple[int, ...] = ()
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype != "float32":
+            raise NotImplementedError(
+                f"{self.name}: dtype {self.dtype!r}; the recsys models run "
+                f"float32")
+
+    def total_rows(self) -> int:
+        return sum(self.vocab_sizes) + (self.item_vocab or 0)

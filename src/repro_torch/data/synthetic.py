@@ -6,7 +6,8 @@ sigma 34.3; ~49.9 nnz/query, sigma 18.2; log1p-ReLU-shaped weights in
 document plus Zipf expansion terms; and the topical corpus of
 :func:`make_topical_corpus`), drawn from an explicit ``torch.Generator`` on
 the target device and vectorised over documents.  :func:`make_lm_batch`
-is the JAX LM batch, drawn with numpy as there.
+and :func:`make_recsys_batch` are the JAX LM and recsys batches, drawn with
+numpy as there.
 
 Sampling ``k`` distinct terms with probabilities ``p`` — numpy's
 successive sampling without replacement — is drawn here as Gumbel-top-k:
@@ -266,3 +267,34 @@ def make_lm_batch(batch: int, seq_len: int, vocab_size: int,
         "targets": np.roll(tokens, -1, axis=1),
         "loss_mask": np.ones((batch, seq_len), dtype=np.float32),
     }
+
+
+def make_recsys_batch(batch: int, n_sparse: int, vocab_sizes,
+                      seq_len: int = 0, item_vocab: int = 0,
+                      multi_hot: int = 1, seed: int = 0) -> dict:
+    """A Criteo/Amazon-style click batch as numpy arrays, the very numbers
+    of ``repro.data.synthetic.make_recsys_batch`` for one seed: int32
+    ``sparse_ids`` [B, F, H] (H = ``multi_hot``, each field uniform over its
+    vocabulary, never padded), with ``seq_len`` and ``item_vocab`` also
+    int32 ``hist_ids`` [B, S], an f32 ``hist_mask`` [B, S] (a prefix of
+    1 to S valid steps) and int32 ``target_id`` [B]; and an f32 0/1
+    ``label`` [B].  ``n_sparse`` is not read, as in JAX: the fields are
+    ``vocab_sizes``."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    ids = np.stack(
+        [rng.integers(0, vs, size=(batch, multi_hot)) for vs in vocab_sizes],
+        axis=1,
+    ).astype(np.int32)
+    out["sparse_ids"] = ids
+    if seq_len and item_vocab:
+        out["hist_ids"] = rng.integers(
+            0, item_vocab, size=(batch, seq_len)).astype(np.int32)
+        out["hist_mask"] = (
+            np.arange(seq_len)[None, :]
+            < rng.integers(1, seq_len + 1, size=(batch, 1))
+        ).astype(np.float32)
+        out["target_id"] = rng.integers(0, item_vocab,
+                                        size=(batch,)).astype(np.int32)
+    out["label"] = rng.integers(0, 2, size=(batch,)).astype(np.float32)
+    return out

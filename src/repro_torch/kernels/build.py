@@ -31,7 +31,7 @@ import torch
 SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("scatter_score", "ell_gather", "bmp_scan", "splade_head",
-           "flash_attention")
+           "flash_attention", "embedding_bag")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

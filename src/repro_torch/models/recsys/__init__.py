@@ -1,0 +1,57 @@
+"""The recsys models, serving direction (``repro.models.recsys``): DIN,
+DIEN, AutoInt and xDeepFM on one concatenated field table, whose multi-hot
+lookups go through the ``embedding_bag`` kernel entry.
+
+``build_model(cfg, device="cuda", seed=0)`` makes the model of
+``cfg.model`` with seeded weights (the JAX init's laws, other numbers);
+:func:`params_from_jax` turns a JAX recsys params pytree into its
+``state_dict``.  ``loss_fn`` and training are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import RecsysConfig
+from repro_torch.models.recsys.autoint import AutoInt
+from repro_torch.models.recsys.dien import DIEN
+from repro_torch.models.recsys.din import DIN
+from repro_torch.models.recsys.embeddings import (
+    FieldEmbedding, embedding_bag_plain,
+)
+from repro_torch.models.recsys.xdeepfm import XDeepFM
+from repro_torch.utils import resolve_device
+
+MODELS = {"din": DIN, "dien": DIEN, "autoint": AutoInt, "xdeepfm": XDeepFM}
+
+__all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
+           "build_model", "embedding_bag_plain", "params_from_jax"]
+
+
+def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0):
+    """The model of ``cfg.model`` on ``device``, its weights drawn from a
+    generator on that device seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return MODELS[cfg.model](cfg, device=dev, generator=gen)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """Dotted names of a pytree of dicts and lists (list items by index)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX recsys params pytree (nested dicts and lists — ``cin``,
+    ``attn_layers``, ``mlp.layers`` — of numpy leaves) as the model's
+    ``state_dict``: CPU tensors under the same dotted names, which
+    ``load_state_dict(..., strict=True)`` copies to the model's device."""
+    return {name: torch.from_numpy(np.array(leaf, copy=True))
+            for name, leaf in _flatten(params).items()}

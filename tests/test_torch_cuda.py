@@ -13,6 +13,8 @@ exactly the plain version's blocks and chunks in the same number of steps.
 tokens is exact.  ``flash_attention`` in f32: atol = rtol = 2e-5 (the JAX
 package's bar for this kernel); in bf16 both versions compute in f32 and
 round once, so within one bf16 ulp of the output plus that f32 bar.
+``embedding_bag``: atol = rtol = 1e-5 of the plain version (an f32 sum of
+at most a few products, in another order), bitwise equal between launches.
 """
 import pytest
 import torch
@@ -22,6 +24,8 @@ from repro_torch.core import scoring
 from repro_torch.core.engine import RetrievalConfig, RetrievalEngine
 from repro_torch.data.synthetic import make_msmarco_like, make_topical_corpus
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
 from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
@@ -358,3 +362,68 @@ def test_lm_prefill_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
         got = lm.prefill(tokens)
     assert flash_ops.launches == before + cfg.n_layers
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,l,v,d,weighted", [
+    (7, 1, 50, 10, False), (7, 1, 50, 10, True),
+    (130, 5, 1000, 18, False), (130, 5, 1000, 18, True),
+])
+def test_embedding_bag_kernel_matches_plain(cuda, n, l, v, d, weighted):
+    g = torch.Generator(device=cuda).manual_seed(n + v)
+    ids = torch.randint(-1, v + 20, (n, l), generator=g, device=cuda,
+                        dtype=torch.int32)  # pads and ids at or past V
+    ids[0] = -1  # an all-pad bag
+    ids[1, 1:] = ids[1, 0].clone()  # duplicate ids
+    table = torch.randn(v, d, generator=g, device=cuda)
+    w = torch.randn(n, l, generator=g, device=cuda) if weighted else None
+    before = bag_ops.launches
+    got = bag_ops.embedding_bag(ids, table, w)
+    assert bag_ops.launches == before + 1
+    assert got.shape == (n, d) and not got[0].any()
+    torch.testing.assert_close(got, embedding_bag_ref(ids, w, table),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(got, bag_ops.embedding_bag(ids, table, w))
+
+
+def test_embedding_bag_refuses_what_it_cannot_run(cuda):
+    ids = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    table = torch.randn(10, 10, device=cuda, requires_grad=True)
+    before = bag_ops.launches
+    with pytest.raises(RuntimeError, match="backward"):
+        bag_ops.embedding_bag(ids, table)
+    table = table.detach()
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(ids.long(), table)
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(ids, table.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_ops.embedding_bag(ids, table.T)
+    with pytest.raises(ValueError):
+        bag_ops.embedding_bag(ids, table, torch.ones(4, 2, device=cuda))
+    assert bag_ops.launches == before
+
+
+def test_xdeepfm_forward_on_the_card_goes_through_the_kernel(cuda,
+                                                            monkeypatch):
+    """xDeepFM at full width (the 16.6M-row Criteo-39 table) on a multi-hot
+    batch: one launch a forward, the plain path's logits."""
+    from repro_torch.configs.xdeepfm import FULL
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models.recsys import build_model
+
+    model = build_model(FULL, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in make_recsys_batch(
+        64, FULL.n_sparse, FULL.vocab_sizes, multi_hot=8, seed=0).items()}
+    with pytest.raises(RuntimeError, match="backward"):
+        model(batch)
+    with torch.inference_mode():
+        want = model(batch, use_kernel=False)
+
+        def boom(*a, **k):
+            raise AssertionError("plain version called on a CUDA tensor")
+
+        monkeypatch.setattr(bag_ops, "embedding_bag_ref", boom)
+        before = bag_ops.launches
+        got = model(batch)
+    assert bag_ops.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

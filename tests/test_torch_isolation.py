@@ -32,7 +32,9 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.models.splade",
               "repro_torch.kernels.splade_head.ops",
               "repro_torch.models.transformer",
-              "repro_torch.kernels.flash_attention.ops"):
+              "repro_torch.kernels.flash_attention.ops",
+              "repro_torch.kernels.embedding_bag.ops",
+              "repro_torch.models.recsys"):
         assert m in mods
     code = (
         "import importlib, sys\n"

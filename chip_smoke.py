@@ -10,8 +10,11 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 Phases (each raises on failure; the script then exits non-zero):
 
 1. Build the six CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and print the card's name and power
-   limit.
+   ``nvcc`` per source, in parallel), print the card's name and power
+   limit, each kernel's registers and spills, and (where ``cuobjdump`` is
+   present) the count of ``HGMMA`` instructions in ``flash_attention``'s
+   library and of ``HMMA`` in ``splade_head``'s: the tensor-core routes
+   must show in the compiled code.
 2. Hold ``scatter_score`` and ``ell_gather`` against their plain PyTorch
    versions on the card, at 50,000 docs x 64 queries, V = 30,522, over
    several index geometries (``chunk_size < term_block``, a ragged last
@@ -71,13 +74,16 @@ Phases (each raises on failure; the script then exits non-zero):
    For ``splade_head``: its time at phase 3a's shapes (the encoder's own
    hidden states, B = 500, T = 64), the plain version's, one
    ``torch.matmul`` of h [B T, d] by W (the product alone, used nowhere in
-   the port) and the bound of 2 x valid tokens x d V f32 operations (a
-   token of mask 0 needs no product).
+   the port) and the bound of 3 x 2 x valid tokens x d V TF32 operations
+   over 495 TFLOP/s (the kernel keeps f32 accuracy with three TF32
+   products; a token of mask 0 needs no product), with the f32 SIMT bound
+   beside it.
 5a. With the earlier phases' data freed: ``flash_attention`` against its
    plain version and a float64 softmax, f32 and bf16, over JAX's
    ``test_flash_attention_sweep`` geometries at Dh 64, qwen2-0.5b's heads
    (Hq 14 over 2) with S = 1000 and 2048 (windowed), Dh 128 (Hq 32 over 8),
-   windows and MQA (FLASH_TOL), and that it is deterministic.
+   windows and MQA (FLASH_TOL), and that it is deterministic.  f32 inputs
+   take the SIMT route, bf16 the wgmma route.
 5. LM serving at the full width and depth of ``qwen2-0.5b``
    (``repro_torch.configs.qwen2_0_5b.FULL``: 24 layers, d 896, 14 heads
    over 2, d_ff 4864, V = 151,936, bf16 compute) with seeded random
@@ -86,10 +92,11 @@ Phases (each raises on failure; the script then exits non-zero):
    warm-up and 5 rounds on the host clock, the ``flash_attention`` counter
    zeroed before and read after (24 launches a prefill).  The kernel
    against its plain version on layer 0's own q, k, v at that shape, then
-   its time, the plain version's, one ``scaled_dot_product_attention``
+   its time (the bf16 wgmma route), the f32 SIMT route's on the same
+   inputs in f32, the plain version's, one ``scaled_dot_product_attention``
    call's (used nowhere in the port) and its bound (4 B Hq Dh x the visible
    (query, key) pairs over 989 TFLOP/s of bf16, or the q, k, v, o bytes
-   over 3.35 TB/s).  The whole prefill through the kernel against the plain
+   over 3.35 TB/s; the bf16 route does 1.5x those operations, p v twice).  The whole prefill through the kernel against the plain
    path at 2 x 4,096 tokens, in bf16 and in f32.  Then ``decode_step`` for
    16 steps of 32 sequences (``decode_32k`` with its batch cut from 128 to
    32) from a cache whose first 32,768 slots hold seeded bf16 K/V: ms per
@@ -163,6 +170,10 @@ PREFILL_F32_RTOL = 1e-4
 # max |plain| (the same f32 arithmetic; only the bag sums' order differs).
 BAG_TOL = 1e-5
 RECSYS_TOL = 1e-5
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
+# The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
+# flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
+TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "splade_head": "HMMA"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -841,27 +852,34 @@ def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
         library_ms = event_ms(lambda: torch.matmul(h.view(b * t, d), w),
                               sizes.reps, dev)
     # A token of mask 0 adds an exact 0 to a max of non-negative terms, so
-    # the function needs the product only for the valid tokens' rows.
+    # the function needs the product only for the valid tokens' rows.  Kept
+    # exact to f32 on the tensor cores (3xTF32) the product is three TF32
+    # products: the least time the card could take; the f32 SIMT bound is
+    # printed beside it.
     rows = int((mask != 0).sum())
     nbytes = 4 * (rows * d + b * t + d * v + v + b * v)
     flops = 2.0 * rows * d * v
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = 3 * flops / TF32_FLOP_PER_S * 1e3
+    t_simt = flops / F32_FLOP_PER_S * 1e3
     row = {
         "name": "splade_head", "route": "cuda",
+        "kernel_route": "cuda-mma-3xtf32",
         "source": "src/repro_torch/csrc/splade_head.cu",
         "replaces": "src/repro/kernels/splade_head/kernel.py:46",
         "launches": enc_run["launches"], "max_abs_err": err, "ms": kernel_ms,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms_f32_simt": max(t_bytes, t_simt),
         "library_ms": library_ms,
     }
     log(f"  splade_head: kernel {kernel_ms!r} ms ({kernel_ms / enc_run['encode_ms']!r} "
         f"of an encode call), plain {plain_ms!r} ms, library (matmul alone) "
         f"{library_ms!r} ms, bound {row['bound_ms']!r} ms "
         f"({row['bound_by']}: {rows} valid token rows of {b * t}, {nbytes} "
-        f"B, {flops!r} flop)")
+        f"B, 3 x {flops!r} TF32 flop; {t_simt!r} ms for {flops!r} f32 flop "
+        f"outside the tensor cores)")
     return row
 
 
@@ -1107,6 +1125,11 @@ def serve_lm(dev, sizes: Sizes, err: float) -> dict:
                              sizes.reps, dev)
         plain_ms = event_ms(lambda: flash_attention_ref(q, k, v, True, win),
                             1, dev)
+        # the other route at the same shape: the f32 SIMT kernel
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        f32_ms = event_ms(lambda: flash_ops.flash_attention(
+            q32, k32, v32, True, win), max(1, sizes.reps // 2), dev)
+        del q32, k32, v32
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                           SDPBackend.CUDNN_ATTENTION]):
@@ -1117,24 +1140,30 @@ def serve_lm(dev, sizes: Sizes, err: float) -> dict:
         peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
+        route = ("cuda-wgmma-bf16" if q.dtype == torch.bfloat16
+                 else "cuda-simt-f32")
         row = {
             "name": "flash_attention", "route": "cuda",
+            "kernel_route": route,
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:110",
             "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "ms_f32_simt": f32_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
         }
-        log(f"  flash_attention at {tuple(q.shape)} {q.dtype}: kernel "
-            f"{kernel_ms!r} ms ({kernel_ms * cfg.n_layers!r} ms a prefill, "
-            f"{cfg.n_layers * kernel_ms / prefill_ms!r} of it), plain "
+        log(f"  flash_attention at {tuple(q.shape)} {q.dtype} ({route}): "
+            f"kernel {kernel_ms!r} ms ({kernel_ms * cfg.n_layers!r} ms a "
+            f"prefill, {cfg.n_layers * kernel_ms / prefill_ms!r} of it), the "
+            f"f32 SIMT route at the same shape {f32_ms!r} ms, plain "
             f"{plain_ms!r} ms, library (scaled_dot_product_attention) "
             f"{library_ms!r} ms, bound {row['bound_ms']!r} ms "
             f"({row['bound_by']}: {nbytes} B, {flops!r} flop; "
             f"{row['bound_ms'] * cfg.n_layers!r} ms a prefill); "
-            f"{flops / kernel_ms / 1e9!r} TFLOP/s")
+            f"{flops / kernel_ms / 1e9!r} TFLOP/s counted (the bf16 route "
+            f"multiplies p v twice: 1.5x the counted work)")
         del q, k, v, qt, kt, vt, p
 
         # the whole prefill, kernel path against plain path
@@ -1503,6 +1532,13 @@ def run(dev, sizes: Sizes) -> list[dict]:
         for line in out.splitlines():
             if "registers" in line or "spill" in line.lower():
                 log(f"  {name}: {line.strip()}")
+    # The tensor-core routes show in the compiled code.
+    for name, op in TENSOR_CORE_OPS.items():
+        n = build.sass_count(name, op)
+        log(f"  {name}: {op} instructions in the library: "
+            f"{'not measured (no cuobjdump)' if n is None else n}")
+        if n == 0:
+            raise AssertionError(f"{name}: no {op} in the compiled code")
 
     # 2. kernels vs plain versions
     log(f"phase 2: kernels vs plain, {sizes.check_docs} docs x "

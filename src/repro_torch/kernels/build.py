@@ -7,8 +7,9 @@ first use with
          -Xcompiler -fPIC -Xptxas -v
 
 into ``build/kernels/<name>-<hash>.so`` at the repository root (a
-git-ignored directory).  The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  The library
+git-ignored directory).  The hash covers the source, every shared header
+``csrc/*.cuh`` it may include, and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  The library
 is loaded with ``ctypes``; callers declare each function's ``argtypes``
 (``c_void_p`` for pointers and the stream) through :func:`load_function`.
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -51,11 +53,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for src in [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> None:
@@ -84,6 +86,21 @@ def build(names=SOURCES) -> None:
             os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def sass_count(name: str, opcode: str):
+    """How many ``opcode`` instructions (e.g. ``HGMMA``, ``HMMA``) the built
+    library ``name`` holds, from ``cuobjdump -sass``; None where the toolkit
+    has no ``cuobjdump``."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                         check=True, capture_output=True, text=True,
+                         timeout=300).stdout
+    # "/*0150*/  @P0 HGMMA.64x128x16.F32.BF16 R24, ... ;" -> "HGMMA"
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", out)
+    return ops.count(opcode)
 
 
 def load_function(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:

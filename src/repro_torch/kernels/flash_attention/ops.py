@@ -1,15 +1,18 @@
 """Entry of the flash-attention forward.
 
-A CPU tensor runs :func:`flash_attention_ref`; a CUDA tensor runs the CUDA
+A CPU tensor runs :func:`flash_attention_ref`; a CUDA tensor runs a CUDA
 kernel in ``src/repro_torch/csrc/flash_attention.cu`` (replacing the Pallas
 ``repro.kernels.flash_attention.kernel.flash_attention_kernel``) or raises.
+The dtype picks the kernel, and neither falls back to the other: bf16 runs
+the wgmma route (TMA-fed tiles, bf16 products on the tensor cores, p kept
+in f32 as two bf16 terms), f32 the SIMT route (f32 arithmetic throughout).
 The layout is the JAX wrapper's, q [B, Sq, Hq, Dh] and k/v [B, Skv, Hkv,
-Dh]: the kernel reads the three through their strides and writes the
-output [B, Sq, Hq, Dh] itself, so no head-major copy is made, and it masks
-the ragged S edge, so nothing is padded.  Inputs f32 or bf16 (one dtype for
-all three), Dh 64 or 128, each row 16-byte aligned; the output is in q's
-dtype.  The kernel has no backward: a call that would need a gradient
-raises.  ``launches`` counts kernel launches, and nothing else.
+Dh]: the kernels read the three through their strides and write the
+output [B, Sq, Hq, Dh] themselves, so no head-major copy is made, and they
+mask the ragged S edge, so nothing is padded.  Inputs f32 or bf16 (one
+dtype for all three), Dh 64 or 128, each row 16-byte aligned; the output is
+in q's dtype.  The kernels have no backward: a call that would need a
+gradient raises.  ``launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 NAME = "flash_attention"
 launches = 0
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # 0: SIMT route, 1: wgmma
 HEAD_DIMS = (64, 128)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

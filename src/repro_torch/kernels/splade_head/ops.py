@@ -3,9 +3,10 @@
 A CPU tensor runs :func:`splade_head_ref`; a CUDA tensor runs the CUDA
 kernel in ``src/repro_torch/csrc/splade_head.cu`` (replacing the Pallas
 ``repro.kernels.splade_head.kernel.splade_head_kernel``) or raises.  The
-kernel masks the ragged token and vocabulary edges itself, so nothing is
-padded, and it reads ``w`` through its strides: the tied head
-``embed.T`` is passed as the [d, V] view it is, with no copy.  The kernel
+kernel runs the product on the tensor cores in 3xTF32 (f32 accuracy) over
+the token rows of nonzero mask only, masks the ragged vocabulary edge
+itself, so nothing is padded, and reads ``w`` through its strides: the
+tied head ``embed.T`` is passed as the [d, V] view it is, with no copy.  The kernel
 has no backward: a call that would need a gradient raises.  ``launches``
 counts kernel launches, and nothing else.
 """

@@ -10,9 +10,11 @@ Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
 products summed in another order.  The ``bmp_scan`` sweep must also fetch
 exactly the plain version's blocks and chunks in the same number of steps.
 ``splade_head`` sums d-long dot products in another order; its max over
-tokens is exact.  ``flash_attention`` in f32: atol = rtol = 2e-5 (the JAX
-package's bar for this kernel); in bf16 both versions compute in f32 and
-round once, so within one bf16 ulp of the output plus that f32 bar.
+tokens is exact (the kernel multiplies in 3xTF32 on the tensor cores, which
+keeps f32 accuracy, and skips the rows of mask 0).  ``flash_attention`` in
+f32 (the SIMT route): atol = rtol = 2e-5 (the JAX package's bar for this
+kernel); in bf16 (the wgmma route) both versions compute in f32 and round
+once, so within one bf16 ulp of the output plus that f32 bar.
 ``embedding_bag``: atol = rtol = 1e-5 of the plain version (an f32 sum of
 at most a few products, in another order), bitwise equal between launches.
 """
@@ -238,6 +240,28 @@ def test_splade_head_kernel_matches_plain(cuda, b, t, d, v, layout):
         assert not got[-1].any()
 
 
+@pytest.mark.parametrize("layout", ["embed.T", "contiguous"])
+@pytest.mark.parametrize("t,valid", [
+    (64, (8, 64, 0, 33, 17, 1, 63, 40)),  # the encode path's mix, and none
+    (200, (130, 0, 200, 64)),  # more valid rows than one 64-row chunk
+])
+def test_splade_head_kernel_skips_masked_rows(cuda, layout, t, valid):
+    b, d, v = len(valid), 768, 4099
+    g = torch.Generator(device=cuda).manual_seed(t + v)
+    h = torch.randn(b, t, d, generator=g, device=cuda)
+    mask = (torch.arange(t, device=cuda)[None, :]
+            < torch.tensor(valid, device=cuda)[:, None]).float()
+    embed = torch.randn(v, d, generator=g, device=cuda) * 0.05
+    w = embed.T if layout == "embed.T" else embed.T.contiguous()
+    bias = torch.randn(v, generator=g, device=cuda) * 0.1
+    before = head_ops.launches
+    got = head_ops.splade_head(h, mask, w, bias)
+    assert head_ops.launches == before + 1
+    _close(got, splade_head_ref(h, mask, w, bias))
+    assert torch.equal(got, head_ops.splade_head(h, mask, w, bias))
+    assert not got[valid.index(0)].any()  # no valid token: every term is 0
+
+
 def test_encoder_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
     from repro_torch.configs.gpusparse import ENCODER_SMOKE
     from repro_torch.models.splade import SpladeEncoder
@@ -301,6 +325,54 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, hq, hkv,
                                                       window=window))
 
 
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal,window", [
+    (1, 257, 257, 14, 2, 64, True, None),  # qwen2-0.5b's heads, ragged tile
+    (2, 129, 129, 4, 1, 128, True, 70),  # Dh 128, MQA, a window
+    (1, 333, 333, 8, 8, 64, False, 100),  # not causal, a window
+    (2, 64, 64, 2, 1, 128, False, None),
+    (1, 1, 1, 4, 2, 64, True, None),  # one row
+    (1, 100, 300, 6, 2, 64, False, None),  # more keys than queries
+    (1, 300, 100, 6, 2, 128, True, None),  # rows past the last key
+])
+def test_flash_attention_bf16_route(cuda, b, sq, skv, hq, hkv, dh, causal,
+                                    window):
+    """The bf16 wgmma route against the plain version: one launch,
+    deterministic, within FLASH_TOL plus one bf16 ulp."""
+    g = torch.Generator(device=cuda).manual_seed(sq * hq + skv + dh)
+    q = torch.randn(b, sq, hq, dh, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, skv, hkv, dh, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_ops.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, hq, dh)
+    _flash_within(got, flash_attention_ref(q, k, v, causal, window))
+    assert torch.equal(got, flash_ops.flash_attention(q, k, v, causal=causal,
+                                                      window=window))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_f32_takes_the_simt_route(cuda, dh):
+    """An f32 call runs the f32 kernel: within FLASH_TOL of the plain
+    version and of a float64 softmax, with no bf16 allowance."""
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    q = torch.randn(1, 300, 14, dh, generator=g, device=cuda)
+    k, v = (torch.randn(1, 300, 2, dh, generator=g, device=cuda)
+            for _ in range(2))
+    before = flash_ops.launches
+    got = flash_ops.flash_attention(q, k, v, window=120)
+    assert flash_ops.launches == before + 1 and got.dtype == torch.float32
+    _flash_within(got, flash_attention_ref(q, k, v, True, 120))
+    qd, kd, vd = (x.double().transpose(1, 2) for x in (q, k, v))
+    kd, vd = (x.repeat_interleave(7, dim=1) for x in (kd, vd))
+    pos = torch.arange(300, device=cuda)
+    vis = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < 120)
+    logits = (qd @ kd.transpose(-1, -2) / dh ** 0.5).masked_fill(
+        ~vis, float("-inf"))
+    exact = (torch.softmax(logits, -1) @ vd).transpose(1, 2)
+    _flash_within(got, exact.float())
+
+
 def test_flash_attention_reads_strided_heads(cuda):
     """q, k, v as views of one fused [B, S, Hq + 2 Hkv, Dh] projection."""
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -309,6 +381,18 @@ def test_flash_attention_reads_strided_heads(cuda):
     got = flash_ops.flash_attention(q, k, v)
     _flash_within(got, flash_attention_ref(q.contiguous(), k.contiguous(),
                                            v.contiguous()))
+
+
+def test_flash_attention_bf16_reads_strided_heads(cuda):
+    """The bf16 route's TMA maps over views of one fused [B, S, Hq + 2 Hkv,
+    Dh] projection (head stride Dh, row stride (Hq + 2 Hkv) Dh)."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    qkv = torch.randn(2, 150, 14 + 4, 64, generator=g,
+                      device=cuda).bfloat16()
+    q, k, v = qkv[:, :, :14], qkv[:, :, 14:16], qkv[:, :, 16:]
+    got = flash_ops.flash_attention(q, k, v, window=100)
+    _flash_within(got, flash_attention_ref(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), True, 100))
 
 
 def test_flash_attention_refuses_what_it_cannot_run(cuda):

@@ -148,3 +148,29 @@ def test_scatter_score_ref_honours_chunk_runs():
     assert torch.equal(
         scatter_ops.scatter_score(*args, t.block_chunk_count * keep.int(),
                                   **kw), got)
+
+
+def test_library_path_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes its source, every shared
+    ``csrc/*.cuh`` and the flags: editing a header it may include names a
+    new library, so a stale one is never loaded (no nvcc needed)."""
+    from repro_torch.kernels import build
+
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in list(build.SRC_DIR.glob("*.cu")) + list(
+            build.SRC_DIR.glob("*.cuh")):
+        (src / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "SRC_DIR", src)
+    names = ("flash_attention", "splade_head", "scatter_score")
+    before = {n: build.library_path(n) for n in names}
+    assert len(set(before.values())) == len(names)
+    header = src / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (src / "flash_attention.cu").write_bytes(
+        (src / "flash_attention.cu").read_bytes() + b"\n")
+    assert build.library_path("flash_attention") != after["flash_attention"]
+    assert build.library_path("splade_head") == after["splade_head"]
+    assert all(p.parent == build.BUILD_DIR for p in after.values())

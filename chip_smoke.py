@@ -67,10 +67,15 @@ Phases (each raises on failure; the script then exits non-zero):
    same scores (``torch.sparse.mm``, used nowhere in the port), and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, H100 SXM data sheet).  For ``bmp_scan``: a sample of
-   the main path's groups (the bucket with the most rows) against the
-   plain version, its times at those shapes, the bound of the work it did
-   (chunk lines, windows, heaps and weights; 2 x live postings x rows),
-   no library call; and the time of every launch of one search call.
+   the main path's groups (the bucket with the most rows) and two of its
+   one-row groups against the plain version; the route and cluster size of
+   each launch; the times of the sample, of the launch of one-row groups
+   and of every launch of one search call, each beside the floor of the
+   work its data needs (the demanded chunk lines of a term block with a
+   nonzero weight of the group, the windows, heaps and weights, each
+   moved once; the row's bound) and the same count over every demanded
+   line, with the share of chunk lines and postings the skip leaves
+   unread; no library call.
    For ``splade_head``: its time at phase 3a's shapes (the encoder's own
    hidden states, B = 500, T = 64), the plain version's, one
    ``torch.matmul`` of h [B T, d] by W (the product alone, used nowhere in
@@ -196,6 +201,7 @@ class Sizes:
     small_doc_block: int = 64  # phase 3b's case where retirement shows
     small_k: int = 10
     sample_groups: int = 4  # phase 4: main-path groups held against plain
+    singleton_checks: int = 2  # phase 4: one-row groups held against plain
     # splade_head against its plain version (phase 2): (B, T, d, V).
     head_shapes: tuple = ((1, 7, 64, 1000), (3, 130, 96, 513),
                           (64, 256, 768, 30522))
@@ -883,13 +889,78 @@ def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
     return row
 
 
+def sweep_work(idx, qw, launch, got, k_eff) -> dict:
+    """What one ``bmp_sweep`` launch had to do, from its fetch sets and
+    inputs.  ``bytes``: each input read once and each output written once
+    -- the distinct chunk lines (12 B a slot) that some group of the launch
+    demanded in a term block holding a nonzero weight of that group (a line
+    of any other term block adds 0 to every score), each read once for the
+    whole launch, the query weights read once, the scored windows and the
+    heaps written once; ``bytes_all_lines`` the same over every distinct
+    demanded line.  ``flops``: 2 x live postings of each group's kept lines
+    x rows.  Group by group: ``line_reads`` (each group's kept lines, what a
+    kernel that reads a line once a group reads), ``lines`` demanded and
+    ``lines_skipped`` of them, ``postings`` and ``postings_skipped``."""
+    import torch
+
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+
+    sel = launch[0]
+    gs, rows = sel.shape
+    bsc, csc = got[2].bool(), got[3].bool()
+    tbnz = bmp_ops.term_block_mask(bmp_ops.nonzero_terms(qw[sel]),
+                                   idx.term_block).bool()
+    kept = csc & tbnz[:, idx.chunk_term_block.long()]
+    live = (idx.local_doc >= 0).sum(dim=1).double()
+    postings = int((csc.double() @ live).sum())
+    postings_kept = int((kept.double() @ live).sum())
+    lines, lines_kept = int(csc.sum()), int(kept.sum())
+    distinct, distinct_kept = int(csc.any(0).sum()), int(kept.any(0).sum())
+    rest = (int(bsc.sum()) * rows * idx.doc_block * 4  # windows written
+            + gs * rows * k_eff * 4  # heaps written
+            + gs * rows * qw.shape[1] * 4)  # query weights read
+    line = idx.chunk_size * 12
+    del kept, tbnz
+    torch.cuda.empty_cache()
+    return dict(bytes=distinct_kept * line + rest,
+                bytes_all_lines=distinct * line + rest,
+                flops=2.0 * postings_kept * rows, line_reads=lines_kept,
+                lines=lines, lines_skipped=lines - lines_kept,
+                postings=postings, postings_skipped=postings - postings_kept)
+
+
+def sweep_bound(work: dict):
+    """(bound ms, "bytes" or "operations") of :func:`sweep_work`'s work."""
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = work["flops"] / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def work_line(name, ms, work: dict, line_bytes: int) -> str:
+    bound, by = sweep_bound(work)
+    w = work
+    return (f"  {name}: kernel {ms!r} ms, bound {bound!r} ms ({by}: "
+            f"{w['bytes']} B, each kept line once, {w['flops']!r} flop; "
+            f"every demanded line once {w['bytes_all_lines']} B = "
+            f"{w['bytes_all_lines'] / HBM_BYTES_PER_S * 1e3!r} ms); kept "
+            f"lines read group by group {w['line_reads']} = "
+            f"{w['line_reads'] * line_bytes} B; the skip leaves "
+            f"{w['lines_skipped']} of {w['lines']} demanded lines "
+            f"({w['lines_skipped'] / max(w['lines'], 1)!r}) and "
+            f"{w['postings_skipped']} of {w['postings']} postings "
+            f"({w['postings_skipped'] / max(w['postings'], 1)!r}) unread, "
+            f"group by group")
+
+
 def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
-    """Phase 4 for ``bmp_scan``: a sample of the main path's groups against
-    the plain version, then times at those shapes, the bound of the work
-    they did, and the kernel time of a whole search call."""
+    """Phase 4 for ``bmp_scan``: a sample of the main path's groups and a
+    few of its singleton groups against the plain version, then times at
+    those shapes and of every launch of a search call, each beside the
+    bound of the work it did."""
     import numpy as np
 
     from repro_torch.core import scoring
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
     from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
     from repro_torch.sched import planner
 
@@ -906,9 +977,12 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
                                       idx.block_chunk_count.cpu().numpy())
     plan_s = time.perf_counter() - t0
     launches = sweep_launches(idx, qw, ub, plan.groups, k_eff)
+    outs = []
     t0 = time.perf_counter()
     for launch in launches:
-        launch[4]()
+        outs.append(launch[4]())
+        log(f"  bmp_scan launch of {tuple(launch[0].shape)} groups x rows: "
+            f"{bmp_ops.last_route}")
     sync(dev)
     all_s = time.perf_counter() - t0
     log(f"  a search call's parts: bounds {1e3 * bounds_s!r} ms, plan "
@@ -923,39 +997,52 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
     got = sample[4]()
     err = max(err, check_sweep("bmp_scan at serve_1m", idx, qw, sample, got,
                                sizes.sample_groups))
+    # The launch of the one-row groups, where the call's groups are.
+    single = min(range(len(launches)),
+                 key=lambda i: launches[i][0].shape[1])
+    err = max(err, check_sweep("bmp_scan at serve_1m, one-row groups", idx,
+                               qw, launches[single], outs[single],
+                               sizes.singleton_checks))
     kernel_ms = event_ms(sample[4], sizes.reps, dev)
+    single_ms = event_ms(launches[single][4], sizes.reps, dev)
+    all_ms = event_ms(lambda: [launch[4]() for launch in launches], 1, dev)
     plain = (lambda: [bmp_sweep_ref(qw[sel_full[g]], order[g], us[g], tau[g],
                                     *tiled_runs(idx), None, **kw)
                       for g in range(sel_full.shape[0])])
     plain_ms = event_ms(plain, 1, dev)
-    bsc, csc = got[2].bool(), got[3].bool()
-    gs, rows = sel_full.shape
-    live = (idx.local_doc >= 0).sum(dim=1)
-    postings = int(sum(int(live[csc[g]].sum()) for g in range(gs)))
-    nbytes = (int(csc.sum()) * idx.chunk_size * 12  # chunk lines fetched
-              + int(bsc.sum()) * rows * idx.doc_block * 4  # windows written
-              + gs * rows * k_eff * 4  # heaps written
-              + gs * rows * qw.shape[1] * 4)  # query weights read
-    flops = 2.0 * postings * rows
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    # The least the data needs: a chunk line of a term block without a
+    # nonzero weight of the group adds 0 to every score, so only the other
+    # lines count, each once a launch (the bound over every demanded line
+    # is logged beside it).
+    work = sweep_work(idx, qw, sample, got, k_eff)
+    bound_ms, bound_by = sweep_bound(work)
     row = {
         "name": "bmp_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/bmp_scan.cu",
         "replaces": "src/repro/kernels/bmp_scan/kernel.py:297",
         "launches": main["launches"], "max_abs_err": err, "ms": kernel_ms,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None,
     }
-    log(f"  bmp_scan on {gs} groups x {rows} rows of the main path: kernel "
-        f"{kernel_ms!r} ms, plain {plain_ms!r} ms, bound "
-        f"{row['bound_ms']!r} ms ({row['bound_by']}: {nbytes} B, {flops!r} "
-        f"flop), library: none")
-    all_ms = event_ms(lambda: [launch[4]() for launch in launches], 1, dev)
-    log(f"  bmp_scan, every launch of one search call: {all_ms!r} ms "
-        f"(CUDA events)")
+    gs, rows = sel_full.shape
+    line = idx.chunk_size * 12
+    log(work_line(f"bmp_scan on {gs} groups x {rows} rows of the main path "
+                  f"(plain {plain_ms!r} ms, library: none)", kernel_ms,
+                  work, line))
+    log(work_line(f"bmp_scan on the {launches[single][0].shape[0]} one-row "
+                  f"groups", single_ms,
+                  sweep_work(idx, qw, launches[single], outs[single], k_eff),
+                  line))
+    # Launch by launch: a call's bound is the sum of its launches' bounds.
+    whole = [sweep_work(idx, qw, launch, out, k_eff)
+             for launch, out in zip(launches, outs)]
+    del outs
+    log(work_line(f"bmp_scan, every launch of one search call "
+                  f"({len(launches)} launches, CUDA events; bytes and flops "
+                  f"summed over its launches)", all_ms,
+                  {key: sum(w[key] for w in whole) for key in whole[0]},
+                  line))
     return row
 
 

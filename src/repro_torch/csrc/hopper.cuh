@@ -41,27 +41,55 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
                : "memory");
 }
 
+// Whether the phase of parity `parity` has completed.  kCluster: acquire
+// at cluster scope, so the waiter sees what threads of other CTAs of the
+// cluster wrote before their release arrive (else at CTA scope).
+template <bool kCluster = false>
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
   uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
+  if (kCluster) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
   return done != 0;
 }
 
 // Waits until the phase of parity `parity` has completed.  A wait of more
 // than ~2^34 cycles (several seconds) can only be a protocol fault: it
 // traps, so the launch fails with an error instead of hanging the card.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
+  if (mbar_try_wait<kCluster>(bar, parity)) return;
   const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
+  while (!mbar_try_wait<kCluster>(bar, parity)) {
     if (clock64() - start > (1ll << 34)) __trap();
   }
+}
+
+// One arrival, with release at cluster scope, on the barrier at `bar` (a
+// shared-memory address of this CTA) in the shared memory of CTA `rank` of
+// the cluster.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar, int rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n"
+      ::"r"(bar), "r"(rank)
+      : "memory");
 }
 
 // ---- TMA ----
@@ -77,6 +105,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// device memory at `src` into shared memory at `dst`; the bytes count
+// towards the current phase of `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -8,7 +8,8 @@ dependencies:
 
 Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
 products summed in another order.  The ``bmp_scan`` sweep must also fetch
-exactly the plain version's blocks and chunks in the same number of steps.
+exactly the plain version's blocks and chunks in the same number of steps,
+on every route and cluster split, and repeat bit for bit.
 ``splade_head`` sums d-long dot products in another order; its max over
 tokens is exact (the kernel multiplies in 3xTF32 on the tensor cores, which
 keeps f32 accuracy, and skips the rows of mask 0).  ``flash_attention`` in
@@ -153,16 +154,58 @@ def _runs(t):
             t.chunk_doc_block, t.local_term, t.local_doc, t.value)
 
 
-@pytest.mark.parametrize("db,k,groups,theta,warm,dead", [
-    (16, 5, [[0, 1, 2], [3], [4, 5, 6, 7]], 1.0, False, False),
-    (64, 40, [[0, 1, 2, 3, 4, 5, 6, 7]], 0.8, True, True),
-    (32, 10, [list(range(40))], 1.0, False, True),  # one 64-row group
+@pytest.mark.parametrize("db,k,groups,theta,warm,dead,pad_to,weights", [
+    (16, 5, [[0, 1, 2], [3], [4, 5, 6, 7]], 1.0, False, False, 0, None),
+    (64, 40, [[0, 1, 2, 3, 4, 5, 6, 7]], 0.8, True, True, 0, None),
+    (32, 10, [list(range(40))], 1.0, False, True, 0, None),  # 64 rows
+    # Every route and the cluster split: b = 1 over more groups than SMs
+    # (small route, no cluster), b = 1, 2, 3 and 8 over few groups (small
+    # route, a cluster a group), b = 9 (wide, 32-row tile), b = 64 and
+    # 256 (wide, 128-row tile, cluster).  "holes": the first group's rows
+    # lose every weight of term block 0 (demanded by every row) and the
+    # last group's first row is all zero; "dense": every term has a weight
+    # (8 rows x 4,096 terms: the packed weights stay in device memory).
+    (32, 10, [[i] for i in range(140)], 1.0, True, True, 0, "holes"),
+    (16, 5, [[0]], 0.8, False, False, 0, "holes"),
+    (32, 10, [[0, 1], [2, 3], [4, 5]], 0.8, True, False, 0, "holes"),
+    (64, 20, [[0, 1, 2], [3, 4, 5]], 1.0, False, True, 3, "holes"),
+    (16, 5, [list(range(8))], 1.0, True, True, 0, None),
+    (32, 10, [list(range(8)), list(range(8, 16))], 1.0, False, True, 0,
+     "dense"),
+    (32, 10, [list(range(9)), list(range(9, 18))], 0.8, False, True, 9,
+     "holes"),
+    (64, 40, [list(range(64))], 1.0, True, False, 0, "holes"),
+    (32, 10, [list(range(256))], 1.0, False, True, 0, None),
 ])
 def test_bmp_sweep_kernel_matches_plain(cuda, db, k, groups, theta, warm,
-                                        dead):
+                                        dead, pad_to, weights):
+    size = pad_to or max(1 << (len(g) - 1).bit_length() for g in groups)
+    _check_sweep(cuda, db, k, groups, theta, warm, dead, pad_to, weights, 64,
+                 "small" if size <= bmp_ops.SMALL_MAX_ROWS else "wide")
+
+
+@pytest.mark.parametrize("cs,groups,weights", [
+    (1024, [[0], [1], [2, 3]], "holes"),  # over four 128-slot loads
+    (50, [[0, 1, 2], [3, 4]], None),  # not a whole number of 16-byte pieces
+])
+def test_bmp_sweep_small_groups_go_wide_where_the_small_route_cannot(
+        cuda, cs, groups, weights):
+    _check_sweep(cuda, 32, 10, groups, 0.8, True, True, 0, weights, cs,
+                 "wide")
+
+
+def _check_sweep(cuda, db, k, groups, theta, warm, dead, pad_to, weights, cs,
+                 route_name):
     b = max(max(g) for g in groups) + 1
-    t, qw, order, ub_sorted = _sweep_inputs(cuda, 1500, b, db, k)
-    size = max(1 << (len(g) - 1).bit_length() for g in groups)
+    t, qw, order, ub_sorted = _sweep_inputs(cuda, 1500, b, db, k, cs)
+    if weights == "holes":  # the bounds stay upper bounds: weights drop
+        qw = qw.clone()
+        qw[groups[0], :256] = 0.0
+        qw[groups[-1][0]] = 0.0
+    elif weights == "dense":  # both versions run the same schedule
+        g = torch.Generator(device=cuda).manual_seed(7)
+        qw = qw + 0.01 * torch.rand(qw.shape, generator=g, device=cuda)
+    size = pad_to or max(1 << (len(g) - 1).bit_length() for g in groups)
     sel = torch.tensor([g + [0] * (size - len(g)) for g in groups],
                        device=cuda)
     tau0 = torch.full(sel.shape, float("-inf"), device=cuda)
@@ -180,6 +223,13 @@ def test_bmp_sweep_kernel_matches_plain(cuda, db, k, groups, theta, warm,
     got = bmp_ops.bmp_sweep(qw[sel], order[sel], ub_sorted[sel], tau0,
                             *_runs(t), alive, **kw)
     assert bmp_ops.launches == before + 1
+    route = bmp_ops.last_route
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert route.name == route_name
+    assert (route.cluster > 1) == (len(groups) < sms)
+    # Only the small route stages packed weights, unless they are too many.
+    assert route.weights_in_smem == (route.name == "small"
+                                     and weights != "dense")
     torch.cuda.synchronize()
     for gi in range(len(groups)):
         want = bmp_sweep_ref(qw[sel[gi]], order[sel[gi]],
@@ -190,6 +240,23 @@ def test_bmp_sweep_kernel_matches_plain(cuda, db, k, groups, theta, warm,
         assert torch.equal(got[2][gi].bool(), want[2])
         assert torch.equal(got[3][gi].bool(), want[3])
         assert int(got[4][gi, 0]) == want[4]
+
+
+@pytest.mark.parametrize("rows,n_groups", [(1, 140), (2, 3), (1, 1),
+                                           (64, 1), (16, 140)])
+def test_bmp_sweep_kernel_is_deterministic(cuda, rows, n_groups):
+    b = rows * n_groups
+    t, qw, order, ub_sorted = _sweep_inputs(cuda, 1500, b, 32, 10, seed=4)
+    sel = torch.arange(b, device=cuda).reshape(n_groups, rows)
+    tau0 = torch.full(sel.shape, float("-inf"), device=cuda)
+    kw = dict(term_block=256, doc_block=32, k_eff=10, theta=1.0,
+              num_docs=t.num_docs)
+    args = (qw[sel], order[sel], ub_sorted[sel], tau0, *_runs(t))
+    first = bmp_ops.bmp_sweep(*args, **kw)
+    second = bmp_ops.bmp_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("engine", ["tiled-pruned", "tiled-bmp-grouped",

@@ -19,7 +19,9 @@ Phases (each raises on failure; the script then exits non-zero):
    versions on the card, at 50,000 docs x 64 queries, V = 30,522, over
    several index geometries (``chunk_size < term_block``, a ragged last
    doc block, a tile-skipped index whose blanked chunks test the padding
-   rule); ``splade_head`` against its plain version at (B, T, d, V) =
+   rule), on the corpus's sparse query tiles and on nearly dense ones (the
+   kernels' dense route), each launched twice and bitwise equal;
+   ``splade_head`` against its plain version at (B, T, d, V) =
    (1, 7, 64, 1000), (3, 130, 96, 513) and (64, 256, 768, 30,522), W
    given contiguous and as the strided ``embed.T`` view, a fractional mask
    and an all-zero row.
@@ -66,7 +68,20 @@ Phases (each raises on failure; the script then exits non-zero):
    shapes: the kernel, its plain version, one library call computing the
    same scores (``torch.sparse.mm``, used nowhere in the port), and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
-   over 67 TFLOP/s, H100 SXM data sheet).  For ``bmp_scan``: a sample of
+   over 67 TFLOP/s, H100 SXM data sheet).  The bytes count the index's
+   live slots (every ELL slot's term id, which marks the padding), QW and
+   the scores once; the old yardstick, the padded index stream, is printed
+   beside it.  The operations are 2 x the
+   nonzero products sum_q sum_{t in q} df(t), counted on the card from the
+   index and the queries (the old yardstick, 2 x postings x B, printed
+   beside it), with the counts the kernels' design rests on: the nonzero
+   share, the postings whose term has a nonzero weight in a tile of 128
+   queries, the nonzero queries of such a posting, the distinct terms a
+   tile and the term blocks it touches; the packing of the query tiles and
+   ``scatter_score``'s ``chunk_doc_bounds`` are timed apart (they run
+   inside the kernels' entries, so inside their times).  Both kernels on
+   phase 3a's nearly dense encoder queries: the dense route they pick
+   against the sparse route forced, timed apart and bitwise equal.  For ``bmp_scan``: a sample of
    the main path's groups (the bucket with the most rows) and two of its
    one-row groups against the plain version; the route and cluster size of
    each launch; the times of the sample, of the launch of one-row groups
@@ -324,8 +339,21 @@ def compare(name: str, got, want, quiet: bool = False) -> float:
     return err
 
 
+def dense_queries(b, width, dev, seed):
+    """Nearly dense f32 query weights [b, width] (uniform, 10 % zeros, as
+    the encoder's thresholded output): tiles of them take the kernels'
+    dense route."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qw = torch.rand((b, width), generator=g, device=dev)
+    return torch.where(qw > 0.1, qw, 0.0)
+
+
 def check_kernels(dev, sizes: Sizes):
-    """Phase 2: each kernel against its plain version, several geometries."""
+    """Phase 2: each kernel against its plain version, several geometries,
+    on the corpus's sparse query tiles and on dense ones; each launched
+    twice, bitwise equal."""
     import torch
 
     from repro_torch.core import index as index_mod
@@ -335,31 +363,119 @@ def check_kernels(dev, sizes: Sizes):
         scatter_score, scatter_score_ref,
     )
 
+    def same_twice(name, fn, got):
+        if not torch.equal(got, fn()):
+            raise AssertionError(f"{name} is not deterministic")
+
     c = make_msmarco_like(sizes.check_docs, sizes.check_queries,
                           vocab_size=sizes.vocab, seed=11, device=dev)
     errs = {"scatter_score": 0.0, "ell_gather": 0.0}
-    for tb, db, cs in sizes.geometries:
+    for i, (tb, db, cs) in enumerate(sizes.geometries):
         idx = index_mod.build_tiled_index(c.docs, term_block=tb, doc_block=db,
                                           chunk_size=cs)
         qw = padded_queries(c.queries, idx)
-        for tag, ix in (("", idx),
-                        ("/tile-skip", index_mod.filter_tiled_index(
-                            idx, c.queries.slice_rows(0, 2)))):
+        cases = [("", idx, qw),
+                 ("/tile-skip", index_mod.filter_tiled_index(
+                     idx, c.queries.slice_rows(0, 2)), qw)]
+        if i == 0:
+            cases.append(("/dense tile", idx,
+                          dense_queries(*qw.shape, dev, seed=tb)))
+        for tag, ix, q in cases:
             args = tiled_args(ix)
-            got = scatter_score(qw, **args)
-            want = scatter_score_ref(qw, **args)
+            got = scatter_score(q, **args)
+            want = scatter_score_ref(q, **args)
             err = compare(f"scatter_score T={tb} D={db} C={cs}{tag}",
                           got, want)
             errs["scatter_score"] = max(errs["scatter_score"], err)
-            again = scatter_score(qw, **args)
-            if not torch.equal(got, again):
-                raise AssertionError("scatter_score is not deterministic")
+            same_twice("scatter_score", lambda: scatter_score(q, **args), got)
     ell = index_mod.build_ell_index(c.docs)
     qw = c.queries.to_dense()
-    got = ell_gather(qw, ell.terms, ell.values)
-    errs["ell_gather"] = compare("ell_gather", got,
-                                 ell_gather_ref(qw, ell.terms, ell.values))
+    for tag, q in (("", qw), ("/dense tile",
+                              dense_queries(*qw.shape, dev, seed=1))):
+        got = ell_gather(q, ell.terms, ell.values)
+        errs["ell_gather"] = max(errs["ell_gather"], compare(
+            f"ell_gather{tag}", got, ell_gather_ref(q, ell.terms,
+                                                    ell.values)))
+        same_twice("ell_gather", lambda: ell_gather(q, ell.terms, ell.values),
+                   got)
     return errs
+
+
+def query_counts(docs, qw, vocab: int, term_block: int) -> dict:
+    """What the exact kernels' work depends on, counted on the card from
+    the corpus and the dense queries qw [B, V]: the nonzero products
+    sum_q sum_{t in q} df(t), and per tile of QUERY_TILE queries the
+    postings whose term has a nonzero weight in the tile, the nonzero
+    queries of such a posting, the tile's distinct terms and its share of
+    term blocks holding one."""
+    import torch
+
+    from repro_torch.kernels.query_tiles import QUERY_TILE
+
+    ids = docs.term_ids[docs.term_ids >= 0].long()
+    df = torch.bincount(ids, minlength=vocab).double()
+    postings = float(df.sum())
+    nz = qw[:, :vocab] != 0
+    b = nz.shape[0]
+    products = float((nz.double() @ df).sum())
+    n_tiles = -(-b // QUERY_TILE)
+    tiles = torch.nn.functional.pad(nz, (0, 0, 0, n_tiles * QUERY_TILE - b))
+    in_tile = tiles.view(n_tiles, QUERY_TILE, vocab).any(1)  # [tiles, V]
+    live = float((in_tile.double() * df).sum())
+    n_tb = -(-vocab // term_block)
+    blocks = torch.nn.functional.pad(in_tile, (0, n_tb * term_block - vocab))
+    touched = blocks.view(n_tiles, n_tb, term_block).any(-1)
+    return {
+        "postings": postings, "queries": b, "tiles": n_tiles,
+        "nonzero_products": products,
+        "nonzero_share": products / (postings * b),
+        "live_posting_share": live / (postings * n_tiles),
+        "queries_per_live_posting": products / max(live, 1.0),
+        "distinct_terms_per_tile": in_tile.sum(1).tolist(),
+        "distinct_terms_all": int(nz.any(0).sum()),
+        "term_blocks_touched_share": float(touched.double().mean()),
+    }
+
+
+def dense_routes(dev, sizes: Sizes, queries, tiled, ell) -> None:
+    """Phase 4: the kernels on phase 3a's encoder queries (nearly dense
+    tiles): their route as picked (dense) against the sparse route forced
+    on the same tiles (``DENSE_SHARE`` above 1), timed apart and bitwise
+    equal."""
+    import torch
+
+    from repro_torch.kernels import query_tiles
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+    qw_t = padded_queries(queries, tiled)
+    qw = queries.to_dense()
+    dense = query_tiles.pack_query_tiles(qw)[3].tolist()
+    pack_ms = event_ms(lambda: query_tiles.pack_query_tiles(qw), sizes.reps,
+                       dev)
+    log(f"  encoder queries: nonzero share {float((qw != 0).double().mean())!r}"
+        f", dense tiles {dense}; packing them {pack_ms!r} ms")
+    calls = {"scatter_score": lambda: scatter_ops.scatter_score(
+                 qw_t, **tiled_args(tiled)),
+             "ell_gather": lambda: ell_ops.ell_gather(qw, ell.terms,
+                                                      ell.values)}
+    for name, fn in calls.items():
+        picked = fn()
+        picked_ms = event_ms(fn, sizes.reps, dev)
+        share = query_tiles.DENSE_SHARE
+        query_tiles.DENSE_SHARE = 2.0  # no tile is dense: the sparse route
+        try:
+            same = torch.equal(picked, fn())
+            sparse_ms = event_ms(fn, sizes.reps, dev)
+        finally:
+            query_tiles.DENSE_SHARE = share
+        del picked
+        log(f"  {name} on the encoder's tiles: route as picked "
+            f"{picked_ms!r} ms, sparse route forced {sparse_ms!r} ms; "
+            f"bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{name}: the dense and sparse routes "
+                                 f"differ in bits")
 
 
 def check_head(dev, sizes: Sizes) -> float:
@@ -831,7 +947,8 @@ def encode_search(dev, sizes: Sizes, corpus, engines) -> dict:
     if ov < OVERLAP_MIN or rel > SCORE_RTOL:
         raise AssertionError("encode -> tiled and ell disagree")
     return dict(enc=enc, tokens=tokens, mask=mask, err=err,
-                encode_ms=encode_ms, launches=launches["splade_head"])
+                encode_ms=encode_ms, launches=launches["splade_head"],
+                queries=tq)
 
 
 def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
@@ -1608,6 +1725,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     from repro_torch.kernels import build
     from repro_torch.kernels.ell_gather import ops as ell_ops
     from repro_torch.kernels.ell_gather.ref import ell_gather_ref
+    from repro_torch.kernels.query_tiles import pack_query_tiles
     from repro_torch.kernels.scatter_score import ops as scatter_ops
     from repro_torch.kernels.scatter_score.ref import scatter_score_ref
 
@@ -1705,18 +1823,26 @@ def run(dev, sizes: Sizes) -> list[dict]:
         "scatter_score": dict(
             kernel=lambda: scatter_ops.scatter_score(qw_t, **tiled_args(tiled)),
             plain=lambda: scatter_score_ref(qw_t, **tiled_args(tiled)),
-            bytes=(tiled.num_chunks * tiled.chunk_size * 12
-                   + tiled.num_chunks * 4 + tiled.num_doc_blocks * 8
-                   + b * qw_t.shape[1] * 4
-                   + b * tiled.padded_docs * 4),
+            # the index stream: each live posting's term, doc and value
+            # (the old yardstick: every slot of every chunk); then each
+            # chunk's term block, the runs, QW and the scores
+            stream=int((tiled.local_doc >= 0).sum()) * 12,
+            padded_stream=tiled.num_chunks * tiled.chunk_size * 12,
+            rest=(tiled.num_chunks * 4 + tiled.num_doc_blocks * 8
+                  + b * qw_t.shape[1] * 4 + b * tiled.padded_docs * 4),
             source="src/repro_torch/csrc/scatter_score.cu",
             replaces="src/repro/kernels/scatter_score/kernel.py:98",
         ),
         "ell_gather": dict(
             kernel=lambda: ell_ops.ell_gather(qw, ell.terms, ell.values),
             plain=lambda: ell_gather_ref(qw, ell.terms, ell.values),
-            bytes=(ell.terms.numel() * 8 + b * sizes.vocab * 4
-                   + b * ell.terms.shape[0] * 4),
+            # the index stream: every slot's term id (padding is found by
+            # reading it) and the live slots' values (the old yardstick:
+            # every slot's value too); then QW and the scores
+            stream=(ell.terms.numel() * 4
+                    + int((ell.terms < sizes.vocab).sum()) * 4),
+            padded_stream=ell.terms.numel() * 8,
+            rest=b * sizes.vocab * 4 + b * ell.terms.shape[0] * 4,
             source="src/repro_torch/csrc/ell_gather.cu",
             replaces="src/repro/kernels/ell_gather/kernel.py:57",
         ),
@@ -1734,13 +1860,32 @@ def run(dev, sizes: Sizes) -> list[dict]:
                        dev)
     del scores
     log(f"  topk_two_stage [{b}, {sizes.docs}] k={sizes.k}: {topk_ms!r} ms")
-    flops = 2.0 * nnz * b
+    # The work these inputs need: 2 flop a nonzero product (a posting of a
+    # term against each query holding that term).  The old yardstick
+    # counted every posting against every query.
+    counts = query_counts(corpus.docs, qw, sizes.vocab, tiled.term_block)
+    log(f"  query counts at serve_1m: {json.dumps(counts)}")
+    flops = 2.0 * counts["nonzero_products"]
+    log(f"  operations: {flops!r} flop (2 x nonzero products); old "
+        f"yardstick 2 x postings x B = {2.0 * nnz * b!r} flop, "
+        f"{2.0 * nnz * b / F32_FLOP_PER_S * 1e3!r} ms at 67 TFLOP/s")
+    for name, q in (("scatter_score", qw_t), ("ell_gather", qw)):
+        pack_ms = event_ms(lambda: pack_query_tiles(q), sizes.reps, dev)
+        log(f"  {name}: packing the query tiles {pack_ms!r} ms (inside "
+            f"the kernel's time below)")
+    bounds_ms = event_ms(lambda: scatter_ops.chunk_doc_bounds(
+        tiled.local_doc, tiled.doc_block), sizes.reps, dev)
+    log(f"  scatter_score: each warp's slots of each chunk "
+        f"(chunk_doc_bounds) {bounds_ms!r} ms (inside its time below)")
+    dense_routes(dev, sizes, enc_run["queries"], tiled, ell)
     rows = []
     for name, s in specs.items():
         kernel_ms = event_ms(s["kernel"], sizes.reps, dev)
         plain_ms = event_ms(s["plain"], max(1, sizes.reps // 2), dev)
-        t_bytes = s["bytes"] / HBM_BYTES_PER_S * 1e3
+        nbytes = s["stream"] + s["rest"]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
+        old_bytes = s["padded_stream"] + s["rest"]
         row = {
             "name": name, "route": "cuda", "source": s["source"],
             "replaces": s["replaces"], "launches": launches[name],
@@ -1752,7 +1897,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
         }
         log(f"  {name}: kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, "
             f"library {library_ms!r} ms, bound {row['bound_ms']!r} ms "
-            f"({row['bound_by']}: {s['bytes']} B, {flops!r} flop)")
+            f"({row['bound_by']}: {nbytes} B, {flops!r} flop); old "
+            f"yardstick, the padded index stream: {old_bytes} B, "
+            f"{old_bytes / HBM_BYTES_PER_S * 1e3!r} ms")
         rows.append(row)
     rows.append(bmp_row(dev, sizes, pruned, errs["bmp_scan"]))
     rows.append(head_row(dev, sizes, enc_run, errs["splade_head"]))

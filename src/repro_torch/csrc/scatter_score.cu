@@ -12,196 +12,257 @@
 // zeroes it).  CTAs run in no order, so here one CTA owns one (doc block,
 // tile of kQueryTile queries) pair: it zeroes its window in shared memory,
 // walks the block's chunk run [block_chunk_start[db], +block_chunk_count[db])
-// and writes the window once.  No global atomics.
+// and writes the window once.  No global atomics.  The query tiles of a doc
+// block are neighbours in the grid, so they run together and the chunk
+// stream comes from HBM about once; L2 serves the other tiles.
 //
-// Within a chunk the live postings come first, in ascending local_doc order,
-// and the padding (local_doc = -1) after them (the index builder's stable
-// sort keeps doc-major order), so each doc's postings form one contiguous
-// segment.  The chunk's live slots are split into kWarps equal slices, one
-// per warp.  A warp gathers kBatch slots' query weights at once (lane l
-// carries queries l, l+32, l+64 and l+96 of the tile), then folds them in
-// slot order, one running sum per doc.  A sum whose segment began in the
-// slice goes straight into the doc's window row; a sum that continues a
-// segment begun in an earlier slice is left in the warp's carry row, and
-// after a barrier the warp that holds the segment's head adds the carries
-// that follow it, in slice order.  Every row has one writer at a time and
-// the order of every sum is fixed, so results repeat bit for bit.  Even
-// slices keep every warp busy whether a chunk holds a few long segments
-// (the hottest term block has about 60 postings a doc) or is partly empty.
+// The fold order (bmp_scan.cu keeps the same one, so the pruned engines
+// give these bits): a chunk's live slots (a prefix sorted by local_doc) are
+// cut into 32 equal slices; within a slice each doc's postings are summed
+// in slot order with fmaf(weight, value, acc) from +0 (a "part"); a doc's
+// parts are added into its window row in slice order; chunks follow in run
+// order.
 //
-// What bounds it: each posting gathers its term's kQueryTile query weights
-// (four coalesced 128-byte reads from the term-major QW^T), so the kernel
-// moves postings x B x 4 bytes through L2 — about as many bytes as it does
-// multiply-adds — against an HBM floor of one read of the chunk stream and
-// one write of the scores.  A doc block's ~100 chunks are walked one after
-// another, so each chunk's fixed cost (two barriers, the fold) is on the
-// critical path; 128 queries a CTA spread it over twice the work of 64, at
-// one CTA (32 warps) per SM, since the [256, 129] f32 window takes 132 KB of
-// shared memory.  Chunks (and their term block ids) are copied into a ring
-// of kStages shared buffers with cp.async, kStages - 1 chunks ahead of the
-// one being scored.  Staging hot term blocks of QW^T in shared memory, to
-// cut the gather traffic itself, is later work.
-#include <cuda_pipeline.h>
+// Warps own docs, not slices: warp w owns the window rows of docs
+// [w * ceil(D/32), (w + 1) * ceil(D/32)) and walks the whole chunk run on
+// its own, reading from each chunk only its docs' slots (a contiguous
+// segment, whose bounds the entry finds for every chunk and warp:
+// doc_bounds) and cutting them into parts at every change of doc or of
+// slice.  It adds each part into its own row as soon as the part ends, so
+// no row has two writers, no carry crosses warps and the loop needs no
+// barrier: warps drift apart and hide each other's latency.  The order of
+// every sum is fixed, so results repeat bit for bit.
+//
+// The query weights come packed by tile (kernels/query_tiles.py): for a
+// sparse tile, a (offset, count) record per term and the term's nonzero
+// (query, weight) entries; for a dense tile, the [V, kQueryTile] slab.
+// * Sparse route: a warp stages its segment's postings (the term's record
+//   in the tile, value, doc and slice) 32 slots at a time, skips the
+//   postings whose count is 0, and walks the rest with lanes over the
+//   term's entries (query_tiles.cuh): lane i adds entry i's product into the
+//   warp's part row in shared memory (a (posting, query) pair of weight 0 is
+//   never summed), kGroup postings' entries loaded together.  A part with
+//   no posting summed is not added.
+// * Dense route: lanes over queries (lane l carries queries l, l+32, l+64,
+//   l+96), kBatch slots' weights gathered at once from the slab, a
+//   register a query.
+// Skipping a zero weight, a zero posting or an all-zero part adds nothing
+// where the dense route adds +0 to a finite sum, so both routes give the
+// same bits.
+//
+// What bounds it: the HBM floor is one read of the chunk stream and one
+// write of the scores (~1.3 ms at serve_1m); the nonzero products are ~9 %
+// of postings x B.  A warp's walk is a chain of dependent loads a chunk
+// (its slots, records and entries), ~100 chunks long, with the
+// instructions of the live postings' walk on it; only 32 warps an SM (the
+// [256, 129] f32 window takes 132 KB of shared memory) overlap those
+// chains.  The part rows' read-modify-writes and flushes cost little
+// beside the walk itself.
 #include <cuda_runtime.h>
+
+#include "query_tiles.cuh"
 
 namespace {
 
-constexpr int kQpl = 4;                 // queries per lane
+constexpr int kQpl = 4;                 // queries per lane, dense route
 constexpr int kQueryTile = 32 * kQpl;   // queries per CTA
 constexpr int kWarps = 32;
 constexpr int kThreads = kWarps * 32;
+constexpr int kSlices = 32;             // slices of a chunk's live slots
 constexpr int kRowStride = kQueryTile + 1;  // odd: conflict-free column reads
-constexpr int kBatch = 4;               // slots whose gathers are in flight together
-constexpr int kStages = 4;              // chunk buffers in the cp.async ring
+constexpr int kBatch = 4;               // dense route: slots gathered together
+constexpr int kGroup = 2;               // sparse route: postings whose entries load together
+constexpr unsigned kFull = 0xffffffffu;
 
-// Start copying chunk c into the shared buffer [lt | ld | v] at dst and
-// its term block id into *tb (the caller commits the copy group).
-__device__ __forceinline__ void stage_chunk(int* dst, int* tb,
-                                            const int* local_term,
-                                            const int* local_doc,
-                                            const float* value,
-                                            const int* chunk_term_block, int c,
-                                            int chunk_size) {
-  const long long base = static_cast<long long>(c) * chunk_size;
-  for (int j = threadIdx.x; j < chunk_size; j += kThreads) {
-    __pipeline_memcpy_async(dst + j, local_term + base + j, sizeof(int));
-    __pipeline_memcpy_async(dst + chunk_size + j, local_doc + base + j, sizeof(int));
-    __pipeline_memcpy_async(dst + 2 * chunk_size + j, value + base + j, sizeof(float));
+// A warp's segment of one chunk: slots [lo, hi) of the live prefix hold
+// the warp's docs; slot p lies in slice p / per.
+struct Segment {
+  const int* lt;     // the chunk's local terms, docs and values (global)
+  const int* ld;
+  const float* v;
+  long long row0;    // the chunk's first term: term block x term_block
+  int lo, hi, per;
+};
+
+// Part keys: doc * kSlices + slice; -1: no part open.
+__device__ __forceinline__ int part_key(int doc, int p, int per) {
+  return doc * kSlices + p / per;
+}
+
+// row[doc] += acc, the doc of part `key`.
+__device__ __forceinline__ void add_part(const float* acc, int key,
+                                         float* window, int lane) {
+  float* row = window + (key / kSlices) * kRowStride;
+#pragma unroll
+  for (int r = 0; r < kQpl; ++r) row[lane + 32 * r] += acc[r];
+}
+
+// Dense route: lanes over the tile's queries, weights from the slab
+// [V, kQueryTile] (slab points at this lane's column).  The segment's slots
+// are loaded 32 at a time, a slot a lane, and broadcast.
+__device__ void fold_dense(const Segment& g, const float* slab,
+                           int term_block, int doc_block, float* window,
+                           int lane) {
+  int cur = -1;
+  float acc[kQpl];
+  for (int base = g.lo; base < g.hi; base += 32) {
+    const int n = min(32, g.hi - base);
+    const int p = base + lane;
+    int t = 0, key = -1;
+    float x = 0.f;
+    if (p < g.hi) {
+      const int tl = __ldg(g.lt + p);
+      const int d = __ldg(g.ld + p);
+      if (d >= 0 && d < doc_block) key = part_key(d, p, g.per);
+      if (tl >= 0 && tl < term_block) {
+        t = tl;
+        x = __ldg(g.v + p);
+      }
+    }
+    for (int j0 = 0; j0 < n; j0 += kBatch) {
+      float w[kBatch][kQpl];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {  // gathers, all in flight
+        const float* q = slab + (g.row0 + __shfl_sync(kFull, t, j0 + j)) * kQueryTile;
+#pragma unroll
+        for (int r = 0; r < kQpl; ++r) w[j][r] = j0 + j < n ? __ldg(q + 32 * r) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {  // fold in slot order
+        const int kj = __shfl_sync(kFull, key, j0 + j);
+        const float xj = __shfl_sync(kFull, x, j0 + j);
+        if (j0 + j >= n || kj < 0) continue;
+        if (kj != cur) {
+          if (cur >= 0) add_part(acc, cur, window, lane);
+          cur = kj;
+#pragma unroll
+          for (int r = 0; r < kQpl; ++r) acc[r] = 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kQpl; ++r) acc[r] = fmaf(w[j][r], xj, acc[r]);
+      }
+    }
   }
-  if (threadIdx.x == 0) {
-    __pipeline_memcpy_async(tb, chunk_term_block + c, sizeof(int));
+  if (cur >= 0) add_part(acc, cur, window, lane);
+}
+
+// Sparse route: lanes over each posting's nonzero entries; the running
+// part in part_row (shared, zero between parts).
+__device__ void fold_sparse(const Segment& g, const int2* rec_tile,
+                            const int2* __restrict__ entries, int term_block,
+                            int doc_block, float* window, float* part_row,
+                            int4* s_st, int lane) {
+  int cur = -1;
+  auto flush = [&]() {
+    __syncwarp();
+    float acc[kQpl];
+#pragma unroll
+    for (int r = 0; r < kQpl; ++r) {
+      acc[r] = part_row[lane + 32 * r];
+      part_row[lane + 32 * r] = 0.f;
+    }
+    add_part(acc, cur, window, lane);
+    __syncwarp();  // the zeroed row is seen by every lane
+  };
+  for (int base = g.lo; base < g.hi; base += 32) {
+    const int p = base + lane;
+    int2 rec = make_int2(0, 0);
+    float v = 0.f;
+    int key = -1;
+    if (p < g.hi) {
+      const int t = __ldg(g.lt + p);
+      const int d = __ldg(g.ld + p);
+      v = __ldg(g.v + p);
+      if (t >= 0 && t < term_block && d >= 0 && d < doc_block) {
+        rec = __ldcg(rec_tile + g.row0 + t);  // bypass L1, which keeps the entries
+        key = part_key(d, p, g.per);
+      }
+    }
+    __syncwarp();  // the previous piece's postings are consumed
+    s_st[lane] = query_tiles::staged(rec, v, key);
+    const unsigned live = __ballot_sync(kFull, rec.y > 0);
+    __syncwarp();
+    query_tiles::sum_live<kGroup>(
+        live, s_st, entries,
+        [&](const int4& st) {
+          if (st.w != cur) {
+            if (cur >= 0) flush();
+            cur = st.w;
+          }
+          return part_row;
+        },
+        lane);
   }
+  if (cur >= 0) flush();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-scatter_score_kernel(const float* __restrict__ qwt,          // [V_pad, b_pad]
-                     const int* __restrict__ local_term,     // [n_chunks, C]
-                     const int* __restrict__ local_doc,      // [n_chunks, C]
-                     const float* __restrict__ value,        // [n_chunks, C]
+scatter_score_kernel(const int2* __restrict__ records,     // [n_tiles, v_pad]
+                     const int2* __restrict__ entries,     // sparse tiles: [entries]
+                     const float* __restrict__ cw,         // dense tiles: [n, v_pad, 128]
+                     const int* __restrict__ tile_dense,   // [n_tiles]
+                     const int* __restrict__ local_term,   // [n_chunks, C]
+                     const int* __restrict__ local_doc,    // [n_chunks, C]
+                     const float* __restrict__ value,      // [n_chunks, C]
                      const int* __restrict__ chunk_term_block,   // [n_chunks]
+                     const int* __restrict__ doc_bounds,   // [n_chunks, kWarps + 1]
                      const int* __restrict__ block_chunk_start,  // [n_db]
                      const int* __restrict__ block_chunk_count,  // [n_db]
-                     float* __restrict__ out,                // [b, n_pad]
-                     int b, int b_pad, int term_block, int doc_block,
-                     int chunk_size, long long n_pad) {
-  extern __shared__ float smem[];
-  float* window = smem;                               // [doc_block][kRowStride]
-  float* carry = window + doc_block * kRowStride;     // [kWarps][kQueryTile]
-  int* carry_doc = reinterpret_cast<int*>(carry + kWarps * kQueryTile);  // [kWarps]
-  int* bufs = carry_doc + kWarps;                     // kStages x [3][C]
-  int* s_tb = bufs + kStages * 3 * chunk_size;        // kStages
+                     float* __restrict__ out,              // [b, n_pad]
+                     int b, int n_tiles, int v_pad, int term_block,
+                     int doc_block, int chunk_size, long long n_pad) {
+  extern __shared__ __align__(16) float smem[];
+  int4* s_st = reinterpret_cast<int4*>(smem);              // [kWarps][32]
+  float* window = reinterpret_cast<float*>(s_st + kWarps * 32);  // [doc_block][kRowStride]
+  float* parts = window + doc_block * kRowStride;          // [kWarps][kQueryTile]
 
-  const int db = blockIdx.x;
-  const int q0 = blockIdx.y * kQueryTile;
+  const int tile = blockIdx.x % n_tiles;
+  const int db = blockIdx.x / n_tiles;
+  const int q0 = tile * kQueryTile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const bool dense = tile_dense[tile] != 0;
+  const int2* rec_tile = records + static_cast<long long>(tile) * v_pad;
+  // Dense route: the tile's slab starts at its first term's entries.
+  const float* slab = cw + (dense ? rec_tile[0].x : 0) + lane;
 
   for (int i = threadIdx.x; i < doc_block * kRowStride; i += kThreads) {
     window[i] = 0.f;
   }
+  for (int i = threadIdx.x; i < kWarps * kQueryTile; i += kThreads) {
+    parts[i] = 0.f;
+  }
+  __syncthreads();
 
   const int c_begin = block_chunk_start[db];
   const int c_end = c_begin + block_chunk_count[db];
-  const float* qcol = qwt + q0 + lane;
-
-  // One copy group per chunk, committed even when empty, so that
-  // "all but the newest kStages - 2 groups have landed" means "chunk c has".
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (c_begin + s < c_end) {
-      stage_chunk(bufs + s * 3 * chunk_size, s_tb + s, local_term, local_doc,
-                  value, chunk_term_block, c_begin + s, chunk_size);
-    }
-    __pipeline_commit();
-  }
+  // This warp's slots of chunk c: [bounds[w], bounds[w + 1]); the live
+  // count: bounds[kWarps].  Loaded a chunk ahead.
+  auto bounds_of = [&](int c) {
+    const int* b = doc_bounds + static_cast<long long>(c) * (kWarps + 1);
+    return c < c_end ? make_int4(__ldg(b + warp), __ldg(b + warp + 1),
+                                 __ldg(b + kWarps), __ldg(chunk_term_block + c))
+                     : make_int4(0, 0, 0, 0);
+  };
+  int4 next = bounds_of(c_begin);
   for (int c = c_begin; c < c_end; ++c) {
-    const int slot = (c - c_begin) % kStages;
-    __pipeline_wait_prior(kStages - 2);  // this thread's copies of chunk c landed
-    __syncthreads();  // everyone's have; chunk c-1 is consumed
-    const int ahead = c + kStages - 1;
-    if (ahead < c_end) {
-      const int s = (ahead - c_begin) % kStages;
-      stage_chunk(bufs + s * 3 * chunk_size, s_tb + s, local_term, local_doc,
-                  value, chunk_term_block, ahead, chunk_size);
-    }
-    __pipeline_commit();
-    const long long row0 = static_cast<long long>(s_tb[slot]) * term_block;
-    const int* s_lt = bufs + slot * 3 * chunk_size;
-    const int* s_ld = s_lt + chunk_size;
-    const float* s_v = reinterpret_cast<const float*>(s_ld + chunk_size);
-
-    // The live slots are a prefix of the chunk; split them evenly.
-    int n_live = 0;
-    for (int hi = chunk_size; n_live < hi;) {
-      const int mid = (n_live + hi) >> 1;
-      if (s_ld[mid] >= 0) n_live = mid + 1; else hi = mid;
-    }
-    const int per_warp = (n_live + kWarps - 1) / kWarps;
-    const int slice_begin = min(warp * per_warp, n_live);
-    const int slice_end = min(slice_begin + per_warp, n_live);
-
-    // Pass 1: this warp's slice.  `continued`: the slice's first run
-    // continues a segment begun before the slice; its sum goes to the
-    // warp's carry row, every other run's to its doc's window row.
-    const int d0 = slice_begin < slice_end ? s_ld[slice_begin] : -1;
-    const bool continued = slice_begin > 0 && d0 >= 0 && d0 < doc_block &&
-                           s_ld[slice_begin - 1] == d0;
-    if (lane == 0) carry_doc[warp] = -1;
-    int cur = -1;
-    bool first_run = true;  // cur is the slice's first run
-    float acc[kQpl];
-    auto flush = [&]() {
-      if (first_run && continued) {
-#pragma unroll
-        for (int r = 0; r < kQpl; ++r) carry[warp * kQueryTile + lane + 32 * r] = acc[r];
-        if (lane == 0) carry_doc[warp] = cur;
-      } else {
-        float* row = window + cur * kRowStride;
-#pragma unroll
-        for (int r = 0; r < kQpl; ++r) row[lane + 32 * r] += acc[r];
-      }
-    };
-    for (int p0 = slice_begin; p0 < slice_end; p0 += kBatch) {
-      float g[kBatch][kQpl];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {  // gathers, all in flight
-        const int p = p0 + j;
-        const int t = p < slice_end ? s_lt[p] : 0;
-        const float* q = qcol + (row0 + (t >= 0 && t < term_block ? t : 0)) * b_pad;
-#pragma unroll
-        for (int r = 0; r < kQpl; ++r) g[j][r] = p < slice_end ? __ldg(q + 32 * r) : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {  // fold in slot order
-        const int p = p0 + j;
-        if (p >= slice_end) break;
-        const int d = s_ld[p];
-        const int t = s_lt[p];
-        if (d < 0 || d >= doc_block) continue;
-        if (d != cur) {
-          if (cur >= 0) {
-            flush();
-            first_run = false;
-          }
-          cur = d;
-#pragma unroll
-          for (int r = 0; r < kQpl; ++r) acc[r] = 0.f;
-        }
-        const float w = t >= 0 && t < term_block ? s_v[p] : 0.f;
-#pragma unroll
-        for (int r = 0; r < kQpl; ++r) acc[r] = fmaf(g[j][r], w, acc[r]);
-      }
-    }
-    if (cur >= 0) flush();
-    const bool owns_last = cur >= 0 && !(first_run && continued);
-    __syncthreads();
-    // Pass 2: the warp holding a segment's head adds the carries of the
-    // slices the segment runs on into, in slice order.
-    if (owns_last) {
-      float* row = window + cur * kRowStride;
-      for (int w = warp + 1; w < kWarps && carry_doc[w] == cur; ++w) {
-#pragma unroll
-        for (int r = 0; r < kQpl; ++r) row[lane + 32 * r] += carry[w * kQueryTile + lane + 32 * r];
-      }
+    const int4 cur = next;  // lo, hi, live count, term block
+    next = bounds_of(c + 1);
+    if (cur.x == cur.y) continue;
+    Segment g;
+    const long long base = static_cast<long long>(c) * chunk_size;
+    g.lt = local_term + base;
+    g.ld = local_doc + base;
+    g.v = value + base;
+    g.row0 = static_cast<long long>(cur.w) * term_block;
+    g.per = max((cur.z + kSlices - 1) / kSlices, 1);
+    g.lo = cur.x;
+    g.hi = cur.y;
+    if (dense) {
+      fold_dense(g, slab, term_block, doc_block, window, lane);
+    } else {
+      fold_sparse(g, rec_tile, entries, term_block, doc_block, window,
+                  parts + warp * kQueryTile, s_st + warp * 32, lane);
     }
   }
   __syncthreads();
@@ -219,28 +280,37 @@ scatter_score_kernel(const float* __restrict__ qwt,          // [V_pad, b_pad]
 
 }  // namespace
 
-extern "C" int scatter_score_launch(const float* qwt, const int* local_term,
+extern "C" int scatter_score_launch(const int* records, const int* entries,
+                                    const float* cw, const int* tile_dense,
+                                    const int* local_term,
                                     const int* local_doc, const float* value,
                                     const int* chunk_term_block,
+                                    const int* doc_bounds,
                                     const int* block_chunk_start,
                                     const int* block_chunk_count, float* out,
-                                    int b, int b_pad, int n_db, int term_block,
-                                    int doc_block, int chunk_size,
-                                    long long n_pad, int device, void* stream) {
+                                    int b, int n_tiles, int v_pad, int n_db,
+                                    int term_block, int doc_block,
+                                    int chunk_size, long long n_pad,
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (b_pad % kQueryTile != 0) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(doc_block) * kRowStride * sizeof(float) +
-                      static_cast<size_t>(kWarps) * (kQueryTile + 1) * sizeof(float) +
-                      (static_cast<size_t>(chunk_size) * 3 + 1) * kStages * sizeof(int);
+  if (n_tiles < 1 || b > n_tiles * kQueryTile) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(kWarps) * 32 * sizeof(int4) +
+                      static_cast<size_t>(doc_block) * kRowStride * sizeof(float) +
+                      static_cast<size_t>(kWarps) * kQueryTile * sizeof(float);
   err = cudaFuncSetAttribute(scatter_score_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_db, b_pad / kQueryTile);
-  scatter_score_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      qwt, local_term, local_doc, value, chunk_term_block, block_chunk_start,
-      block_chunk_count, out, b, b_pad, term_block, doc_block, chunk_size, n_pad);
+  const long long blocks = static_cast<long long>(n_db) * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  scatter_score_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int2*>(records),
+      reinterpret_cast<const int2*>(entries), cw, tile_dense, local_term,
+      local_doc, value, chunk_term_block, doc_bounds, block_chunk_start,
+      block_chunk_count, out, b, n_tiles, v_pad, term_block, doc_block,
+      chunk_size, n_pad);
   return cudaGetLastError();
 }
 

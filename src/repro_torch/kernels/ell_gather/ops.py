@@ -5,24 +5,26 @@ kernel in ``src/repro_torch/csrc/ell_gather.cu`` (replacing the Pallas
 ``repro.kernels.ell_gather.kernel.ell_gather_kernel``) or raises.  The
 kernel masks the ragged edges of the doc and slot axes itself, so the TPU
 wrapper's halving of ``doc_block``/``k_chunk`` until they divide has no
-counterpart.  ``launches`` counts kernel launches, and nothing else.
+counterpart.  The entry packs the query weights by tiles of 128 queries
+first (:func:`repro_torch.kernels.query_tiles.pack_query_tiles`: torch ops
+on the card, one host sync to size the entries).  ``launches`` counts
+kernel launches, and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
+from repro_torch.kernels.query_tiles import pack_query_tiles
 
 NAME = "ell_gather"
-QUERY_TILE = 64  # queries per CTA; csrc/ell_gather.cu's kQueryTile
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P)
 
 
 def ell_gather(
@@ -46,12 +48,12 @@ def ell_gather(
     out = torch.empty((b, n_pad), dtype=torch.float32, device=dev)
     if b == 0 or n_pad == 0:
         return out
-    b_pad = -(-b // QUERY_TILE) * QUERY_TILE
-    qwt = F.pad(qw, (0, 0, 0, b_pad - b)).t().contiguous()  # [V, b_pad]
+    records, entries, cw, dense = pack_query_tiles(qw)
     launch = build.load_function(NAME, "ell_gather_launch", _ARGTYPES)
     err = launch(
-        qwt.data_ptr(), terms.data_ptr(), values.data_ptr(), out.data_ptr(),
-        b, b_pad, v, n_pad, k,
+        records.data_ptr(), entries.data_ptr(), cw.data_ptr(),
+        dense.data_ptr(), terms.data_ptr(), values.data_ptr(),
+        out.data_ptr(), b, dense.numel(), v, n_pad, k,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(NAME, err)

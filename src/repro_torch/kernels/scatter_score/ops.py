@@ -3,6 +3,10 @@
 A CPU tensor runs :func:`scatter_score_ref`; a CUDA tensor runs the CUDA
 kernel in ``src/repro_torch/csrc/scatter_score.cu`` (replacing the Pallas
 ``repro.kernels.scatter_score.kernel.scatter_score_kernel``) or raises.
+The entry packs the query weights by tiles of 128 queries first
+(:func:`repro_torch.kernels.query_tiles.pack_query_tiles`: torch ops on the
+card, one host sync to size the entries) and finds each warp's slots of
+each chunk (:func:`chunk_doc_bounds`, torch ops on the card).
 ``launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -10,18 +14,33 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.query_tiles import pack_query_tiles
 from repro_torch.kernels.scatter_score.ref import scatter_score_ref
 
 NAME = "scatter_score"
-QUERY_TILE = 128  # queries per CTA; csrc/scatter_score.cu's kQueryTile
+WARPS = 32  # csrc/scatter_score.cu's kWarps: warp w owns a doc block's
+            # docs [w * ceil(D / 32), (w + 1) * ceil(D / 32))
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _L, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _L, _I, _P)
+
+
+def chunk_doc_bounds(local_doc: torch.Tensor, doc_block: int) -> torch.Tensor:
+    """int32 [num_chunks, WARPS + 1]: ``bounds[c, w]`` is the first live
+    slot of chunk ``c`` whose doc is at least ``min(w * ceil(doc_block /
+    WARPS), doc_block)``, so warp ``w``'s slots are ``[bounds[c, w],
+    bounds[c, w + 1])`` and ``bounds[c, WARPS]`` is the chunk's live count
+    (its live slots are a prefix in ascending doc order)."""
+    per = -(-doc_block // WARPS)
+    keys = torch.where(local_doc >= 0, local_doc, doc_block)
+    edges = (torch.arange(WARPS + 1, device=local_doc.device) * per).clamp(
+        max=doc_block).to(local_doc.dtype)
+    return torch.searchsorted(
+        keys, edges.expand(keys.shape[0], -1).contiguous(), out_int32=True)
 
 
 def scatter_score(
@@ -71,17 +90,17 @@ def scatter_score(
     out = torch.empty((b, n_pad), dtype=f32, device=dev)
     if b == 0 or num_doc_blocks == 0:
         return out
-    # Term-major, query-padded weights: a posting's weights for a tile of
-    # queries are one contiguous run.
-    b_pad = -(-b // QUERY_TILE) * QUERY_TILE
-    qwt = F.pad(qw, (0, 0, 0, b_pad - b)).t().contiguous()
+    records, entries, cw, dense = pack_query_tiles(qw)
+    doc_bounds = chunk_doc_bounds(local_doc, doc_block)
     launch = build.load_function(NAME, "scatter_score_launch", _ARGTYPES)
     err = launch(
-        qwt.data_ptr(), local_term.data_ptr(), local_doc.data_ptr(),
-        value.data_ptr(), chunk_term_block.data_ptr(),
+        records.data_ptr(), entries.data_ptr(), cw.data_ptr(),
+        dense.data_ptr(), local_term.data_ptr(), local_doc.data_ptr(),
+        value.data_ptr(), chunk_term_block.data_ptr(), doc_bounds.data_ptr(),
         block_chunk_start.data_ptr(), block_chunk_count.data_ptr(),
-        out.data_ptr(), b, b_pad, num_doc_blocks, term_block, doc_block, c,
-        n_pad, dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), b, dense.numel(),
+        v_pad, num_doc_blocks, term_block, doc_block, c, n_pad, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(NAME, err)
     launches += 1

@@ -7,7 +7,9 @@ dependencies:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Tolerance: max |kernel - plain| <= 1e-5 * max |plain| — the same f32
-products summed in another order.  The ``bmp_scan`` sweep must also fetch
+products summed in another order.  ``scatter_score`` and ``ell_gather``
+also repeat bit for bit on every route (sparse and dense query tiles), and
+the two routes give the same bits.  The ``bmp_scan`` sweep must also fetch
 exactly the plain version's blocks and chunks in the same number of steps,
 on every route and cluster split, and repeat bit for bit.
 ``splade_head`` sums d-long dot products in another order; its max over
@@ -30,6 +32,7 @@ from repro_torch.kernels.bmp_scan import ops as bmp_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
+from repro_torch.kernels import query_tiles
 from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.ell_gather.ref import ell_gather_ref
 from repro_torch.kernels.scatter_score import ops as scatter_ops
@@ -98,6 +101,126 @@ def test_ell_gather_kernel_matches_plain(cuda, b):
     got = ell_ops.ell_gather(qw, e.terms, e.values)
     assert ell_ops.launches == before + 1
     _close(got, ell_gather_ref(qw, e.terms, e.values))
+
+
+def _query_cases(cuda, sparse, width):
+    """The query weights [B, width] each route must take: the corpus's
+    sparse queries, nearly dense ones (the dense route), all zero, one
+    nonzero query a tile of 128, and (B > 128) sparse tiles before a dense
+    last one."""
+    b = sparse.shape[0]
+    sparse = torch.nn.functional.pad(sparse, (0, width - sparse.shape[1]))
+    g = torch.Generator(device=cuda).manual_seed(b)
+    dense = torch.rand((b, width), generator=g, device=cuda)
+    dense = torch.where(dense > 0.1, dense, 0.0)
+    one = torch.zeros_like(sparse)
+    one[::128] = sparse[::128]
+    cases = {"sparse": sparse, "dense": dense, "zero": torch.zeros_like(sparse),
+             "one a tile": one}
+    if b > 128:
+        mixed = sparse.clone()
+        mixed[(b - 1) // 128 * 128:] = dense[(b - 1) // 128 * 128:]
+        cases["dense last tile"] = mixed
+    return cases
+
+
+@pytest.mark.parametrize("b", [1, 129, 500])
+@pytest.mark.parametrize("tb,db,cs", [(512, 256, 512), (256, 32, 64)])
+def test_scatter_score_routes_on_the_card(cuda, b, tb, db, cs):
+    """Sparse and dense tiles, all-zero and one-query tiles, full and
+    partial runs (chunk_size < term_block in the second geometry): within
+    TOL of the plain version, and two launches bitwise equal."""
+    c = make_msmarco_like(2500, b, vocab_size=4000, seed=b, device=cuda)
+    t = tidx.build_tiled_index(c.docs, tb, db, cs)
+    keep = (torch.arange(t.num_doc_blocks, device=cuda) % 3 != 1).int()
+    kw = dict(term_block=tb, doc_block=db, num_doc_blocks=t.num_doc_blocks)
+    for name, qw in _query_cases(cuda, c.queries.to_dense(),
+                                 t.num_term_blocks * tb).items():
+        for count in (t.block_chunk_count, t.block_chunk_count * keep):
+            args = (qw, *_tiled_args(t), t.block_chunk_start, count)
+            got = scatter_ops.scatter_score(*args, **kw)
+            again = scatter_ops.scatter_score(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), name
+            _close(got, scatter_score_ref(*args, **kw))
+            if name == "zero":
+                assert not got.any()
+
+
+@pytest.mark.parametrize("b", [1, 129, 500])
+def test_ell_gather_routes_on_the_card(cuda, b):
+    """The same query cases through ell_gather (padding ids equal to the
+    vocabulary size)."""
+    c = make_msmarco_like(2500, b, vocab_size=4000, seed=b + 7, device=cuda)
+    e = tidx.build_ell_index(c.docs)
+    assert bool((e.terms == 4000).any())
+    for name, qw in _query_cases(cuda, c.queries.to_dense(), 4000).items():
+        got = ell_ops.ell_gather(qw, e.terms, e.values)
+        again = ell_ops.ell_gather(qw, e.terms, e.values)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), name
+        _close(got, ell_gather_ref(qw, e.terms, e.values))
+        if name == "zero":
+            assert not got.any()
+
+
+def _route_cases(cuda):
+    """129 sparse queries (a tile of 128 and a ragged one), the tiled and
+    ELL indexes, and each kernel's call on given query weights."""
+    c = make_msmarco_like(2500, 129, vocab_size=4000, seed=5, device=cuda)
+    t = tidx.build_tiled_index(c.docs, 512, 256, 512)
+    e = tidx.build_ell_index(c.docs)
+    width = {"scatter_score": t.num_term_blocks * 512, "ell_gather": 4000}
+    calls = {
+        "scatter_score": lambda qw: scatter_ops.scatter_score(
+            qw, *_tiled_args(t), t.block_chunk_start, t.block_chunk_count,
+            term_block=512, doc_block=256, num_doc_blocks=t.num_doc_blocks),
+        "ell_gather": lambda qw: ell_ops.ell_gather(qw, e.terms, e.values),
+    }
+    return c.queries.to_dense(), width, calls
+
+
+@pytest.mark.parametrize("kernel", ["scatter_score", "ell_gather"])
+def test_routes_give_the_same_bits_on_the_card(cuda, kernel, monkeypatch):
+    """The same query rows through the sparse route and the dense one (every
+    tile forced dense, and rows put into a tile of dense rows) give the
+    same bits."""
+    qw, width, calls = _route_cases(cuda)
+    qw = torch.nn.functional.pad(qw, (0, width[kernel] - qw.shape[1]))
+    call = calls[kernel]
+    assert not query_tiles.pack_query_tiles(qw)[3].any()
+    sparse = call(qw)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mixed = torch.rand(qw.shape, generator=g, device=cuda)
+    mixed = torch.where(mixed > 0.1, mixed, 0.0)
+    mixed[:5], mixed[128] = qw[:5], qw[128]
+    assert query_tiles.pack_query_tiles(mixed)[3].tolist() == [1, 0]
+    in_dense_tile = call(mixed)
+    monkeypatch.setattr(query_tiles, "DENSE_SHARE", 0.0)
+    assert query_tiles.pack_query_tiles(qw)[3].all()
+    dense = call(qw)
+    torch.cuda.synchronize()
+    assert torch.equal(sparse, dense)
+    assert torch.equal(sparse[:5], in_dense_tile[:5])
+    assert torch.equal(sparse[128], in_dense_tile[128])
+
+
+@pytest.mark.parametrize("engine", ["tiled-pruned", "tiled-bmp-grouped",
+                                    "tiled-bmp-fused"])
+def test_dense_route_keeps_the_pruned_engines_bits(cuda, engine, monkeypatch):
+    """``tiled`` with every query tile on scatter_score's dense route gives
+    the pruned engines' bits, as its sparse route does."""
+    c = make_topical_corpus(3000, 24, vocab_size=4000, num_topics=8,
+                            topic_vocab=300, seed=2, device=cuda)
+    geo = dict(k=20, term_block=256, doc_block=32, chunk_size=64)
+    tiled = RetrievalEngine(c.docs, RetrievalConfig(engine="tiled", **geo),
+                            device=cuda)
+    eng = RetrievalEngine(c.docs, RetrievalConfig(engine=engine, **geo),
+                          device=cuda)
+    v, i = eng.search(c.queries)
+    monkeypatch.setattr(query_tiles, "DENSE_SHARE", 0.0)
+    exact = tiled.search(c.queries)
+    assert (v == exact[0]).all() and (i == exact[1]).all()
 
 
 def test_cuda_tensors_never_reach_the_plain_version(cuda, monkeypatch):

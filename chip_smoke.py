@@ -138,12 +138,22 @@ Phases (each raises on failure; the script then exits non-zero):
    candidates (DIN 65,536: its [C, 100, 72] attention features do not fit
    one card at 1,000,000), then the top 100, against the plain path
    (scores within RECSYS_TOL, ids tie-aware).  The counter is zeroed
-   before 6b and read after 6c.  6d: xDeepFM's lookup alone at
-   serve_bulk's batch (262,144 x 39 bags of 8; its CIN would need 82 GB
-   there): the kernel against its plain version, then CUDA-event times of
-   the kernel, the plain version and one ``F.embedding_bag`` call (used
-   nowhere in the port), and the bound (each id, each distinct row and
-   the output once, over 3.35 TB/s).
+   before 6b and read after 6c.  6d: the lookups alone at serve_bulk's
+   batch (262,144 examples; xDeepFM's CIN would need 82 GB there):
+   xDeepFM's (39 bags of 8 over 16,596,850 rows, D = 10; the kernels
+   line's row), AutoInt's (the same tables, D = 16) and DIN's context (6
+   bags of 8 over 1,111,110 rows, D = 18), each under uniform and skewed
+   ids (a power law of exponent SKEW_EXPONENT per field), weights None and
+   given: every route (vec, ivec) that the inputs' values reach at 0-, 8-
+   and 4-byte offsets bitwise equal, unweighted
+   bags bitwise the sequential f32 fold, uniform ids within BAG_TOL of the
+   plain version (xDeepFM's also of float64); CUDA-event times of the
+   kernel and one ``F.embedding_bag`` call (used nowhere in the port), the
+   plain version's for the row, the bound (each id and weight, each
+   distinct row and the output once, over 3.35 TB/s), the distinct rows'
+   sectors and the L2-side bytes (live ids x sectors a row x 32 B).  Then
+   the probe of uniform ids against ids confined to the L2-resident tail
+   of the table and ids all from the 10M-row field.
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -190,6 +200,8 @@ PREFILL_F32_RTOL = 1e-4
 # max |plain| (the same f32 arithmetic; only the bag sums' order differs).
 BAG_TOL = 1e-5
 RECSYS_TOL = 1e-5
+# serve_bulk's skewed ids (6d): a power law over each field's ranks.
+SKEW_EXPONENT = 1.05
 TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
 # flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
@@ -260,6 +272,10 @@ class Sizes:
     retrieval_k: int = 100
     bulk_batch: int = 262_144  # RECSYS_SHAPES' serve_bulk (6d)
     bulk_hot: int = 8
+    # 6d's lookups: xDeepFM's (the kernels line's row), AutoInt's and DIN's
+    # context, each under these ids (bulk_ids), weights None and given.
+    bulk_models: tuple = ("xdeepfm", "autoint", "din")
+    bulk_kinds: tuple = ("uniform", "skewed")
 
 
 def card_line() -> str:
@@ -1479,6 +1495,81 @@ def bag_within(name: str, got, want) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def sectors_per_row(d: int) -> float:
+    """32-byte sectors a row of ``d`` floats spans, averaged over the row
+    starts of a table whose first row is 32-byte aligned (2 at D = 10 and
+    16, 3 at D = 18)."""
+    rb = 4 * d
+    starts = [(rb * i) % 32 for i in range(8)]  # the starts repeat by 8 rows
+    return sum((s + rb - 1) // 32 + 1 for s in starts) / len(starts)
+
+
+def bulk_ids(kind: str, batch: int, vocab_sizes, hot: int, dev, seed: int):
+    """int32 [batch * F, hot] rows of the concatenated table (bag n of
+    field n mod F), made on the card from ``seed``.  ``uniform``: each
+    field's ids uniform over its rows (``make_recsys_batch``'s law);
+    ``skewed``: each field's ranks a power law of exponent SKEW_EXPONENT,
+    mapped through a seeded permutation of the field's rows; ``confined``:
+    every id uniform over the rows from the first field of at most 100,000
+    rows on (the L2-resident tail of Criteo-39); ``big``: every id from the
+    largest field."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sizes = [int(v) for v in vocab_sizes]
+    offs = [sum(sizes[:i]) for i in range(len(sizes))]
+    f = len(sizes)
+    if kind in ("confined", "big"):
+        if kind == "confined":
+            lo = next(o for o, v in zip(offs, sizes) if v <= 100_000)
+            hi = sum(sizes)
+        else:
+            big = max(range(f), key=lambda i: sizes[i])
+            lo, hi = offs[big], offs[big] + sizes[big]
+        return torch.randint(lo, hi, (batch * f, hot), generator=g,
+                             device=dev, dtype=torch.int32)
+    ids = torch.empty((batch, f, hot), dtype=torch.int32, device=dev)
+    for i, v in enumerate(sizes):
+        if kind == "uniform":
+            r = torch.randint(0, v, (batch, hot), generator=g, device=dev)
+        elif kind == "skewed":
+            p = torch.arange(1, v + 1, dtype=torch.float64,
+                             device=dev) ** -SKEW_EXPONENT
+            cdf = torch.cumsum(p / p.sum(), 0)
+            u = torch.rand((batch, hot), generator=g, device=dev,
+                           dtype=torch.float64)
+            rank = torch.searchsorted(cdf, u).clamp_max(v - 1)
+            r = torch.randperm(v, generator=g, device=dev)[rank]
+        else:
+            raise ValueError(f"bulk_ids: kind {kind!r}")
+        ids[:, i] = (r + offs[i]).to(torch.int32)
+    return ids.reshape(batch * f, hot)
+
+
+def bag_probe(fns: dict, table, vocab_sizes, batch: int, hot: int,
+              reps: int, dev) -> None:
+    """The probe of ``embedding_bag`` at serve_bulk: CUDA-event ms of each
+    ``fns[name](ids, table)`` under ``uniform``, ``confined`` and ``big``
+    ids (:func:`bulk_ids`), timed in turns (a, b, ..., b, a; each name's
+    mean), each with the row-sector rate it implies (ids x sectors a row x
+    32 B over the time).  Confined ids are L2 hits, big ones misses to
+    device memory; uniform ones mix both with the smallest fields' L1
+    hits."""
+    d = table.shape[1]
+    for seed, kind in enumerate(("uniform", "confined", "big")):
+        ids = bulk_ids(kind, batch, vocab_sizes, hot, dev, seed=100 + seed)
+        l2 = ids.numel() * sectors_per_row(d) * 32
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(event_ms(lambda: fns[name](ids, table), reps,
+                                        dev))
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            log(f"  probe {name} D={d} {kind} ids: {ms!r} ms (turns "
+                f"{ts!r}), {l2!r} B of row sectors = {l2 / ms / 1e9!r} TB/s")
+        del ids
+
+
 def check_bags(dev, sizes: Sizes) -> float:
     """Phase 6a: ``embedding_bag`` against its plain version and float64
     over ``sizes.bag_shapes``, weights given and None, an all-pad bag and
@@ -1549,24 +1640,19 @@ def serve_recsys(dev, sizes: Sizes, err: float) -> dict:
     path.  6c: ``retrieval_cand`` — one user (the first of the multi-hot
     batch), ``score_candidates`` then the top ``retrieval_k``, against the
     plain path.  The ``embedding_bag`` counter is zeroed before 6b and read
-    after 6c.  6d: xDeepFM's lookup alone at ``bulk_batch``: the kernel,
-    its plain version, one ``F.embedding_bag`` call (used nowhere in the
-    port) and the bound (each id, each distinct row and the output
-    once)."""
+    after 6c.  6d: the lookups alone at serve_bulk (:func:`bulk_lookups`)
+    on the tables of ``sizes.bulk_models``, kept from 6b."""
     import importlib
 
-    import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.core.topk import topk
     from repro_torch.data.synthetic import make_recsys_batch
     from repro_torch.kernels.embedding_bag import ops as bag_ops
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
     from repro_torch.models.recsys import build_model
 
     out = {"serve": {}, "retrieval": {}}
-    bulk_model = None
+    tables = {}  # 6d's tables, kept from the models served in 6b
     bag_ops.launches = 0
     for name in sizes.recsys_models:
         cfg = getattr(importlib.import_module(f"repro_torch.configs.{name}"),
@@ -1643,8 +1729,8 @@ def serve_recsys(dev, sizes: Sizes, err: float) -> dict:
             out["retrieval"][name] = dict(ms=ms, candidates=c, err=e,
                                           scale=scale, same_ids=share)
             del scores, plain, cand, user, batch
-        if name == "xdeepfm":
-            bulk_model = model
+        if name in sizes.bulk_models:
+            tables[name] = (cfg, model.fields["table"].detach())
         del model
         torch.cuda.empty_cache()
     launches = bag_ops.launches
@@ -1653,66 +1739,182 @@ def serve_recsys(dev, sizes: Sizes, err: float) -> dict:
         raise AssertionError("embedding_bag was not launched on the main "
                              "path")
 
-    # 6d. xDeepFM's lookup alone at serve_bulk: real work for the kernel
-    if bulk_model is None:
-        from repro_torch.configs import xdeepfm
-
-        bulk_model = build_model(getattr(xdeepfm, sizes.recsys_config),
-                                 device=dev, seed=0)
-    cfg = bulk_model.cfg
-    table = bulk_model.fields["table"].detach()
-    t0 = time.perf_counter()
-    flat = bulk_model.embedding.flat_ids(torch.from_numpy(make_recsys_batch(
-        sizes.bulk_batch, cfg.n_sparse, cfg.vocab_sizes,
-        multi_hot=sizes.bulk_hot, seed=1)["sparse_ids"]).to(dev))
-    sync(dev)
-    n, l = flat.shape
-    d = table.shape[1]
-    log(f"  6d: {n} bags x {l} ids over {tuple(table.shape)} "
-        f"({table.numel() * 4} B); batch {time.perf_counter() - t0:.3f} s")
-    with torch.inference_mode():
-        got = bag_ops.embedding_bag(flat, table)
-        err = max(err, bag_within(f"embedding_bag N={n} L={l} vs plain", got,
-                                  embedding_bag_ref(flat, None, table)))
-        if not torch.equal(got, bag_ops.embedding_bag(flat, table)):
-            raise AssertionError("embedding_bag is not deterministic")
-        live = flat >= 0
-        lib_ids = torch.where(live, flat, 0)
-        lib_w = live.float()  # pads (none here) to row 0 at weight 0
-        lib = F.embedding_bag(lib_ids, table, mode="sum",
-                              per_sample_weights=lib_w)
-        lib_err = bag_within("F.embedding_bag vs the kernel", lib, got)
-        del got, lib
-        kernel_ms = event_ms(lambda: bag_ops.embedding_bag(flat, table),
-                             sizes.reps * 4, dev)
-        plain_ms = event_ms(lambda: embedding_bag_ref(flat, None, table),
-                            sizes.reps, dev)
-        library_ms = event_ms(lambda: F.embedding_bag(
-            lib_ids, table, mode="sum", per_sample_weights=lib_w),
-            sizes.reps * 4, dev)
-    # The bound reads each id once, each distinct row it names once (a
-    # repeated row is needed once) and writes the output once.
-    distinct = int(torch.unique(flat[flat >= 0]).numel())
-    nbytes = n * l * 4 + distinct * d * 4 + n * d * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    gathered = n * l * 4 + n * l * d * 4 + n * d * 4  # every row per id
-    log(f"  embedding_bag at N={n} L={l} D={d}: kernel {kernel_ms!r} ms, "
-        f"plain {plain_ms!r} ms, library (F.embedding_bag, max err "
-        f"{lib_err!r}) {library_ms!r} ms, bound {bound_ms!r} ms (bytes: "
-        f"{n * l} ids, {distinct} distinct rows of {d * 4} B, {n * d * 4} B "
-        f"out = {nbytes} B over {HBM_BYTES_PER_S} B/s); counting a row per "
-        f"id instead, {gathered} B: {gathered / HBM_BYTES_PER_S * 1e3!r} "
-        f"ms, {gathered / kernel_ms / 1e9!r} TB/s")
-    out["row"] = {
-        "name": "embedding_bag", "route": "cuda",
-        "source": "src/repro_torch/csrc/embedding_bag.cu",
-        "replaces": "src/repro/kernels/embedding_bag/kernel.py:58",
-        "launches": launches, "max_abs_err": err, "ms": kernel_ms,
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": library_ms,
-    }
-    del bulk_model, table, flat, lib_ids, lib_w
+    out["row"] = bulk_lookups(dev, sizes, tables, err, launches)
     return out
+
+
+def at_offset(t, nbytes: int):
+    """A copy of contiguous ``t`` whose data starts ``nbytes`` (0, 4, 8 or
+    12) past a 16-byte boundary: the alignment that makes
+    ``embedding_bag``'s entry pick a narrower route (``pick_route``)."""
+    k = nbytes // t.element_size()
+    store = t.new_empty(t.numel() + 4)  # the allocator aligns to 512 B
+    view = store[k:k + t.numel()].view(t.shape)
+    view.copy_(t)
+    if view.data_ptr() % 16 != nbytes:
+        raise AssertionError(f"at_offset: {view.data_ptr() % 16} B, not "
+                             f"{nbytes}")
+    return view
+
+
+def route_copies(ids, table, weights):
+    """{(vec, ivec): (ids, table, weights)}: the inputs' values at 0-, 8-
+    and 4-byte offsets (:func:`at_offset`), one copy for each route of
+    ``embedding_bag`` they reach, the widest first."""
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+
+    def moved(t, off):
+        return t if off == 0 or t is None else at_offset(t, off)
+
+    bags = [(moved(ids, off), moved(weights, off)) for off in (0, 8, 4)]
+    copies = {}
+    for off in (0, 8, 4):
+        t = moved(table, off)
+        for i, w in bags:
+            route = bag_ops.pick_route(
+                t.shape[1], i.shape[1], t.data_ptr(), i.data_ptr(),
+                None if w is None else w.data_ptr())
+            copies.setdefault(route, (i, t, w))
+    return copies
+
+
+def bulk_lookups(dev, sizes: Sizes, tables: dict, err: float,
+                 launches: int) -> dict:
+    """6d: each of ``sizes.bulk_models``' lookups alone at serve_bulk
+    (``bulk_batch`` examples x its fields, bags of ``bulk_hot``), under
+    each of ``sizes.bulk_kinds``' ids, weights None and given.  The kernel
+    is held bitwise to every route (vec, ivec) that the inputs' values
+    reach at 0-, 8- and 4-byte offsets (:func:`route_copies`) and,
+    unweighted, to the sequential f32 fold; at uniform ids to its
+    plain version (and, for xDeepFM, to float64) within BAG_TOL.  Times
+    (CUDA events): the kernel, one ``F.embedding_bag`` call (used nowhere
+    in the port), and for xDeepFM at uniform unweighted ids (the kernels
+    line's row) the plain version; beside them the bound (each id and
+    weight, each distinct row and the output once, over 3.35 TB/s), the
+    distinct rows' sectors (the two-sector count at D = 10) and the
+    L2-side bytes (live ids x sectors a row x 32 B).  Then the probe
+    (:func:`bag_probe`) on xDeepFM's table."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_ref,
+                                                      sequential_bag_sum)
+
+    if "xdeepfm" not in tables:
+        raise AssertionError("6d needs xDeepFM's table (its kernels row)")
+    b, hot, reps = sizes.bulk_batch, sizes.bulk_hot, sizes.reps * 4
+    row = None
+    for m, name in enumerate(sizes.bulk_models):
+        cfg, table = tables[name]
+        fields = tuple(cfg.vocab_sizes)
+        d = table.shape[1]
+        for k, kind in enumerate(sizes.bulk_kinds):
+            t0 = time.perf_counter()
+            ids = bulk_ids(kind, b, fields, hot, dev, seed=10 * m + k)
+            n, l = ids.shape
+            w = torch.rand((n, l), generator=torch.Generator(
+                device=dev).manual_seed(k), device=dev)
+            live = (ids >= 0) & (ids < table.shape[0])
+            distinct = int(torch.unique(ids[live]).numel())
+            sync(dev)
+            log(f"  6d {cfg.name} {kind}: {n} bags x {l} ids over "
+                f"{tuple(table.shape)}, {distinct} distinct rows; ids "
+                f"{time.perf_counter() - t0:.3f} s")
+            lib_ids = torch.where(live, ids, 0)
+            for weights in (None, w):
+                tag = (f"embedding_bag {cfg.name} {kind} ids, weights "
+                       f"{'none' if weights is None else 'given'}")
+                with torch.inference_mode():
+                    got = bag_ops.embedding_bag(ids, table, weights)
+                    route = bag_ops.pick_route(
+                        d, l, table.data_ptr(), ids.data_ptr(),
+                        None if weights is None else weights.data_ptr())
+                    # every other route, through the same values at 8- and
+                    # 4-byte offsets
+                    copies = route_copies(ids, table, weights)
+                    for other_route, args in copies.items():
+                        if other_route != route and not torch.equal(
+                                bag_ops.embedding_bag(*args[:2], args[2]),
+                                got):
+                            raise AssertionError(f"{tag}: route (vec, ivec) "
+                                                 f"{other_route} gives other "
+                                                 f"bits than {route}")
+                    log(f"  {tag}: routes (vec, ivec) {list(copies)} give "
+                        f"the same bits")
+                    del copies
+                    if weights is None and not torch.equal(
+                            got, sequential_bag_sum(ids, table)):
+                        raise AssertionError(f"{tag}: not the sequential "
+                                             f"f32 fold")
+                    if kind == "uniform":
+                        e = bag_within(f"{tag} vs plain", got,
+                                       embedding_bag_ref(ids, weights,
+                                                         table))
+                        err = max(err, e)
+                        if name == "xdeepfm":
+                            bag_within(f"{tag} vs float64", got,
+                                       bag_f64(ids, weights, table))
+                    lib_w = live.float() if weights is None \
+                        else live.float() * weights
+                    lib = F.embedding_bag(lib_ids, table, mode="sum",
+                                          per_sample_weights=lib_w)
+                    lib_err = bag_within(f"{tag}: F.embedding_bag vs the "
+                                         f"kernel", lib, got)
+                    del got, lib
+                    kernel_ms = event_ms(lambda: bag_ops.embedding_bag(
+                        ids, table, weights), reps, dev)
+                    library_ms = event_ms(lambda: F.embedding_bag(
+                        lib_ids, table, mode="sum",
+                        per_sample_weights=lib_w), reps, dev)
+                    plain_ms = None
+                    if name == "xdeepfm" and kind == "uniform" \
+                            and weights is None:
+                        plain_ms = event_ms(lambda: embedding_bag_ref(
+                            ids, None, table), sizes.reps, dev)
+                # The bound reads each id (and weight) once, each distinct
+                # row it names once and writes the output once.
+                nbytes = (n * l * 4 * (1 if weights is None else 2)
+                          + distinct * d * 4 + n * d * 4)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                sectors = sectors_per_row(d)
+                two_sector = distinct * sectors * 32
+                l2_side = int(live.sum()) * sectors * 32
+                log(f"  {tag}: kernel {kernel_ms!r} ms (route (vec, ivec) "
+                    f"{route}), "
+                    f"library "
+                    f"(F.embedding_bag, max err {lib_err!r}) "
+                    f"{library_ms!r} ms"
+                    + ("" if plain_ms is None else f", plain {plain_ms!r} ms")
+                    + f"; bound {bound_ms!r} ms ({nbytes} B over "
+                    f"{HBM_BYTES_PER_S} B/s); the distinct rows' sectors "
+                    f"{two_sector!r} B ({two_sector / HBM_BYTES_PER_S * 1e3!r}"
+                    f" ms), L2-side {l2_side!r} B of row sectors "
+                    f"({l2_side / kernel_ms / 1e9!r} TB/s at the kernel's "
+                    f"time)")
+                if plain_ms is not None:
+                    row = {
+                        "name": "embedding_bag", "route": "cuda",
+                        "source": "src/repro_torch/csrc/embedding_bag.cu",
+                        "replaces":
+                            "src/repro/kernels/embedding_bag/kernel.py:58",
+                        "launches": launches, "max_abs_err": err,
+                        "ms": kernel_ms, "kernel_ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": "bytes", "library_ms": library_ms,
+                    }
+            del ids, w, live, lib_ids
+    if row is None:
+        raise AssertionError("6d: xDeepFM's uniform unweighted lookup did "
+                             "not run")
+    row["max_abs_err"] = err
+    # The probe on xDeepFM's table: uniform, L2-resident and largest-field
+    # ids.
+    cfg, table = tables["xdeepfm"]
+    with torch.inference_mode():
+        bag_probe({"kernel": lambda i, t: bag_ops.embedding_bag(i, t)},
+                  table, tuple(cfg.vocab_sizes), b, hot, reps, dev)
+    return row
 
 
 def run(dev, sizes: Sizes) -> list[dict]:

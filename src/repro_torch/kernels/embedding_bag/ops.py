@@ -24,7 +24,32 @@ NAME = "embedding_bag"
 launches = 0
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = (_P, _P, _P, _P, _L, _I, _L, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _I, _P)
+
+
+def _widest(count: int, ptrs, most: int) -> int:
+    """The widest of ``most``, ..., 2, 1 that divides ``count`` and every
+    pointer's byte address / 4."""
+    w = most
+    while w > 1 and not (count % w == 0
+                         and all(p % (4 * w) == 0 for p in ptrs)):
+        w //= 2
+    return w
+
+
+def pick_route(d: int, l: int, table_ptr: int, ids_ptr: int,
+               weights_ptr: Optional[int] = None) -> tuple[int, int]:
+    """(vec, ivec): the floats a lane loads of a row (4 when D % 4 == 0 and
+    the table is 16-byte aligned, 2 when D is even and it is 8-byte
+    aligned, else 1; a bag takes D / vec lanes), and the ids (and weights)
+    a lane loads at once (2 when L is even and the ids and weights are
+    8-byte aligned, else 1; 4 was slower at every measured shape).  A pure
+    function of the shape and the pointers; nothing is tried and
+    retried."""
+    vec = _widest(d, [table_ptr], 4)
+    ivec = _widest(l, [ids_ptr] + ([] if weights_ptr is None
+                                   else [weights_ptr]), 2)
+    return vec, ivec
 
 
 def embedding_bag(
@@ -55,10 +80,12 @@ def embedding_bag(
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
     if n == 0 or d == 0:
         return out
+    vec, ivec = pick_route(d, l, table.data_ptr(), ids.data_ptr(),
+                           None if weights is None else weights.data_ptr())
     launch = build.load_function(NAME, "embedding_bag_launch", _ARGTYPES)
     err = launch(
         ids.data_ptr(), None if weights is None else weights.data_ptr(),
-        table.data_ptr(), out.data_ptr(), n, l, v, d,
+        table.data_ptr(), out.data_ptr(), n, l, v, d, vec, ivec,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(NAME, err)

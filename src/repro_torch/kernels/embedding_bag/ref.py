@@ -24,3 +24,16 @@ def embedding_bag_ref(
     w = torch.where(live, w, torch.zeros((), dtype=w.dtype, device=w.device))
     g = table[torch.where(live, ids, 0).long()]  # [N, L, D]
     return (g * w[..., None]).sum(dim=1)
+
+
+def sequential_bag_sum(ids: torch.Tensor, table: torch.Tensor
+                       ) -> torch.Tensor:
+    """The unweighted bag sum in the kernel's order: ascending l, f32 adds
+    of the live rows from +0 (an id outside [0, V) adds +0).  The kernel's
+    unweighted output equals it bit for bit: f32 [N, D]."""
+    live = (ids >= 0) & (ids < table.shape[0])
+    acc = table.new_zeros((ids.shape[0], table.shape[1]))
+    for j in range(ids.shape[1]):
+        x = table[torch.where(live[:, j], ids[:, j], 0).long()]
+        acc = acc + torch.where(live[:, j, None], x, 0.0)
+    return acc

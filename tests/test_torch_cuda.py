@@ -19,7 +19,9 @@ f32 (the SIMT route): atol = rtol = 2e-5 (the JAX package's bar for this
 kernel); in bf16 (the wgmma route) both versions compute in f32 and round
 once, so within one bf16 ulp of the output plus that f32 bar.
 ``embedding_bag``: atol = rtol = 1e-5 of the plain version (an f32 sum of
-at most a few products, in another order), bitwise equal between launches.
+at most a few products, in another order), bitwise equal between launches,
+between its routes (the lane vectors a table allows) and, for unweighted
+bags, to the sequential f32 sum over l.
 """
 import pytest
 import torch
@@ -30,7 +32,8 @@ from repro_torch.core.engine import RetrievalConfig, RetrievalEngine
 from repro_torch.data.synthetic import make_msmarco_like, make_topical_corpus
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_ref,
+                                                  sequential_bag_sum)
 from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
 from repro_torch.kernels import query_tiles
 from repro_torch.kernels.ell_gather import ops as ell_ops
@@ -638,25 +641,81 @@ def test_lm_prefill_on_the_card_goes_through_the_kernel(cuda, monkeypatch):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,l,v,d,weighted", [
-    (7, 1, 50, 10, False), (7, 1, 50, 10, True),
-    (130, 5, 1000, 18, False), (130, 5, 1000, 18, True),
+@pytest.mark.parametrize("n,l,v,d,weighted,offset", [
+    (7, 1, 50, 10, False, 0), (7, 1, 50, 10, True, 0),
+    (130, 5, 1000, 18, False, 0), (130, 5, 1000, 18, True, 0),
+    (130, 8, 1000, 16, True, 0), (130, 8, 1000, 7, True, 0),
+    (130, 8, 1000, 16, True, 1),  # a view only 4-byte aligned
 ])
-def test_embedding_bag_kernel_matches_plain(cuda, n, l, v, d, weighted):
+def test_embedding_bag_kernel_matches_plain(cuda, n, l, v, d, weighted,
+                                            offset):
     g = torch.Generator(device=cuda).manual_seed(n + v)
     ids = torch.randint(-1, v + 20, (n, l), generator=g, device=cuda,
                         dtype=torch.int32)  # pads and ids at or past V
     ids[0] = -1  # an all-pad bag
     ids[1, 1:] = ids[1, 0].clone()  # duplicate ids
-    table = torch.randn(v, d, generator=g, device=cuda)
+    store = torch.randn(v * d + offset, generator=g, device=cuda)
+    table = store[offset:].view(v, d)
     w = torch.randn(n, l, generator=g, device=cuda) if weighted else None
     before = bag_ops.launches
     got = bag_ops.embedding_bag(ids, table, w)
     assert bag_ops.launches == before + 1
+    if offset:
+        assert bag_ops.pick_route(d, l, table.data_ptr(), ids.data_ptr(),
+                                  None if w is None else w.data_ptr())[0] == 1
     assert got.shape == (n, d) and not got[0].any()
     torch.testing.assert_close(got, embedding_bag_ref(ids, w, table),
                                rtol=TOL, atol=TOL)
     assert torch.equal(got, bag_ops.embedding_bag(ids, table, w))
+
+
+def _at_offset(t, nbytes):
+    """A copy of ``t`` whose data starts ``nbytes`` past a 16-byte boundary
+    (the alignment that makes the entry pick a narrower route)."""
+    k = nbytes // t.element_size()
+    store = t.new_empty(t.numel() + 4)  # the allocator aligns to 512 B
+    view = store[k:k + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == nbytes
+    return view
+
+
+@pytest.mark.parametrize("d,l", [(16, 8), (10, 8), (18, 8), (7, 8),
+                                 (10, 6), (16, 5), (10, 20)])
+def test_embedding_bag_routes_give_the_same_bits_on_the_card(cuda, d, l):
+    """Every route (vec, ivec) the shape allows, reached by copying the same
+    values to 0-, 8- and 4-byte offsets, with weights and without, gives
+    the same bits; unweighted, the sequential f32 fold's."""
+    v, n = 3000, 1500
+    g = torch.Generator(device=cuda).manual_seed(d + l)
+    ids = torch.randint(-1, v + 20, (n, l), generator=g, device=cuda,
+                        dtype=torch.int32)  # pads and ids at or past V
+    ids[2] = -1  # an all-pad bag
+    ids[3, 1:] = ids[3, 0].clone()  # duplicate ids
+    table = torch.randn(v, d, generator=g, device=cuda)
+    w = torch.randn(n, l, generator=g, device=cuda)
+    vecs = 3 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    ivecs = 2 if l % 2 == 0 else 1
+    for weights in (None, w):
+        runs = {}
+        for toff in (0, 8, 4):
+            for ioff in (0, 8, 4):
+                i, t = _at_offset(ids, ioff), _at_offset(table, toff)
+                wt = None if weights is None else _at_offset(weights, ioff)
+                route = bag_ops.pick_route(d, l, t.data_ptr(), i.data_ptr(),
+                                           None if wt is None
+                                           else wt.data_ptr())
+                if route not in runs:
+                    runs[route] = bag_ops.embedding_bag(i, t, wt)
+        assert len(runs) == vecs * ivecs  # every route reached
+        first = runs.pop(max(runs))
+        for got in runs.values():
+            assert torch.equal(got, first)
+        if weights is None:
+            assert torch.equal(first, sequential_bag_sum(ids, table))
+        torch.testing.assert_close(first,
+                                   embedding_bag_ref(ids, weights, table),
+                                   rtol=TOL, atol=TOL)
 
 
 def test_embedding_bag_refuses_what_it_cannot_run(cuda):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact and pruned paths, SPLADE query encoding
-in front of the exact one, LM serving (prefill and decode) and recsys
-serving (DIN, DIEN, AutoInt, xDeepFM), on one NVIDIA H100.
+in front of the exact one, LM serving (prefill and decode), recsys
+serving (DIN, DIEN, AutoInt, xDeepFM) and training (the encoder, the LM
+and the recsys models), on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -155,6 +156,38 @@ Phases (each raises on failure; the script then exits non-zero):
    the probe of uniform ids against ids confined to the L2-resident tail
    of the table and ids all from the 10M-row field.
 
+7. Training, with phase 6's data freed (no kernel has a backward, so the
+   losses run the plain versions, in JAX as here).  7a: ``SpladeEncoder``
+   at phase 3a's full width (seeded weights) trained on
+   ``paired_batch_fn`` batches (32 pairs x 128 tokens), AdamW (lr 2e-3,
+   10 warm-up steps): one step's loss and gradients on the card against the
+   CPU at 8 pairs (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL; the CPU pools each
+   max over tokens from the card's token, since a near tie flips between
+   two orders of summation); 10 steps on one repeated batch under
+   deterministic algorithms, where the loss must fall, and the same 10 in
+   the default mode (the step's time); then, from the seeded weights
+   again and under deterministic algorithms, 20 steps
+   of ``Trainer`` over ``DeterministicPipeline`` with async checkpoints
+   every 10 steps, and a second model restored from the checkpoint of step
+   10 that runs steps 11-20: its losses, parameters and moments bit for
+   bit the unbroken run's.  Each step's time on the host clock
+   (synchronised; the median from step 3), examples/s, peak memory and
+   bound (6 x non-embedding parameters x tokens, 3 x the head's 2 x tokens
+   x d x V and 3 x the attention's products, over the f32 rate; the
+   products of one step counted by ``torch.utils.flop_counter`` beside it).
+   7b: 500 pairs encoded through ``splade_head`` (held to the plain head)
+   before and after training, their docs searched through ``tiled`` and
+   ``ell`` (``scatter_score`` and ``ell_gather``) at k = 10 and held to
+   float64; MRR@10 and nonzeros a doc printed; the three kernels'
+   counters zeroed before 7a and read after 7b.  7c: ``qwen2-0.5b`` at
+   full width and depth with remat, bf16 compute, 5 steps of 1 x 4,096
+   tokens (``train_4k`` with its batch cut 256 -> 1) on one repeated
+   batch: the loss falls; remat on and off give the same gradients bit for
+   bit at 2 layers x 1,024.  7d: the four recsys models at ``FULL`` width,
+   5 steps at B = 8,192 with bags of 8 (``train_batch`` cut 65,536 ->
+   8,192): the loss falls.  A ``{"training": [...]}`` line holds each
+   step's row.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -203,6 +236,11 @@ RECSYS_TOL = 1e-5
 # serve_bulk's skewed ids (6d): a power law over each field's ranks.
 SKEW_EXPONENT = 1.05
 TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
+# Training, one step on the card against the CPU: the loss within 1e-5
+# relative, each gradient leaf within 1e-4 of its max |g| (f32 products
+# summed in another order through 12 layers and back, no TF32).
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
 # The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
 # flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
 TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "splade_head": "HMMA"}
@@ -276,6 +314,30 @@ class Sizes:
     # context, each under these ids (bulk_ids), weights None and given.
     bulk_models: tuple = ("xdeepfm", "autoint", "din")
     bulk_kinds: tuple = ("uniform", "skewed")
+    # Training (phase 7).  7a: the encoder of phase 3a on batches of
+    # paired_batch_fn, as examples/train_splade.py trains it.
+    train_pairs: int = 32
+    train_len: int = 128
+    train_steps: int = 20
+    checkpoint_every: int = 10  # the restart resumes from the first
+    overfit_steps: int = 10  # steps on one repeated batch
+    cpu_pairs: int = 8  # one step on the card against the CPU
+    train_lr: float = 2e-3
+    train_warmup: int = 10
+    flops_weight: float = 3e-4
+    eval_pairs: int = 500  # 7b: served through the kernels
+    eval_k: int = 10
+    # 7c: LM_SHAPES' train_4k, its batch cut 256 -> 1.
+    lm_train_batch: int = 1
+    lm_train_len: int = 4096
+    lm_train_steps: int = 5
+    lm_train_lr: float = 1e-3
+    remat_layers: int = 2  # remat on vs off
+    remat_len: int = 1024
+    # 7d: RECSYS_SHAPES' train_batch, cut 65,536 -> 8,192.
+    recsys_train_batch: int = 8192
+    recsys_train_hot: int = 8
+    recsys_train_steps: int = 5
 
 
 def card_line() -> str:
@@ -1917,6 +1979,495 @@ def bulk_lookups(dev, sizes: Sizes, tables: dict, err: float,
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: training (the losses run the plain versions: no kernel has a
+# backward), then the trained encoder served through the kernels.
+
+class StepClock:
+    """A train step timed on the host clock, the device synchronised
+    before and after: ``ms`` holds each call's time."""
+
+    def __init__(self, step, dev):
+        self.step, self.dev, self.ms = step, dev, []
+
+    def __call__(self, state, batch):
+        sync(self.dev)
+        t0 = time.perf_counter()
+        out = self.step(state, batch)
+        sync(self.dev)
+        self.ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+
+def counted_flops(fn) -> int:
+    """The matrix-product flops ``fn()`` runs (``torch.utils.flop_counter``:
+    forward and backward products alike)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return int(counter.get_total_flops())
+
+
+def loss_and_grads(model, loss_fn, batch: dict, dev):
+    """(f32 loss, {name: gradient}) of one batch at the model's weights."""
+    import torch
+
+    from repro_torch.train.train_loop import to_device
+
+    params = dict(model.named_parameters())
+    loss, _ = loss_fn(to_device(batch, dev))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+class PinnedHead:
+    """``splade_head_ref`` that records which token each max over tokens
+    pools from, or, given the recorded tokens (``replay``), pools from
+    those: the same function value where the two sides agree on the max
+    (and within the activations' rounding where a near tie flips it), the
+    gradient routed to the same token.  ``flips`` counts the maxima that
+    the replaying side would have taken from another token."""
+
+    def __init__(self):
+        self.picked, self.replay, self.flips = [], None, 0
+
+    def __call__(self, h, mask, w, b):
+        import torch
+
+        logits = torch.einsum("btd,dv->btv", h, w) + b
+        acts = torch.log1p(torch.clamp_min(logits, 0.0)) * mask[..., None]
+        own = acts.detach().argmax(dim=1)
+        if self.replay is None:
+            self.picked.append(own)
+            return acts.amax(dim=1)
+        idx = self.replay.pop(0).to(acts.device)
+        self.flips += int((own != idx).sum())
+        return acts.gather(1, idx[:, None, :])[:, 0]
+
+
+def grads_within(name: str, got: dict, want: dict, tol: float) -> float:
+    """Each leaf of ``got`` within ``tol`` of the same leaf's max |want|;
+    the largest such relative error."""
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        scale = float(w.abs().max())
+        rel = float((g - w).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        if not rel <= tol:
+            raise AssertionError(f"{name}: gradient of {k} off by {rel!r} "
+                                 f"of its max |g| (> {tol})")
+    return worst
+
+
+def step_row(name: str, ms: list, first: int, unit_count: int, unit: str,
+             peak: int, flops: dict, nbytes: int) -> dict:
+    """A training row: the median step of ``ms[first:]`` beside its bound,
+    the larger of ``nbytes`` over HBM and the sum over dtypes of
+    ``flops[dtype]`` over that dtype's peak rate."""
+    import numpy as np
+
+    rates = {"f32": F32_FLOP_PER_S, "bf16": BF16_FLOP_PER_S}
+    med = float(np.median(ms[first:]))
+    t_ops = sum(f / rates[t] for t, f in flops.items()) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": name, "ms": med, f"{unit}_per_s": unit_count / med * 1e3,
+           "peak_bytes": peak, "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "flops": flops, "bytes": nbytes}
+    log(f"  {name}: {med!r} ms a step (median of steps {first + 1}-"
+        f"{len(ms)}, all {ms!r}), {row[f'{unit}_per_s']!r} {unit}/s, peak "
+        f"{peak} B; bound {row['bound_ms']!r} ms ({row['bound_by']}: "
+        f"{flops} flop, {nbytes} B)")
+    return row
+
+
+def eval_retrieval(dev, sizes: Sizes, model, pairs: dict, label: str):
+    """7b: encode the eval pairs through ``splade_head`` (held to
+    ``use_kernel=False`` within KERNEL_TOL), threshold at 0.01 as
+    ``examples/train_splade.py`` does, search the docs with ``tiled`` and
+    ``ell`` (k = ``eval_k``), hold every query's top-k to float64 (the
+    returned scores and the k-th best, so a tie may go either way) -> MRR@k
+    (query i's doc is doc i) and nonzeros a doc."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core.metrics import mrr_at_k
+    from repro_torch.core.sparse import dense_to_sparse
+
+    k = sizes.eval_k
+    with torch.inference_mode():
+        enc = {}
+        for side in ("q", "d"):
+            x = model.encode(pairs[f"{side}_tokens"], pairs[f"{side}_mask"],
+                             use_kernel=True)
+            compare(f"{label}: encode {side}, use_kernel=True vs False", x,
+                    model.encode(pairs[f"{side}_tokens"],
+                                 pairs[f"{side}_mask"], use_kernel=False))
+            if bool((x < 0).any()):
+                raise AssertionError(f"{label}: negative encoding")
+            enc[side] = dense_to_sparse(torch.where(x > 0.01, x, 0.0),
+                                        device=dev)
+            if side == "d":
+                nnz = float((x > 0.01).sum(dim=1).float().mean())
+            del x
+    n = pairs["q_tokens"].shape[0]
+    oracle = oracle_f64(enc["d"], enc["q"], np.arange(n)).T  # [Bq, N]
+    o_vals = torch.topk(oracle, k, dim=1).values.cpu().numpy()
+    out = {}
+    for name in ("tiled", "ell"):
+        eng = RetrievalEngine(enc["d"], RetrievalConfig(engine=name, k=k),
+                              device=dev)
+        vals, ids = eng.search(enc["q"], k=k)
+        at_ids = oracle.gather(1, torch.from_numpy(ids).to(dev)).cpu().numpy()
+        rel = max(
+            float(np.max(np.abs(vals - at_ids)
+                         / np.maximum(np.abs(at_ids), 1e-30))),
+            float(np.max(np.abs(vals - o_vals)
+                         / np.maximum(np.abs(o_vals), 1e-30))))
+        mrr = mrr_at_k(ids, [{i} for i in range(n)], k)
+        log(f"  {label} -> {name}: top-{k} vs float64 max rel {rel!r}; "
+            f"MRR@{k} {mrr!r}")
+        if rel > SCORE_RTOL or not np.all(ids >= 0):
+            raise AssertionError(f"{label} -> {name}: not exact ({rel})")
+        out[name] = mrr
+    if out["tiled"] != out["ell"]:
+        log(f"  {label}: tiled and ell order a tie differently")
+    return out["tiled"], nnz
+
+
+def train_encoder(dev, sizes: Sizes) -> dict:
+    """7a and 7b: the encoder of ``sizes.encoder`` (seeded weights) trained
+    by ``Trainer`` on ``DeterministicPipeline`` batches of
+    ``paired_batch_fn``, async checkpoints every ``checkpoint_every``
+    steps; the restart from the first checkpoint against the unbroken run,
+    bit for bit (both under deterministic algorithms); the loss falling on
+    one repeated batch; one step's loss and gradients on the card against
+    the CPU; the eval pairs served through the kernels before and after
+    training.  The kernels' counters are zeroed before and read after."""
+    import itertools
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import gpusparse
+    from repro_torch.data.pipeline import (DeterministicPipeline,
+                                           paired_batch_fn)
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+    from repro_torch.kernels.splade_head import ops as head_ops
+    from repro_torch.kernels.splade_head import splade_head_ref
+    from repro_torch.models import splade as splade_module
+    from repro_torch.models.splade import SpladeEncoder
+    from repro_torch.runtime import FaultToleranceSupervisor
+    from repro_torch.train import (AdamWConfig, Trainer, copy_state,
+                                   init_state, make_train_step)
+    from repro_torch.train.train_loop import to_device
+
+    cfg = getattr(gpusparse, sizes.encoder)
+    v, pairs_n, t = cfg.vocab_size, sizes.train_pairs, sizes.train_len
+    make = paired_batch_fn(v, pairs_n, t)
+    adamw = AdamWConfig(lr=sizes.train_lr, warmup_steps=sizes.train_warmup,
+                        total_steps=sizes.train_steps)
+
+    def encoder(seed):
+        return SpladeEncoder(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+
+    def trainer(model, **kw):
+        step = make_train_step(lambda b: model.contrastive_loss(
+            b, flops_weight=sizes.flops_weight), adamw)
+        clock = StepClock(step, dev)
+        state = init_state(dict(model.named_parameters()), adamw).as_dict()
+        return Trainer(clock, state, **kw), clock
+
+    model = encoder(0)
+    params = dict(model.named_parameters())
+    init = {k: p.detach().clone() for k, p in params.items()}
+    n_params = sum(p.numel() for p in init.values())
+    non_embed = n_params - cfg.vocab_size * cfg.d_model - cfg.vocab_size
+    tokens = 2 * pairs_n * t
+    flops = (6 * non_embed * tokens + 3 * 2 * tokens * cfg.d_model * v
+             + 3 * cfg.n_layers * 4 * 2 * pairs_n * t * t * cfg.d_model)
+    # The step's inputs (params and moments) read once and its outputs
+    # written once: 24 B a parameter.
+    nbytes = 24 * n_params
+    loss_fn = lambda b: model.contrastive_loss(  # noqa: E731
+        b, flops_weight=sizes.flops_weight)
+    eval_pairs = to_device(paired_batch_fn(v, sizes.eval_pairs, t)(9, 0),
+                           dev)
+    head_ops.launches = scatter_ops.launches = ell_ops.launches = 0
+    mrr0, nnz0 = eval_retrieval(dev, sizes, model, eval_pairs,
+                                "before training")
+
+    # One step's loss and gradients on the card against the CPU, at the
+    # seeded weights, the CPU pooling each max from the card's token (a
+    # near tie among 128 tokens, one in ~10^4 maxima, flips between two
+    # orders of summation and sends that max's gradient elsewhere); the
+    # step's products counted.
+    small = paired_batch_fn(v, sizes.cpu_pairs, t)(0, 0)
+    cpu_model = SpladeEncoder(cfg, device="cpu")
+    copy_state(dict(cpu_model.named_parameters()),
+               {k: p.cpu() for k, p in init.items()})
+    pinned = PinnedHead()
+    splade_module.splade_head_ref = pinned
+    try:
+        card = loss_and_grads(model, loss_fn, small, dev)
+        pinned.replay = [i.cpu() for i in pinned.picked]
+        t0 = time.perf_counter()
+        cpu = loss_and_grads(cpu_model, lambda b: cpu_model.contrastive_loss(
+            b, flops_weight=sizes.flops_weight), small, "cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        splade_module.splade_head_ref = splade_head_ref
+    rel_loss = abs(card[0] - cpu[0]) / abs(cpu[0])
+    rel_g = grads_within("card vs CPU", card[1], cpu[1], TRAIN_GRAD_TOL)
+    maxima = sum(i.numel() for i in pinned.picked)
+    log(f"  one step at {sizes.cpu_pairs} pairs x {t}: card loss "
+        f"{card[0]!r}, CPU {cpu[0]!r} (rel {rel_loss!r}, CPU {cpu_s:.3f} "
+        f"s); gradients within {rel_g!r} of each leaf's max |g|; the CPU "
+        f"alone would pool {pinned.flips} of {maxima} maxima from another "
+        f"token")
+    if not rel_loss <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"card vs CPU loss off by {rel_loss}")
+    del cpu_model, cpu, card
+    one = make(0, 0)
+    counted = counted_flops(lambda: loss_and_grads(model, loss_fn, one, dev))
+    log(f"  matrix-product flops of one step at {pairs_n} pairs: counted "
+        f"{counted}, the bound's formula {flops} ({counted / flops!r})")
+
+    # The loss falls over steps on one repeated batch, under deterministic
+    # algorithms (at lr 2e-3 the full-width loss swings from step to step,
+    # so the check is made reproducible); then the same steps in the
+    # default mode, timed; each time the weights go back to the seeded ones.
+    rows = {}
+    for deterministic in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            tr, clock = trainer(model, data_iter=itertools.repeat(one))
+            losses = [m["loss"] for m in tr.run(sizes.overfit_steps)]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        peak = torch.cuda.max_memory_allocated(dev)
+        copy_state(params, init)
+        mode = "deterministic" if deterministic else "default"
+        log(f"  {sizes.overfit_steps} steps on one batch ({mode} "
+            f"algorithms): losses {losses!r}")
+        if deterministic and not losses[-1] < losses[0]:
+            raise AssertionError("the loss does not fall on a repeated "
+                                 "batch")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError("non-finite loss")
+        rows[mode] = step_row(
+            f"{cfg.name} contrastive step, one batch ({mode})", clock.ms, 2,
+            pairs_n, "examples", peak, {"f32": flops}, nbytes)
+        del tr, clock
+
+    # 7a. the unbroken run, then the restart from its first checkpoint,
+    # both under deterministic algorithms
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with tempfile.TemporaryDirectory() as d:
+        torch.use_deterministic_algorithms(True)
+        try:
+            pipe = DeterministicPipeline(make, seed=0, prefetch=2)
+            ck = Checkpointer(d, keep=3, async_write=True)
+            tr, clock = trainer(model, data_iter=iter(pipe), checkpointer=ck,
+                                checkpoint_every=sizes.checkpoint_every,
+                                supervisor=FaultToleranceSupervisor())
+            log_a = tr.run(sizes.train_steps)
+            ck.wait()
+            pipe.close()
+            peak = torch.cuda.max_memory_allocated(dev)
+            steps = ck.list_steps()
+            log(f"  {cfg.name}: {sizes.train_steps} steps of {pairs_n} "
+                f"pairs x {t} tokens; losses "
+                f"{[m['loss'] for m in log_a]!r}; checkpoints {steps}")
+            if steps[0] != sizes.checkpoint_every:
+                raise AssertionError(f"checkpoints {steps}")
+            restart = encoder(1)
+            pipe = DeterministicPipeline(make, seed=0, start_step=steps[0],
+                                         prefetch=2)
+            tr_b, _ = trainer(restart, data_iter=iter(pipe),
+                              start_step=steps[0])
+            copy_state(tr_b.state, ck.load(steps[0], tr_b.state))
+            log_b = tr_b.run(sizes.train_steps - steps[0])
+            pipe.close()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    same = [m["loss"] for m in log_b] == [m["loss"] for m in
+                                          log_a[steps[0]:]]
+    for k, p in restart.named_parameters():
+        same = same and torch.equal(p, params[k])
+    for k in ("mu", "nu"):
+        for name, m in tr_b.state["opt_state"][k].items():
+            same = same and torch.equal(m, tr.state["opt_state"][k][name])
+    log(f"  restart from step {steps[0]}: losses "
+        f"{[m['loss'] for m in log_b]!r}; losses, parameters and moments "
+        f"bit for bit the unbroken run's: {same}")
+    if not same:
+        raise AssertionError("the restart does not reproduce the run")
+    row = step_row(f"{cfg.name} contrastive step, pipeline (deterministic)",
+                   clock.ms, 2, pairs_n, "examples", peak, {"f32": flops},
+                   nbytes)
+    del restart, tr_b, tr, clock
+
+    # 7b. the trained weights served through the kernels
+    mrr1, nnz1 = eval_retrieval(dev, sizes, model, eval_pairs,
+                                "after training")
+    launches = {"splade_head": head_ops.launches,
+                "scatter_score": scatter_ops.launches,
+                "ell_gather": ell_ops.launches}
+    log(f"  MRR@{sizes.eval_k} {mrr0!r} -> {mrr1!r}, nonzeros a doc "
+        f"{nnz0!r} -> {nnz1!r}; launches on the training slice's path: "
+        f"{launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched in phase 7b")
+    return dict(rows=[rows["default"], rows["deterministic"], row],
+                mrr=(mrr0, mrr1), nnz=(nnz0, nnz1), launches=launches)
+
+
+def train_lm(dev, sizes: Sizes) -> dict:
+    """7c: ``sizes.lm`` of qwen2_0_5b at full width and depth with remat,
+    bf16 compute, ``lm_train_steps`` steps of ``Trainer`` on one repeated
+    ``lm_batch_fn`` batch: the loss falls; then remat on and off give the
+    same gradients at ``remat_layers`` layers x ``remat_len`` tokens, and
+    the bound's formula is held to the counted products there."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from repro_torch.configs import qwen2_0_5b
+    from repro_torch.data.pipeline import lm_batch_fn
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import (AdamWConfig, Trainer, init_state,
+                                   make_train_step)
+
+    cfg = getattr(qwen2_0_5b, sizes.lm)
+    if not cfg.remat:
+        raise AssertionError(f"{cfg.name}: remat is off")
+    d, v = cfg.d_model, cfg.vocab_size
+    dh, hq = cfg.head_dim, cfg.n_heads
+
+    def formula(c, b, s) -> dict:
+        """The products of one step by dtype: the matrices' in the compute
+        dtype, the plain attention's in f32 over the visible (query, key)
+        pairs; the forward's recompute not counted."""
+        non_embed = c.num_params() - v * d - (0 if c.tie_embeddings
+                                              else v * d)
+        mm = 6 * non_embed * b * s + 3 * 2 * b * s * d * v
+        attn = 3 * c.n_layers * 4 * b * hq * dh * s * (s + 1) // 2
+        out = {"f32": attn}
+        key = "bf16" if c.compute_dtype == torch.bfloat16 else "f32"
+        out[key] = out.get(key, 0) + mm
+        return out
+
+    def model(c, seed):
+        return TransformerLM(c, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+
+    adamw = AdamWConfig(lr=sizes.lm_train_lr, warmup_steps=2,
+                        total_steps=100)
+    b, s = sizes.lm_train_batch, sizes.lm_train_len
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = model(cfg, 0)
+    n_params = sum(p.numel() for p in lm.parameters())
+    clock = StepClock(make_train_step(lm.loss_fn, adamw), dev)
+    tr = Trainer(clock, init_state(dict(lm.named_parameters()),
+                                   adamw).as_dict(),
+                 itertools.repeat(lm_batch_fn(b, s, v)(0, 0)))
+    losses = [m["loss"] for m in tr.run(sizes.lm_train_steps)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  {cfg.name}: {n_params} parameters, {cfg.n_layers} layers, "
+        f"remat, {cfg.dtype}; {b} x {s} tokens; losses {losses!r}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the LM's loss does not fall")
+    row = step_row(f"{cfg.name} next-token step (remat)", clock.ms, 1, b * s,
+                   "tokens", peak, formula(cfg, b, s), 24 * n_params)
+    del lm, tr, clock
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, n_layers=sizes.remat_layers)
+    lm = model(small, 1)
+    batch = lm_batch_fn(1, sizes.remat_len, v)(0, 1)
+    grads = {}
+    for remat in (True, False):
+        lm.cfg = dataclasses.replace(small, remat=remat)
+        grads[remat] = loss_and_grads(lm, lm.loss_fn, batch, dev)
+    same = grads[True][0] == grads[False][0] and all(
+        torch.equal(g, grads[False][1][k]) for k, g in grads[True][1].items())
+    counted = counted_flops(lambda: loss_and_grads(lm, lm.loss_fn, batch,
+                                                   dev))
+    want = sum(formula(small, 1, sizes.remat_len).values())
+    log(f"  remat on vs off at {sizes.remat_layers} layers x "
+        f"{sizes.remat_len}: loss {grads[True][0]!r} vs {grads[False][0]!r},"
+        f" gradients bit for bit equal: {same}; products counted {counted},"
+        f" the bound's formula {want} ({counted / want!r})")
+    if not same:
+        raise AssertionError("remat changes the LM's gradients")
+    return dict(rows=[row], losses=losses)
+
+
+def train_recsys(dev, sizes: Sizes) -> dict:
+    """7d: each of ``sizes.recsys_models`` at ``recsys_config`` (seeded
+    weights) for ``recsys_train_steps`` steps of ``Trainer`` on one
+    repeated ``make_recsys_batch`` batch of ``recsys_train_batch`` examples
+    with bags of ``recsys_train_hot``: the loss falls."""
+    import importlib
+    import itertools
+
+    import torch
+
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models.recsys import build_model
+    from repro_torch.train import (AdamWConfig, Trainer, init_state,
+                                   make_train_step)
+
+    rows = []
+    b = sizes.recsys_train_batch
+    # lr 1e-4: at 1e-3 xDeepFM's first step (about lr x sign(g) on every
+    # CIN filter) throws its loss up tenfold.
+    adamw = AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=100)
+    for name in sizes.recsys_models:
+        cfg = getattr(importlib.import_module(f"repro_torch.configs.{name}"),
+                      sizes.recsys_config)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(cfg, device=dev, seed=0)
+        n_params = sum(p.numel() for p in model.parameters())
+        batch = make_recsys_batch(b, cfg.n_sparse, cfg.vocab_sizes,
+                                  cfg.seq_len, cfg.item_vocab,
+                                  multi_hot=sizes.recsys_train_hot, seed=0)
+        clock = StepClock(make_train_step(model.loss_fn, adamw), dev)
+        tr = Trainer(clock, init_state(dict(model.named_parameters()),
+                                       adamw).as_dict(),
+                     itertools.repeat(batch))
+        losses = [m["loss"] for m in tr.run(sizes.recsys_train_steps)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"  {cfg.name}: {n_params} parameters; B = {b}, H = "
+            f"{sizes.recsys_train_hot}; losses {losses!r}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{cfg.name}: the loss does not fall")
+        flops = counted_flops(lambda: loss_and_grads(model, model.loss_fn,
+                                                     batch, dev))
+        in_bytes = sum(v.nbytes for v in batch.values())
+        # The step reads the batch, the params and moments once and writes
+        # the params and moments once: 24 B a parameter.
+        rows.append(step_row(f"{cfg.name} BCE step", clock.ms, 1, b,
+                             "examples", peak, {"f32": flops},
+                             24 * n_params + in_bytes))
+        del model, tr, clock
+    return dict(rows=rows)
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -2109,7 +2660,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
         f"{torch.cuda.max_memory_allocated(dev)} B")
 
     # 5. LM serving; the earlier phases' corpora, indices and encoder go
-    del corpus, engines, results, pruned, enc_run, tiled, ell, qw_t, qw
+    # (eng and q: the loops' last engine and query weights)
+    del corpus, engines, eng, results, pruned, enc_run, tiled, ell, qw_t, \
+        qw, q
     torch.cuda.empty_cache()
     log(f"phase 5a: flash_attention vs plain and float64, "
         f"{len(sizes.flash_shapes)} shapes x f32, bf16")
@@ -2138,10 +2691,34 @@ def run(dev, sizes: Sizes) -> list[dict]:
     rows.append(serve_recsys(dev, sizes, err)["row"])
     log(f"peak device memory in phase 6: "
         f"{torch.cuda.max_memory_allocated(dev)} B")
+
+    # 7. training; phase 6's models are gone
+    torch.cuda.empty_cache()
+    log(f"device memory held before phase 7: "
+        f"{torch.cuda.memory_allocated(dev)} B")
+    t0 = time.perf_counter()
+    log(f"phase 7a: train {sizes.encoder} of repro_torch.configs.gpusparse, "
+        f"{sizes.train_steps} steps of {sizes.train_pairs} pairs x "
+        f"{sizes.train_len} tokens; 7b: serve {sizes.eval_pairs} pairs "
+        f"before and after")
+    training = train_encoder(dev, sizes)["rows"]
+    torch.cuda.empty_cache()
+    log(f"phase 7c: train {sizes.lm} of repro_torch.configs.qwen2_0_5b, "
+        f"{sizes.lm_train_batch} x {sizes.lm_train_len} tokens")
+    training += train_lm(dev, sizes)["rows"]
+    torch.cuda.empty_cache()
+    log(f"phase 7d: train {sizes.recsys_config} of "
+        f"{', '.join(sizes.recsys_models)} at B = {sizes.recsys_train_batch}")
+    training += train_recsys(dev, sizes)["rows"]
+    log(f"phase 7: {time.perf_counter() - t0:.3f} s")
+    print(json.dumps({"training": training}))
     return rows
 
 
 def main() -> int:
+    # Phase 7's restart check runs under deterministic algorithms, which
+    # need cuBLAS's workspace fixed before CUDA starts.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():

@@ -2,12 +2,14 @@
 TransformerConfig`` that the port reads, with the same names and defaults.
 
 The LM path reads ``sliding_window``, the compute ``dtype`` (``"float32"``
-or ``"bfloat16"``; anything else raises ``ValueError``) and the chunk sizes
-of the plain attention, ``attn_q_chunk`` and ``attn_kv_chunk``.  The SPLADE
-encoder reads none of them, in JAX or here: it runs f32 whatever ``dtype``
-says.  A knob the port does not implement is not a field, so setting it is
-a ``TypeError`` rather than a silent no-op: remat, layer scan, unrolled
-attention and sequence parallelism only matter for training or for XLA.
+or ``"bfloat16"``; anything else raises ``ValueError``), the chunk sizes
+of the plain attention, ``attn_q_chunk`` and ``attn_kv_chunk``, and, in
+training, ``remat`` (each block's activations recomputed in the backward,
+as ``jax.checkpoint`` does).  The SPLADE encoder reads none of them, in JAX
+or here: it runs f32 whatever ``dtype`` says.  A knob the port does not
+implement is not a field, so setting it is a ``TypeError`` rather than a
+silent no-op: layer scan, unrolled attention and sequence parallelism only
+matter for XLA or for a mesh.
 The port has no experts and keeps its parameters in f32: a config with
 ``moe`` set or another ``param_dtype`` raises ``NotImplementedError``.
 
@@ -45,6 +47,7 @@ class TransformerConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"  # activation/compute dtype of the LM
     param_dtype: str = "float32"
+    remat: bool = True  # recompute each LM block in the backward
     attn_q_chunk: int = 512  # tiles of the plain chunked attention
     attn_kv_chunk: int = 1024
 

@@ -29,4 +29,5 @@ ENCODER_SMOKE = TransformerConfig(
     tie_embeddings=True,
     dtype="float32",
     param_dtype="float32",
+    remat=False,
 )

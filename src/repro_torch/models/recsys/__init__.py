@@ -1,11 +1,12 @@
-"""The recsys models, serving direction (``repro.models.recsys``): DIN,
-DIEN, AutoInt and xDeepFM on one concatenated field table, whose multi-hot
-lookups go through the ``embedding_bag`` kernel entry.
+"""The recsys models (``repro.models.recsys``): DIN, DIEN, AutoInt and
+xDeepFM on one concatenated field table, whose multi-hot lookups go
+through the ``embedding_bag`` kernel entry when serving; ``loss_fn``
+trains through the plain bag sums.
 
 ``build_model(cfg, device="cuda", seed=0)`` makes the model of
 ``cfg.model`` with seeded weights (the JAX init's laws, other numbers);
 :func:`params_from_jax` turns a JAX recsys params pytree into its
-``state_dict``.  ``loss_fn`` and training are not ported yet.
+``state_dict``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.models.recsys.autoint import AutoInt
 from repro_torch.models.recsys.dien import DIEN
 from repro_torch.models.recsys.din import DIN
 from repro_torch.models.recsys.embeddings import (
-    FieldEmbedding, embedding_bag_plain,
+    FieldEmbedding, bce_loss, embedding_bag_plain,
 )
 from repro_torch.models.recsys.xdeepfm import XDeepFM
 from repro_torch.utils import resolve_device
@@ -25,7 +26,8 @@ from repro_torch.utils import resolve_device
 MODELS = {"din": DIN, "dien": DIEN, "autoint": AutoInt, "xdeepfm": XDeepFM}
 
 __all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
-           "build_model", "embedding_bag_plain", "params_from_jax"]
+           "bce_loss", "build_model", "embedding_bag_plain",
+           "params_from_jax"]
 
 
 def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0):

@@ -9,11 +9,11 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import dense_init
-from repro_torch.models.recsys.embeddings import FieldEmbedding
+from repro_torch.models.recsys.embeddings import ClickModel, FieldEmbedding
 from repro_torch.utils import resolve_device
 
 
-class AutoInt(nn.Module):
+class AutoInt(ClickModel):
     """Parameters under the JAX names: ``fields.table``,
     ``attn_layers.<i>.{wq,wk,wv,w_res}``, ``w_out`` and ``b_out``; on
     ``device`` (default ``"cuda"``: raises without a card), drawn from

@@ -18,7 +18,7 @@ from torch import nn
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recsys.embeddings import (
-    FieldEmbedding, apply_mlp_tower, init_mlp_tower,
+    ClickModel, FieldEmbedding, apply_mlp_tower, init_mlp_tower,
 )
 from repro_torch.utils import resolve_device
 
@@ -60,7 +60,7 @@ def run_gru(p, xs: torch.Tensor, mask: torch.Tensor,
     return h, torch.stack(states, dim=1)
 
 
-class DIEN(nn.Module):
+class DIEN(ClickModel):
     """Parameters under the JAX names: ``fields.table``, ``item_table``,
     ``gru1.{w,u,b}``, ``gru2.{w,u,b}``, ``attn_proj`` and ``mlp.*``; on
     ``device`` (default ``"cuda"``: raises without a card), drawn from

@@ -18,7 +18,7 @@ from torch import nn
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recsys.embeddings import (
-    FieldEmbedding, apply_mlp_tower, init_mlp_tower,
+    ClickModel, FieldEmbedding, apply_mlp_tower, init_mlp_tower,
 )
 from repro_torch.utils import resolve_device
 
@@ -32,7 +32,7 @@ def dice(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return p * x + (1 - p) * 0.25 * x
 
 
-class DIN(nn.Module):
+class DIN(ClickModel):
     """Parameters under the JAX names: ``fields.table``, ``item_table``,
     ``attn.*`` and ``mlp.*``; on ``device`` (default ``"cuda"``: raises
     without a card), drawn from ``generator`` with the JAX init's laws."""

@@ -13,7 +13,9 @@ under ``torch.inference_mode()``.
 
 The MLP tower is an ``nn.ModuleDict`` whose parameters carry the JAX
 pytree's names (``layers.<i>.w``, ``layers.<i>.b``, ``head.w``,
-``head.b``).
+``head.b``).  :class:`ClickModel`, the four models' base, gives them the
+JAX ``loss_fn``: :func:`bce_loss` of ``forward(batch, use_kernel=False)``
+(the kernel has no backward).
 """
 from __future__ import annotations
 
@@ -123,3 +125,25 @@ def apply_mlp_tower(tower: nn.ModuleDict, x: torch.Tensor,
     for layer in tower["layers"]:
         x = act(x @ layer["w"] + layer["b"])
     return x @ tower["head"]["w"] + tower["head"]["b"]
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of f32 logits, the stable form
+    max(x, 0) - x y + log1p(exp(-|x|)) (``torch.maximum``, like
+    ``jnp.maximum``, splits its gradient at x = 0)."""
+    labels = labels.to(logits.device)
+    logits = logits.reshape(labels.shape).float()
+    return torch.mean(
+        torch.maximum(logits, logits.new_zeros(())) - logits * labels
+        + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+class ClickModel(nn.Module):
+    """A click model's training loss (the JAX models' ``loss_fn``)."""
+
+    def loss_fn(self, batch: dict):
+        """-> (the BCE of the logits against ``batch["label"]``,
+        ``{"bce": it}``), through the plain bag sums."""
+        loss = bce_loss(self.forward(batch, use_kernel=False),
+                        batch["label"])
+        return loss, {"bce": loss.detach()}

@@ -13,12 +13,12 @@ from torch import nn
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.layers import dense_init
 from repro_torch.models.recsys.embeddings import (
-    FieldEmbedding, apply_mlp_tower, init_mlp_tower,
+    ClickModel, FieldEmbedding, apply_mlp_tower, init_mlp_tower,
 )
 from repro_torch.utils import resolve_device
 
 
-class XDeepFM(nn.Module):
+class XDeepFM(ClickModel):
     """Parameters under the JAX names: ``fields.table``, ``linear.table``
     [rows, 1], ``cin.<k>``, ``w_cin``, ``mlp.*`` and ``b_out``; on
     ``device`` (default ``"cuda"``: raises without a card), drawn from

@@ -1,6 +1,6 @@
-"""SPLADE encoder (paper Eq. 1), serving direction: tokens -> bidirectional
-transformer -> MLM head -> max-pooled log1p(ReLU(.)) over tokens
-(``repro.models.splade``).
+"""SPLADE encoder (paper Eq. 1): tokens -> bidirectional transformer -> MLM
+head -> max-pooled log1p(ReLU(.)) over tokens, and its in-batch contrastive
+loss with the FLOPS regulariser (``repro.models.splade``).
 
 ``encode(tokens, mask, use_kernel=True)`` pools through the fused CUDA head
 (:mod:`repro_torch.kernels.splade_head`); ``use_kernel=False`` (the
@@ -8,7 +8,8 @@ default, as in JAX) materialises the [B, T, V] logits.  As in the JAX
 encoder, attention ignores the token mask (padding tokens attend and are
 attended to); the mask enters only in the head, as an f32 multiplier.
 Everything runs in f32: the JAX ``encode`` never casts to its config's
-compute ``dtype``, and neither does the port's.
+compute ``dtype``, and neither does the port's.  ``contrastive_loss``
+encodes with ``use_kernel=False``, as in JAX: the kernel has no backward.
 
 Parameters are the LM backbone's (:class:`repro_torch.models.transformer.
 Backbone`, the JAX pytree's names) plus ``mlm_bias``;
@@ -67,3 +68,18 @@ class SpladeEncoder(Backbone):
         w = self.head_weight()
         head = splade_head if use_kernel else splade_head_ref
         return head(h, mask, w, self.mlm_bias)
+
+    def contrastive_loss(self, batch: dict, flops_weight: float = 1e-3):
+        """In-batch softmax over query-doc inner products (positives on the
+        diagonal) + ``flops_weight`` x the FLOPS regulariser (the squared
+        mean activation of each term, summed, for queries and docs) ->
+        (loss, ``{"ce", "flops", "q_nnz"}``)."""
+        q = self.encode(batch["q_tokens"], batch["q_mask"])
+        d = self.encode(batch["d_tokens"], batch["d_mask"])
+        logp = torch.log_softmax(q @ d.T, dim=-1)  # [B, B]
+        ce = -torch.mean(torch.diagonal(logp))
+        flops = torch.sum(torch.mean(q, dim=0) ** 2) + torch.sum(
+            torch.mean(d, dim=0) ** 2)
+        loss = ce + flops_weight * flops
+        return loss, {"ce": ce.detach(), "flops": flops.detach(),
+                      "q_nnz": (q > 0).sum(dim=-1).float().mean()}

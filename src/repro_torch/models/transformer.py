@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM, serving direction: prefill and single-token
-decode against a KV cache (``repro.models.transformer``; dense layers only).
+"""Decoder-only transformer LM: prefill and single-token decode against a
+KV cache, and the next-token loss of training (``repro.models.transformer``;
+dense layers only).
 
 ``TransformerLM(cfg, device="cuda", generator=None)`` holds the JAX params
 pytree's leaves under the same names, one block per layer where JAX stacks
@@ -17,7 +18,10 @@ the ``state_dict``.
 (``use_kernel=True``, the default: the JAX LM has no such switch and runs
 its chunked attention, the same function, which ``use_kernel=False``
 runs here).  Decode is plain PyTorch.  The kernel has no backward, so run
-the LM under ``torch.inference_mode()``.
+the LM under ``torch.inference_mode()``.  ``loss_fn`` trains through the
+plain chunked attention; with ``cfg.remat`` each block of a forward that
+records gradients runs under ``torch.utils.checkpoint`` (its activations
+recomputed in the backward, as ``jax.checkpoint`` does in JAX).
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import layers as L
@@ -104,29 +110,52 @@ class TransformerLM(Backbone):
         pre = L.rms_norm(x, p["ln_mlp"], self.cfg.norm_eps)
         return x + L.mlp_block(p["mlp"], pre, self.cfg)
 
+    def _block(self, blk: _Block, x: torch.Tensor, positions: torch.Tensor,
+               q_chunk: int, kv_chunk: int, use_kernel: bool):
+        cfg = self.cfg
+        p = blk.cast(cfg.compute_dtype)
+        h, _ = L.attention_block(
+            p["attn"], L.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
+            positions, q_chunk, kv_chunk, use_kernel)
+        return self._mlp_half(p, x + h)
+
     def backbone(self, tokens: torch.Tensor, q_chunk: Optional[int] = None,
                  kv_chunk: Optional[int] = None,
                  use_kernel: bool = True) -> torch.Tensor:
         """[B, S] tokens -> [B, S, d] final hidden states in ``cfg.dtype``.
         ``q_chunk``/``kv_chunk`` (default ``cfg.attn_q_chunk``/
-        ``attn_kv_chunk``) tile the plain attention of ``use_kernel=False``."""
+        ``attn_kv_chunk``) tile the plain attention of ``use_kernel=False``.
+        With ``cfg.remat``, a forward that records gradients recomputes each
+        block (its parameters' cast included) in the backward."""
         cfg = self.cfg
         q_chunk = q_chunk or cfg.attn_q_chunk
         kv_chunk = kv_chunk or cfg.attn_kv_chunk
-        dt = cfg.compute_dtype
-        x = self.embed_tokens(tokens).to(dt)
+        x = self.embed_tokens(tokens).to(cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            p = blk.cast(dt)
-            h, _ = L.attention_block(
-                p["attn"], L.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
-                positions, q_chunk, kv_chunk, use_kernel)
-            x = self._mlp_half(p, x + h)
+            args = (blk, x, positions, q_chunk, kv_chunk, use_kernel)
+            x = (checkpoint(self._block, *args, use_reentrant=False) if remat
+                 else self._block(*args))
         return L.rms_norm(x, self.ln_f, cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """``hidden @ head`` in the hidden states' dtype, returned in f32."""
         return (hidden @ self.head_weight().to(hidden.dtype)).float()
+
+    def loss_fn(self, batch: dict):
+        """Next-token cross-entropy over ``batch["tokens"]`` [B, S]: the f32
+        log-softmax of the logits at ``targets``, averaged over
+        ``loss_mask`` -> (loss, ``{"ce", "aux"}``); ``aux`` is 0 (no
+        experts).  Runs the plain attention (the kernel has no backward)."""
+        hidden = self.backbone(batch["tokens"], use_kernel=False)
+        logp = F.log_softmax(self.logits(hidden), dim=-1)
+        targets = batch["targets"].to(logp.device).long()
+        ll = logp.gather(-1, targets[..., None])[..., 0]
+        mask = batch["loss_mask"].to(device=logp.device, dtype=torch.float32)
+        loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        aux = torch.zeros((), device=loss.device)
+        return loss + aux, {"ce": loss.detach(), "aux": aux}
 
     def prefill(self, tokens: torch.Tensor,
                 use_kernel: bool = True) -> torch.Tensor:

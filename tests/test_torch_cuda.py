@@ -760,3 +760,104 @@ def test_xdeepfm_forward_on_the_card_goes_through_the_kernel(cuda,
         got = model(batch)
     assert bag_ops.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# -- training: the losses run the plain versions, on the card as on the CPU
+
+def _train_case(name: str, device):
+    """(model, loss_fn, numpy batch) of a SMOKE config, seeded on the
+    CPU (the same weights on every device)."""
+    from repro_torch.configs import din, gpusparse, qwen2_0_5b, xdeepfm
+    from repro_torch.data.pipeline import lm_batch_fn, paired_batch_fn
+    from repro_torch.data.synthetic import make_recsys_batch
+    from repro_torch.models.recsys import build_model
+    from repro_torch.models.splade import SpladeEncoder
+    from repro_torch.models.transformer import TransformerLM
+
+    gen = torch.Generator().manual_seed(4)
+    if name == "encoder":
+        m = SpladeEncoder(gpusparse.ENCODER_SMOKE, device="cpu",
+                          generator=gen)
+        return (m.to(device), lambda b: m.contrastive_loss(b),
+                paired_batch_fn(512, 8, 32)(0, 0))
+    if name == "lm":
+        m = TransformerLM(qwen2_0_5b.SMOKE, device="cpu", generator=gen)
+        return m.to(device), m.loss_fn, lm_batch_fn(2, 64, 512)(0, 0)
+    cfg = {"din": din, "xdeepfm": xdeepfm}[name].SMOKE
+    m = build_model(cfg, device="cpu", seed=4).to(device)
+    return m, m.loss_fn, make_recsys_batch(
+        64, cfg.n_sparse, list(cfg.vocab_sizes), cfg.seq_len, cfg.item_vocab,
+        multi_hot=3, seed=1)
+
+
+@pytest.mark.parametrize("name", ["encoder", "lm", "din", "xdeepfm"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, name):
+    """One step's loss within 1e-5 relative and each gradient leaf within
+    1e-4 of its max |g| (f32 products summed in another order, no TF32);
+    the losses launch no kernel (they have no backward)."""
+    from repro_torch.train import AdamWConfig, init_state, make_train_step
+    from repro_torch.train.train_loop import _accumulate_grads, to_device
+
+    kernels = (head_ops, flash_ops, bag_ops, scatter_ops, ell_ops)
+    before = [k.launches for k in kernels]
+    results = {}
+    for dev in ("cpu", cuda):
+        model, loss_fn, batch = _train_case(name, dev)
+        params = dict(model.named_parameters())
+        loss, _, grads = _accumulate_grads(loss_fn, params,
+                                           to_device(batch, dev), 1)
+        adamw = AdamWConfig(lr=1e-3, warmup_steps=1)
+        state, metrics = make_train_step(loss_fn, adamw)(
+            init_state(params, adamw).as_dict(), batch)
+        assert all(p.device.type == torch.device(dev).type
+                   for p in state["params"].values())
+        assert int(state["opt_state"]["step"]) == 1
+        results[str(dev)] = (float(loss), {k: g.cpu() for k, g in
+                                           grads.items()},
+                             float(metrics["loss"]))
+    assert [k.launches for k in kernels] == before
+    (cl, cg, cm), (gl, gg, gm) = results["cpu"], results[str(cuda)]
+    assert abs(gl - cl) <= 1e-5 * abs(cl) and abs(gm - cm) <= 1e-5 * abs(cm)
+    for k, g in cg.items():
+        err = (gg[k] - g).abs().max().item()
+        assert err <= 1e-4 * max(g.abs().max().item(), 1e-30), (k, err)
+
+
+def test_contrastive_loss_through_the_kernel_raises_under_grad(cuda):
+    model, loss_fn, batch = _train_case("encoder", cuda)
+    from repro_torch.train.train_loop import to_device
+
+    b = to_device(batch, cuda)
+    with pytest.raises(RuntimeError, match="backward"):
+        model.encode(b["q_tokens"], b["q_mask"], use_kernel=True)
+    before = head_ops.launches
+    loss, aux = loss_fn(b)
+    loss.backward()
+    assert head_ops.launches == before
+    assert model.embed.grad is not None and torch.isfinite(loss)
+
+
+def test_async_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """``save`` copies the card's tensors to the host before it returns; a
+    later in-place step does not reach the file; ``load`` puts each leaf
+    back on the template's device with its dtype."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train import AdamWConfig, init_state
+
+    model, _, _ = _train_case("lm", cuda)
+    state = init_state(dict(model.named_parameters()),
+                       AdamWConfig()).as_dict()
+    want = {k: v.detach().cpu().clone() for k, v in state["params"].items()}
+    ck = Checkpointer(str(tmp_path), async_write=True)
+    ck.save(7, state)
+    with torch.no_grad():
+        for p in state["params"].values():
+            p.mul_(2.0).add_(1.0)
+    ck.wait()
+    assert ck.list_steps() == [7]
+    loaded = ck.load(7, state)
+    for k, v in loaded["params"].items():
+        assert v.device == state["params"][k].device
+        assert v.dtype == torch.float32 and torch.equal(v.cpu(), want[k]), k
+    step = loaded["opt_state"]["step"]
+    assert step.dtype == torch.int32 and step.device.type == "cuda"

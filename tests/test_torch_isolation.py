@@ -34,7 +34,11 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.models.transformer",
               "repro_torch.kernels.flash_attention.ops",
               "repro_torch.kernels.embedding_bag.ops",
-              "repro_torch.models.recsys"):
+              "repro_torch.models.recsys",
+              "repro_torch.train.optimizer", "repro_torch.train.train_loop",
+              "repro_torch.checkpoint.checkpoint",
+              "repro_torch.runtime.fault_tolerance",
+              "repro_torch.data.pipeline"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -248,8 +248,7 @@ def test_encoder_defaults_to_cuda_and_checks_token_ids():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("remat", True), ("scan_layers", False), ("attn_unroll", True),
-    ("seq_parallel", True),
+    ("scan_layers", False), ("attn_unroll", True), ("seq_parallel", True),
 ])
 def test_config_has_no_unported_knob(knob, value):
     """A JAX knob the port does not read is no field of the port's config:
@@ -261,11 +260,12 @@ def test_config_has_no_unported_knob(knob, value):
 
 @pytest.mark.parametrize("knob,value", [
     ("sliding_window", 8), ("dtype", "bfloat16"), ("attn_q_chunk", 16),
-    ("attn_kv_chunk", 16),
+    ("attn_kv_chunk", 16), ("remat", True),
 ])
 def test_lm_fields_have_the_jax_defaults_and_leave_encode_alone(knob, value):
-    """The LM path's fields exist with JAX's defaults; the encoder reads
-    none of them (the JAX ``encode`` never casts to ``dtype`` either)."""
+    """The LM path's fields exist with JAX's defaults and values; the
+    encoder reads none of them (the JAX ``encode`` never casts to ``dtype``
+    either, nor remats)."""
     for t, j in ((tcfg.ENCODER, jcfg.ENCODER),
                  (tcfg.ENCODER_SMOKE, jcfg.ENCODER_SMOKE)):
         assert getattr(t, knob) == getattr(j, knob)

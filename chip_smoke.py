@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's exact and pruned paths, SPLADE query encoding
 in front of the exact one, LM serving (prefill and decode), recsys
-serving (DIN, DIEN, AutoInt, xDeepFM) and training (the encoder, the LM
-and the recsys models), on one NVIDIA H100.
+serving (DIN, DIEN, AutoInt, xDeepFM), training (the encoder, the LM and
+the recsys models) and the serving state (sessions, deletions, the
+scheduler, the segment store), on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -188,6 +189,31 @@ Phases (each raises on failure; the script then exits non-zero):
    8,192): the loss falls.  A ``{"training": [...]}`` line holds each
    step's row.
 
+8. Serving state at serve_1m, with phase 7's data freed (the launch
+   counters of ``scatter_score``, ``ell_gather`` and ``bmp_scan`` zeroed
+   before and read after; each must be launched).  8a: a ``Retriever``
+   grown by ``add_docs`` in 4 segments (3 x 262,144 docs and 213,568),
+   for ``tiled`` and ``ell``: its top-k against one ``RetrievalEngine``
+   over the 1M docs (tie-aware, values within 1e-5 relative) and against
+   float64 as in phase 3; a fenced ``obs`` span around one
+   ``scatter_score`` call at least its CUDA-event time.  8b: on phase 3b's
+   topical corpus, for ``tiled`` and ``tiled-bmp-fused``: 1 % of the docs
+   deleted (seeded) equals an engine rebuilt on the survivors, and
+   ``compact(0.25)`` (no segment qualifies) and ``compact(0.005)`` (every
+   segment rebuilt) leave the results unchanged.  8c: a ``SearchSession``
+   on ``tiled-bmp-fused`` (doc_block 64, k = 10): cold, warm, and warm
+   after ``add_docs`` of 65,536 docs, bitwise the cold session's; blocks
+   skipped from the cached tau.  8d: a ``QueryScheduler`` (micro-batches
+   of 128) drains 2,000 requests (4 replays of the queries as new
+   streams, deadline 0.5 s), each result equal to direct
+   ``Retriever.search``; QPS and the e2e latency's p50/p99 from the obs
+   snapshot; ``tiled`` search with ``obs=None`` against ``Obs()``.  8e:
+   ``SegmentWriter`` writes the corpus (``tiled``, segments of 262,144)
+   to a temporary directory; ``Retriever.from_store`` with no budget and
+   with half the device bytes gives the resident bits; write and open
+   seconds, pager counters and the effective H2D rate.  A
+   ``{"serving_state": {...}}`` line holds the numbers.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -338,6 +364,19 @@ class Sizes:
     recsys_train_batch: int = 8192
     recsys_train_hot: int = 8
     recsys_train_steps: int = 5
+    # Serving state (phase 8) at serve_1m: a Retriever grown in 4
+    # segments of 262,144 docs (the last 213,568), 1 % of the docs
+    # deleted, a session grown by 65,536 docs, 4 replays of the queries
+    # through the scheduler, and the store's segments of the same size.
+    state_segments: int = 4
+    state_segment_docs: int = 262_144
+    delete_share: float = 0.01
+    compact_threshold: float = 0.25
+    session_extra_docs: int = 65_536
+    sched_batch: int = 128
+    sched_replays: int = 4
+    sched_deadline_s: float = 0.5
+    state_rounds: int = 3  # 8a: rounds after a warm-up
 
 
 def card_line() -> str:
@@ -2468,6 +2507,341 @@ def train_recsys(dev, sizes: Sizes) -> dict:
     return dict(rows=rows)
 
 
+def same_results(name: str, got, want, rtol: float = SCORE_RTOL) -> dict:
+    """Two numpy top-k results (values, ids) of one query batch, tie-aware:
+    the same infinities, finite values within ``rtol`` relative, and at
+    each run of values within ``rtol`` of each other that ends before the
+    cut the same set of ids (the run that reaches the k-th slot may go on
+    past the cut, where either side may keep any of its docs).  Returns
+    the max relative value error, whether the two are bitwise equal and
+    the share of ranks with the same id."""
+    import numpy as np
+
+    (gv, gi), (wv, wi) = got, want
+    if gv.shape != wv.shape:
+        raise AssertionError(f"{name}: shape {gv.shape} vs {wv.shape}")
+    fin = np.isfinite(wv)
+    if not np.array_equal(fin, np.isfinite(gv)) or not np.array_equal(
+            gv[~fin], wv[~fin]):
+        raise AssertionError(f"{name}: infinities differ")
+    rel = float(np.max(np.abs(gv[fin] - wv[fin])
+                       / np.maximum(np.abs(wv[fin]), 1e-30))) \
+        if fin.any() else 0.0
+    if rel > rtol:
+        raise AssertionError(f"{name}: values differ (rel {rel!r})")
+    k = wv.shape[1]
+    for row in np.nonzero((gi != wi).any(axis=1))[0]:
+        v = wv[row]
+        with np.errstate(invalid="ignore"):
+            same = (v[1:] == v[:-1]) | (np.abs(v[1:] - v[:-1])
+                                        <= rtol * np.abs(v[1:]))
+        starts = np.concatenate([[0], np.nonzero(~same)[0] + 1])
+        ends = np.concatenate([starts[1:], [k]])
+        for s, e in zip(starts, ends):
+            if e < k and set(gi[row, s:e]) != set(wi[row, s:e]):
+                raise AssertionError(f"{name}: row {row} ranks {s}-{e} "
+                                     "hold other docs")
+    bitwise = bool(np.array_equal(gv, wv) and np.array_equal(gi, wi))
+    share = float((gi == wi).mean())
+    log(f"  {name}: max rel {rel!r}, bitwise {bitwise}, same id at "
+        f"{share!r} of ranks")
+    return dict(rel=rel, bitwise=bitwise, same_ids=share)
+
+
+def timed(name: str, fn, dev):
+    """One call of ``fn`` on the synchronised host clock -> (result, ms)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    log(f"  {name}: {ms!r} ms")
+    return out, ms
+
+
+def segments(batch, sizes: Sizes):
+    """``sizes.state_segments`` pieces of a corpus, each a whole number of
+    ``sizes.state_segment_docs`` but the last."""
+    n, step = batch.batch, sizes.state_segment_docs
+    cuts = [min(i * step, n) for i in range(sizes.state_segments)] + [n]
+    return [batch.slice_rows(a, b - a) for a, b in zip(cuts, cuts[1:])]
+
+
+def subset(batch, keep):
+    import torch
+
+    from repro_torch.core import SparseBatch
+
+    sel = torch.from_numpy(keep).to(batch.device)
+    return SparseBatch(batch.term_ids[sel], batch.values[sel],
+                       batch.vocab_size)
+
+
+def serve_state(dev, sizes: Sizes) -> dict:
+    """Phase 8: the serving state at serve_1m — ``Retriever`` grown by
+    ``add_docs``, deletions and compaction, a ``SearchSession``, the
+    ``QueryScheduler`` and the segment store with its pager — each checked
+    against the stateless engine it must equal."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs as obs_mod
+    from repro_torch.core import RetrievalConfig, RetrievalEngine, Retriever
+    from repro_torch.core import scoring
+    from repro_torch.data.synthetic import (
+        make_msmarco_like, make_topical_corpus,
+    )
+    from repro_torch.sched import QueryScheduler
+    from repro_torch.store import SegmentStore, SegmentWriter
+
+    out = {}
+    k = sizes.k
+    corpus = make_msmarco_like(sizes.docs, sizes.queries,
+                               vocab_size=sizes.vocab, seed=0, device=dev)
+    g = torch.Generator().manual_seed(5)
+    sample = torch.randperm(sizes.queries, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle = oracle_f64(corpus.docs, corpus.queries, sample)
+    pieces = segments(corpus.docs, sizes)
+    log(f"  8a: segments of {[p.batch for p in pieces]} docs")
+
+    # 8a. grown vs cold, tiled and ell
+    resident = None
+    for name in ("tiled", "ell"):
+        cfg = RetrievalConfig(engine=name, k=k)
+        grown = Retriever(pieces[0], cfg, device=dev)
+        for p in pieces[1:]:
+            grown.add_docs(p)
+        cold = RetrievalEngine(corpus.docs, cfg, device=dev)
+        got, ms = host_rounds(f"8a {name}: Retriever.search, "
+                              f"{grown.version} segments",
+                              lambda: grown.search(corpus.queries),
+                              sizes.state_rounds, dev, sizes.queries)
+        want = cold.search(corpus.queries)
+        out[f"8a {name}"] = dict(ms=ms, **same_results(
+            f"8a {name}: grown vs one engine", got, want))
+        check_exact(f"8a {name} grown", got[0], got[1], oracle, sample, k)
+        if name == "tiled":
+            resident = grown
+            # A fenced span around one scatter_score call covers the
+            # kernel: at least its CUDA-event time.
+            obs = obs_mod.Obs()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            q = corpus.queries.to(dev)
+            scoring.score_tiled(q, cold._index)
+            sync(dev)
+            with obs.span("kernel") as sp:
+                start.record()
+                scores = scoring.score_tiled(q, cold._index)
+                end.record()
+                obs_mod.fence(scores)
+            ev_ms = start.elapsed_time(end)
+            log(f"  8a fence: span {sp.duration * 1e3!r} ms around one "
+                f"scatter_score call of {ev_ms!r} ms (CUDA events)")
+            if sp.duration * 1e3 < ev_ms:
+                raise AssertionError("a fenced span is shorter than the "
+                                     "kernel it covers")
+            out["fence"] = dict(span_ms=sp.duration * 1e3, event_ms=ev_ms)
+            del scores
+            # 8d's direct search and the obs on/off times reuse cold
+            rounds = []
+            for obs_on in (True, False, False, True):
+                cold.config.obs = obs_mod.Obs() if obs_on else None
+                rounds.append((obs_on, host_rounds(
+                    f"8d tiled search, obs {'Obs()' if obs_on else 'None'}",
+                    lambda: cold.search(corpus.queries), sizes.rounds, dev,
+                    sizes.queries)[1]))
+            on = [ms for o, ms in rounds if o]
+            off = [ms for o, ms in rounds if not o]
+            out["obs"] = dict(on_ms=on, off_ms=off)
+            log(f"  8d: tiled search with Obs() {on!r} ms, obs=None "
+                f"{off!r} ms (turns on, off, off, on)")
+        del grown, cold, got, want
+        torch.cuda.empty_cache()
+
+    # 8d. the scheduler: 4 replays of the 500 queries as 2,000 streams
+    sched = QueryScheduler(resident, k=k, capacity=sizes.sched_replays
+                           * sizes.queries, max_batch=sizes.sched_batch,
+                           device=dev)
+    direct = resident.search(corpus.queries)
+    qi = corpus.queries.term_ids.cpu().numpy()
+    qv = corpus.queries.values.cpu().numpy()
+    t0 = time.perf_counter()
+    now = sched.clock()
+    for r in range(sizes.sched_replays):
+        for i in range(sizes.queries):
+            sched.submit((r, i), qi[i], qv[i],
+                         deadline=now + sizes.sched_deadline_s)
+    results = sched.drain()
+    secs = time.perf_counter() - t0
+    n = len(results)
+    if n != sizes.sched_replays * sizes.queries:
+        raise AssertionError(f"8d: {n} results")
+    vals = np.stack([x.values for x in results])
+    ids = np.stack([x.ids for x in results])
+    rows = np.array([x.query_id[1] for x in results])
+    out["8d"] = same_results("8d: each queued result vs direct search",
+                             (vals, ids), (direct[0][rows], direct[1][rows]))
+    snap = sched.obs_snapshot()
+    e2e = snap.histograms["sched.e2e_latency_s"]
+    misses = int(snap.counters.get("sched.deadline_miss_total", 0))
+    out["8d"].update(qps=n / secs, p50_s=e2e["p50"], p99_s=e2e["p99"],
+                     deadline_misses=misses,
+                     batches=int(snap.counters["sched.batches_total"]))
+    log(f"  8d: {n} requests in {secs!r} s: {n / secs!r} QPS, "
+        f"{out['8d']['batches']} micro-batches of <= {sizes.sched_batch}, "
+        f"e2e p50 {e2e['p50']!r} s, p99 {e2e['p99']!r} s, deadline "
+        f"misses {misses} (deadline {sizes.sched_deadline_s} s after "
+        "submission)")
+    del sched, results, direct
+
+    # 8e. the store: write the corpus, page it back in
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as d:
+        path = os.path.join(d, "store")
+        cfg = RetrievalConfig(engine="tiled", k=k)
+        t0 = time.perf_counter()
+        w = SegmentWriter(path, cfg, segment_docs=sizes.state_segment_docs,
+                          device=dev)
+        for p in pieces:
+            w.add_docs(p)
+        w.finalize()
+        write_s = time.perf_counter() - t0
+        disk = sum(h.mapped_bytes() for h in SegmentStore.open(path).segments)
+        log(f"  8e: SegmentWriter wrote {w.segments_written} segments, "
+            f"{disk} B, in {write_s!r} s")
+        want = resident.search(corpus.queries, return_tau=False)
+        dev_bytes = resident.index_bytes()
+        for label, budget in (("no budget", None),
+                              ("half the device bytes", dev_bytes // 2)):
+            t0 = time.perf_counter()
+            paged = Retriever.from_store(path, device_budget_bytes=budget,
+                                         device=dev)
+            open_s = time.perf_counter() - t0
+            got, ms = timed(f"8e {label}: first paged search",
+                            lambda: paged.search(corpus.queries), dev)
+            st = paged.pager_stats()
+            again, ms2 = timed(f"8e {label}: second search",
+                               lambda: paged.search(corpus.queries), dev)
+            st2 = paged.pager_stats()
+            res = same_results(f"8e {label}: paged vs resident", got, want)
+            same_results(f"8e {label}: second search", again, want)
+            if not res["bitwise"]:
+                raise AssertionError("8e: the paged index does not give the "
+                                     "resident bits")
+            gbs = st["bytes_loaded"] / (ms * 1e-3) / 1e9
+            out[f"8e {label}"] = dict(open_s=open_s, ms=ms, ms_again=ms2,
+                                      h2d_gbs=gbs, stats=st2)
+            log(f"  8e {label}: open {open_s!r} s; first search pager "
+                f"{st}; effective H2D {gbs!r} GB/s of the search's time; "
+                f"after the second {st2}")
+            if budget is not None and st2["resident_bytes"] > max(
+                    budget, max(s.index_bytes() for s in resident._segments)):
+                raise AssertionError("8e: the pager overran its budget")
+            del paged, got, again
+        out["8e write"] = dict(write_s=write_s, disk_bytes=disk)
+    del resident, corpus, pieces, oracle
+    torch.cuda.empty_cache()
+
+    # 8b and 8c on the topical corpus
+    topical = make_topical_corpus(sizes.docs, sizes.queries,
+                                  vocab_size=sizes.vocab, seed=0, device=dev)
+    tq = topical.queries
+    rng = np.random.default_rng(8)
+    dead = np.sort(rng.choice(sizes.docs, int(sizes.docs
+                                              * sizes.delete_share),
+                              replace=False))
+    survivors = np.setdiff1d(np.arange(sizes.docs), dead)
+    base = dict(reorder_docs=True, reorder_method="df-signature")
+    for name in ("tiled", "tiled-bmp-fused"):
+        cfg = RetrievalConfig(engine=name, k=k, **base)
+        r = Retriever(device=dev, config=cfg)
+        for p in segments(topical.docs, sizes):
+            r.add_docs(p)
+        newly, del_ms = timed(f"8b {name}: delete_docs of {len(dead)}",
+                              lambda: r.delete_docs(dead), dev)
+        got, ms = timed(f"8b {name}: search after the deletes",
+                        lambda: r.search(tq), dev)
+        if np.isin(got[1], dead).any():
+            raise AssertionError("8b: a deleted doc was served")
+        rebuilt = RetrievalEngine(subset(topical.docs, survivors), cfg,
+                                  device=dev)
+        (rv, ri), rms = timed(f"8b {name}: search of a rebuild on the "
+                              "survivors", lambda: rebuilt.search(tq), dev)
+        del rebuilt
+        ri = np.where(ri >= 0, survivors[np.clip(ri, 0, None)], -1)
+        res = same_results(f"8b {name}: deleted vs rebuilt on survivors",
+                           got, (rv, ri))
+        rows = {}
+        for thr in (sizes.compact_threshold, sizes.delete_share / 2):
+            n_c, c_ms = timed(f"8b {name}: compact({thr})",
+                              lambda: r.compact(thr), dev)
+            after, a_ms = timed(f"8b {name}: search after compact({thr}), "
+                                f"{n_c} segments rebuilt",
+                                lambda: r.search(tq), dev)
+            rows[thr] = dict(rebuilt=n_c, compact_ms=c_ms, search_ms=a_ms,
+                             **same_results(f"8b {name}: after compact("
+                                            f"{thr}) vs before", after, got))
+        out[f"8b {name}"] = dict(delete_ms=del_ms, search_ms=ms,
+                                 rebuild_search_ms=rms, compact=rows, **res)
+        del r
+        torch.cuda.empty_cache()
+
+    # 8c. a session on tiled-bmp-fused, doc_block 64, k = 10
+    cfg = RetrievalConfig(engine="tiled-bmp-fused", k=sizes.small_k,
+                          doc_block=sizes.small_doc_block, **base)
+    r = Retriever(topical.docs, cfg, device=dev)
+    s = r.open_session(k=sizes.small_k)
+    cold, cold_ms = timed("8c cold session search", lambda: s.search(tq),
+                          dev)
+    warm, warm_ms = timed("8c warm search (every stream cached)",
+                          lambda: s.search(tq), dev)
+    if not (np.array_equal(cold[0], warm[0])
+            and np.array_equal(cold[1], warm[1])):
+        raise AssertionError("8c: warm != cold")
+    extra = make_topical_corpus(sizes.session_extra_docs, 1,
+                                vocab_size=sizes.vocab, seed=1,
+                                device=dev).docs
+    tau = np.array([s.cached_tau(i) for i in range(sizes.queries)],
+                   np.float32)
+    r.add_docs(extra)
+    # every stream's entry is usable after an append; the share whose
+    # cached tau is finite warm-starts the new segment's sweep
+    hit = float(np.mean([s.cached_tau(i) is not None
+                         for i in range(sizes.queries)]))
+    finite = float(np.isfinite(tau).mean())
+    grown, grown_ms = timed(f"8c warm search after add_docs of "
+                            f"{extra.batch} docs", lambda: s.search(tq), dev)
+    fresh, fresh_ms = timed("8c cold session over the grown index",
+                            lambda: r.open_session(k=sizes.small_k).search(
+                                tq), dev)
+    res = same_results("8c warm after add_docs vs cold", grown, fresh)
+    if not res["bitwise"]:
+        raise AssertionError("8c: the warm session is not the cold one's "
+                             "bits")
+    # blocks the new segment's sweep skips from the cached tau, and cold
+    seg = r._segments[-1].engine
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+    skips = {}
+    for label, t0_ in (("cold", None), ("warm", tau)):
+        _, st = bmp_ops.bmp_scan(tq.to(dev), seg._index, sizes.small_k,
+                                 tau_init=t0_, return_stats=True)
+        skips[label] = 1.0 - st.blocks_scored_union / st.num_doc_blocks
+    full = r.prune_stats(tq, k=sizes.small_k)
+    log(f"  8c: share of streams with a usable cached entry {hit!r}, "
+        f"with a finite cached tau {finite!r}; new "
+        f"segment's blocks skipped {skips['warm']!r} warm vs "
+        f"{skips['cold']!r} cold; a cold sweep of both segments skips "
+        f"{full.block_skip_frac!r} of {full.num_doc_blocks} blocks")
+    out["8c"] = dict(cold_ms=cold_ms, warm_ms=warm_ms, grown_ms=grown_ms,
+                     fresh_ms=fresh_ms, cache_hit=hit, finite_tau=finite,
+                     skip=skips,
+                     full_skip=full.block_skip_frac, **res)
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -2476,6 +2850,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     from repro_torch.core.topk import topk_two_stage
     from repro_torch.data.synthetic import make_msmarco_like
     from repro_torch.kernels import build
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
     from repro_torch.kernels.ell_gather import ops as ell_ops
     from repro_torch.kernels.ell_gather.ref import ell_gather_ref
     from repro_torch.kernels.query_tiles import pack_query_tiles
@@ -2712,6 +3087,25 @@ def run(dev, sizes: Sizes) -> list[dict]:
     training += train_recsys(dev, sizes)["rows"]
     log(f"phase 7: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"training": training}))
+
+    # 8. serving state; phase 7's models are gone
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 8: serving state at serve_1m: Retriever, deletions, "
+        f"SearchSession, QueryScheduler, the store; {sizes.docs} docs x "
+        f"{sizes.queries} queries, k={sizes.k}")
+    counters = {"scatter_score": scatter_ops, "ell_gather": ell_ops,
+                "bmp_scan": bmp_ops}
+    for mod in counters.values():
+        mod.launches = 0
+    state = serve_state(dev, sizes)
+    state_launches = {name: mod.launches for name, mod in counters.items()}
+    log(f"  launches in phase 8: {state_launches}")
+    for name, n in state_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched in phase 8")
+    log(f"phase 8: {time.perf_counter() - t0:.3f} s")
+    print(json.dumps({"serving_state": state}, default=float))
     return rows
 
 

@@ -1,13 +1,23 @@
 """Atomic, asynchronous checkpoints of a train state
 (``repro.checkpoint.checkpoint``), at world size 1.
 
-The JAX package's on-disk layout: ``<dir>/step_<N>/arrays_host0.npz`` (the
-tree's leaves under their ``/``-joined key paths) and ``manifest.json``
-(``step``, ``keys``, ``process_count``, ``format: 1``), written into
-``step_<N>.tmp`` and then renamed, so a preemption mid-write never
-corrupts the latest checkpoint.  A port train state's keys are
-``params/<name>``, ``opt_state/step``, ``opt_state/mu/<name>`` and
-``opt_state/nu/<name>`` (``<name>`` a ``state_dict`` name).
+The JAX package's on-disk layout and key space: ``<dir>/step_<N>/
+arrays_host0.npz`` (the JAX tree's leaves under their ``/``-joined key
+paths) and ``manifest.json`` (``step``, ``keys``, ``process_count``,
+``format: 1``), written into ``step_<N>.tmp`` and then renamed, so a
+preemption mid-write never corrupts the latest checkpoint.
+
+A port train state (``{"params": {name: tensor}, "opt_state": {"step",
+"mu", "nu"}}``, ``name`` a ``state_dict`` name) is written as the JAX
+state it stands for: each tree of ``state_dict`` names is nested by its
+dots, with ``blocks.<i>.<leaf>`` restacked into ``blocks/<leaf>``
+[L, ...] (``transformer.params_to_jax``), so the keys are
+``params/blocks/attn/wq``, ``opt_state/step``, ``opt_state/mu/embed``, ...
+and ``repro.checkpoint.load_latest`` opens a port directory.  Loading goes
+the other way (``transformer.params_from_jax``), so the port opens a JAX
+directory.  The one pair serves every family: a recsys model has no
+``blocks``, and its list items (``cin.0.w``) are written under the same
+``/``-joined paths (``cin/0/w``) as JAX's key paths name them.
 
 ``save`` copies every leaf to host memory before it returns, so the next
 step may overwrite the live tensors while the writer thread works: on the
@@ -26,6 +36,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.models import transformer
+from repro_torch.train.train_loop import state_from_jax, state_to_jax
+from repro_torch.utils import nest
+
 
 def _host_copy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
@@ -34,22 +48,26 @@ def _host_copy(leaf) -> np.ndarray:
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, Any]:
-    if not isinstance(tree, dict):
+    """Leaves under their ``/``-joined key paths (list items by index, as
+    JAX's key paths name them)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
         return {prefix: tree}
     flat = {}
-    for k, v in tree.items():
+    for k, v in items:
         flat.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
     return flat
 
 
-def _unflatten_like(template, flat: dict[str, np.ndarray], prefix: str = ""):
-    """The tree of ``template`` with each leaf read from ``flat``: a new
-    tensor of the template leaf's dtype on its device."""
+def _like(template, tree):
+    """The tree of ``template`` with each leaf taken from ``tree`` (same
+    keys): a new tensor of the template leaf's dtype on its device."""
     if isinstance(template, dict):
-        return {k: _unflatten_like(v, flat, f"{prefix}/{k}" if prefix
-                                   else str(k))
-                for k, v in template.items()}
-    arr = torch.from_numpy(flat[prefix])
+        return {k: _like(v, tree[k]) for k, v in template.items()}
+    arr = torch.as_tensor(tree)
     if isinstance(template, torch.Tensor):
         arr = arr.to(device=template.device, dtype=template.dtype)
     return arr
@@ -68,7 +86,9 @@ class Checkpointer:
     def save(self, step: int, state: Any, blocking: bool = False) -> None:
         # Copy to host BEFORE handing to the writer thread: the next step
         # overwrites the live tensors in place.
-        host_state = {k: _host_copy(v) for k, v in _flatten(state).items()}
+        host = nest({k: _host_copy(v) for k, v in _flatten(state).items()},
+                    sep="/")
+        host_state = _flatten(state_to_jax(host, transformer.params_to_jax))
         if self.async_write and not blocking:
             self._ensure_worker()
             self._queue.put((step, host_state))
@@ -128,10 +148,10 @@ class Checkpointer:
         return sorted(out)
 
     def load(self, step: int, template: Any) -> Any:
-        """The checkpoint of ``step`` as a new tree shaped like
-        ``template``, each leaf a tensor of the template leaf's dtype on
-        its device (restore it into live tensors with
-        ``repro_torch.train.copy_state``)."""
+        """The checkpoint of ``step`` (the port's or the JAX package's) as
+        a new port train state shaped like ``template``, each leaf a tensor
+        of the template leaf's dtype on its device (restore it into live
+        tensors with ``repro_torch.train.copy_state``)."""
         d = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
@@ -139,7 +159,9 @@ class Checkpointer:
             raise ValueError(f"{d}: manifest says step {manifest['step']}")
         with np.load(os.path.join(d, "arrays_host0.npz")) as z:
             flat = {k: z[k] for k in z.files}
-        return _unflatten_like(template, flat)
+        state = state_from_jax(nest(flat, sep="/"),
+                               transformer.params_from_jax)
+        return _like(template, state)
 
 
 def load_latest(directory: str, template: Any):

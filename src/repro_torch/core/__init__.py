@@ -1,4 +1,5 @@
-"""The exact-retrieval loop: sparse batches, indices, scoring, top-k, engine."""
+"""The exact-retrieval loop: sparse batches, indices, scoring, top-k,
+engine; and the stateful serving layer (``Retriever``, ``SearchSession``)."""
 from repro_torch.core.sparse import SparseBatch, from_lists, dense_to_sparse
 from repro_torch.core.index import (
     TiledIndex,
@@ -13,6 +14,7 @@ from repro_torch.core.engine import (
     RetrievalConfig,
     stream_search,
 )
+from repro_torch.core.session import Retriever, SearchSession
 
 __all__ = [
     "SparseBatch",
@@ -28,4 +30,6 @@ __all__ = [
     "RetrievalEngine",
     "RetrievalConfig",
     "stream_search",
+    "Retriever",
+    "SearchSession",
 ]

@@ -28,6 +28,7 @@ from typing import Literal, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import registry, scoring, topk
@@ -43,9 +44,11 @@ EngineName = Literal[
 
 @dataclasses.dataclass
 class RetrievalConfig:
-    """The JAX config's fields that the port's engines read.  The knobs of
-    later slices (``pad_to``, ``use_f32_scores``, ``obs``) are not fields
-    yet, so setting one fails (``TypeError``) instead of doing nothing."""
+    """The JAX config's fields that the port's engines read.  ``pad_to``
+    (read only by the unported ``FlatIndex`` engines) and
+    ``use_f32_scores`` (read by nothing) are not fields, so setting one
+    fails (``TypeError``) instead of doing nothing; a store's config
+    snapshot carries both (``repro_torch.store.format``)."""
 
     engine: EngineName = "tiled"
     k: int = 1000
@@ -81,6 +84,12 @@ class RetrievalConfig:
     # stream: serving state, not a config value (no equality, no repr).
     plan_cache: Optional[object] = dataclasses.field(
         default=None, repr=False, compare=False
+    )
+    # Observability (repro_torch.obs.Obs): metrics and spans threaded down
+    # the serve path.  Default on; None disables it.  Serving state like
+    # plan_cache: no equality, no repr, not in a store's config snapshot.
+    obs: Optional[object] = dataclasses.field(
+        default_factory=obs_mod.Obs, repr=False, compare=False
     )
 
     def __post_init__(self):
@@ -168,12 +177,14 @@ class RetrievalEngine:
     ) -> "RetrievalEngine":
         """Wrap an already-built index (what ``config.spec.build_index``
         would produce for ``docs``) without rebuilding it; ``doc_unperm``
-        and ``deleted`` restore a reorder permutation and tombstones."""
+        and ``deleted`` restore a reorder permutation and tombstones.
+        ``docs`` stay where they are: a store segment's stay on the host,
+        and only its index is on ``device``."""
         self = cls.__new__(cls)
         self.config = config
         self.spec = registry.get_engine(config.engine)
         self.device = resolve_device(device)
-        self.docs = docs.to(self.device)
+        self.docs = docs
         self.num_docs = docs.batch
         self.vocab_size = docs.vocab_size
         self._doc_unperm = (
@@ -303,6 +314,7 @@ class RetrievalEngine:
         """
         k_req = k or self.config.k
         k = min(k_req, self.num_docs)
+        obs = getattr(self.config, "obs", None)
         out_v, out_i = [], []
         for s in range(0, queries.batch, self.config.query_chunk):
             q = queries.slice_rows(s, min(self.config.query_chunk,
@@ -311,11 +323,14 @@ class RetrievalEngine:
                 np.asarray(tau_init)[s:s + q.batch], dtype=torch.float32,
                 device=self.device,
             )
-            scores = self.score(q, k=k, tau_init=t0)
-            v, i = topk.topk_two_stage(scores, k,
-                                       block=self.config.topk_block)
-            out_v.append(v.cpu().numpy())
-            out_i.append(i.cpu().numpy())
+            # The copies to numpy end the chunk on the host, so the span
+            # measures its device work, not its dispatch.
+            with obs_mod.span(obs, "engine.score", rows=q.batch, k=k):
+                scores = self.score(q, k=k, tau_init=t0)
+                v, i = topk.topk_two_stage(scores, k,
+                                           block=self.config.topk_block)
+                out_v.append(v.cpu().numpy())
+                out_i.append(i.cpu().numpy())
         vals = np.concatenate(out_v, axis=0)
         ids = np.where(np.isfinite(vals), np.concatenate(out_i, axis=0), -1)
         if not return_tau:

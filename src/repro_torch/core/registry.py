@@ -178,7 +178,8 @@ def _score_tiled(queries, index, cfg, k=None, tau_init=None):
 def _sched_knobs(cfg) -> dict:
     return dict(top_m=cfg.sched_top_m, max_group=cfg.sched_max_group,
                 min_share=cfg.sched_min_share,
-                plan_cache=getattr(cfg, "plan_cache", None))
+                plan_cache=getattr(cfg, "plan_cache", None),
+                obs=getattr(cfg, "obs", None))
 
 
 def _stats_block_max(queries, index, cfg, k, deleted_mask=None):

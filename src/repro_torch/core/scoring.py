@@ -39,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import topk as topk_mod
 from repro_torch.core.index import EllIndex, TiledIndex
 from repro_torch.core.sparse import SparseBatch
@@ -488,7 +489,7 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
                    tau_init=None, return_stats: bool = False,
                    return_tau: bool = False, top_m: int = 8,
                    max_group: Optional[int] = None, min_share: float = 0.5,
-                   plan_cache=None, deleted_mask=None):
+                   plan_cache=None, deleted_mask=None, obs=None):
     """The BMP sweep per micro-batch group: [B, N] scores, unvisited docs
     ``-inf``; the top-k equals the flat sweep's for any partition, and the
     chunk work never exceeds it.
@@ -501,7 +502,11 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
     a group (``score_tiled_bmp_grouped``); ``stacked=True`` stacks the
     groups of each power-of-two bucket into one launch
     (``bmp_scan.ops.bmp_scan``) and counts the launches in
-    ``SchedStats.kernel_launches``.  Returns ``out[, stats][, tau]``.
+    ``SchedStats.kernel_launches``.  ``obs`` (``repro_torch.obs.Obs`` or
+    None) traces the ``plan``, the ``bucket.assembly`` of a stacked call
+    and one fenced ``kernel`` span per launch, and counts
+    ``kernel.launches_total``, with the JAX engines' names.  Returns
+    ``out[, stats][, tau]``.
     """
     _require_runs(index)
     qw = _pad_queries_to_term_blocks(queries, index)
@@ -517,12 +522,16 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
                 top_m=top_m, max_group=max_group, min_share=min_share,
             ),
             knobs=(top_m, max_group, min_share),
+            obs=obs,
         ).groups
     groups = planner_mod.validate_groups(groups, b)
     tau0 = _tau0(tau_init, b, "cpu").numpy()
     alive = _alive_from_deleted(deleted_mask, index.num_docs, dev)
     if stacked:
-        batches = planner_mod.bucketed_group_rows(groups, tau0)
+        with obs_mod.span(obs, "bucket.assembly") as sp:
+            batches = list(planner_mod.bucketed_group_rows(groups, tau0))
+            if sp is not None:
+                sp.attrs["buckets"] = len(batches)
     else:
         batches = (
             (len(sel), [(gi, g)], sel[None], tau_g[None])
@@ -539,10 +548,16 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
     launches = 0
     for size, entries, sel, tau_sel in batches:
         sel_t = torch.from_numpy(sel).to(dev)
-        out_g, tau_g, bsc, csc, steps = _sweep(
-            qw[sel_t], ub[sel_t], torch.from_numpy(tau_sel).to(dev), index,
-            theta, k_eff, alive,
-        )
+        attrs = (dict(bucket=size, groups=len(entries)) if stacked
+                 else dict(rows=size, live=len(entries[0][1])))
+        with obs_mod.span(obs, "kernel", **attrs):
+            out_g, tau_g, bsc, csc, steps = _sweep(
+                qw[sel_t], ub[sel_t], torch.from_numpy(tau_sel).to(dev),
+                index, theta, k_eff, alive,
+            )
+            if obs is not None:
+                obs.counter("kernel.launches_total").inc()
+                obs_mod.fence((out_g, tau_g))
         launches += 1
         tau_g = tau_g.cpu().numpy()
         if return_stats:

@@ -319,7 +319,7 @@ def bmp_scan(queries, index, k: int, groups=None, theta: float = 1.0,
              tau_init=None, return_stats: bool = False,
              return_tau: bool = False, top_m: int = 8,
              max_group: Optional[int] = None, min_share: float = 0.5,
-             plan_cache=None, deleted_mask=None):
+             plan_cache=None, deleted_mask=None, obs=None):
     """Fused demand-grouped BMP traversal: [B, N] scores, unvisited docs
     ``-inf``, ``out[, stats][, tau]`` — the semantics of
     ``score_tiled_bmp_grouped`` (any partition is exact, chunk work never
@@ -332,7 +332,10 @@ def bmp_scan(queries, index, k: int, groups=None, theta: float = 1.0,
     the number of buckets.  The JAX entry instead sends buckets above 128
     rows (its ``max_kernel_rows``) and every deletion-bearing call through
     its per-group oracle and counts one launch per group there; this is
-    the one place where the two packages' stats differ.
+    the one place where the two packages' stats differ.  ``obs`` traces
+    the ``plan``, the ``bucket.assembly`` and one fenced ``kernel`` span a
+    launch, and counts ``kernel.launches_total``
+    (:func:`repro_torch.core.scoring.grouped_sweeps`).
     """
     from repro_torch.core import scoring
 
@@ -340,5 +343,5 @@ def bmp_scan(queries, index, k: int, groups=None, theta: float = 1.0,
         queries, index, k, stacked=True, groups=groups, theta=theta,
         tau_init=tau_init, return_stats=return_stats, return_tau=return_tau,
         top_m=top_m, max_group=max_group, min_share=min_share,
-        plan_cache=plan_cache, deleted_mask=deleted_mask,
+        plan_cache=plan_cache, deleted_mask=deleted_mask, obs=obs,
     )

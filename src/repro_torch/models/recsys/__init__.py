@@ -6,7 +6,7 @@ trains through the plain bag sums.
 ``build_model(cfg, device="cuda", seed=0)`` makes the model of
 ``cfg.model`` with seeded weights (the JAX init's laws, other numbers);
 :func:`params_from_jax` turns a JAX recsys params pytree into its
-``state_dict``.
+``state_dict``, and :func:`params_to_jax` the ``state_dict`` back.
 """
 from __future__ import annotations
 
@@ -21,13 +21,13 @@ from repro_torch.models.recsys.embeddings import (
     FieldEmbedding, bce_loss, embedding_bag_plain,
 )
 from repro_torch.models.recsys.xdeepfm import XDeepFM
-from repro_torch.utils import resolve_device
+from repro_torch.utils import nest, resolve_device
 
 MODELS = {"din": DIN, "dien": DIEN, "autoint": AutoInt, "xdeepfm": XDeepFM}
 
 __all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
            "bce_loss", "build_model", "embedding_bag_plain",
-           "params_from_jax"]
+           "params_from_jax", "params_to_jax"]
 
 
 def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0):
@@ -57,3 +57,25 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     ``load_state_dict(..., strict=True)`` copies to the model's device."""
     return {name: torch.from_numpy(np.array(leaf, copy=True))
             for name, leaf in _flatten(params).items()}
+
+
+def _lists(node):
+    """Dict levels keyed ``"0".."n-1"`` as the lists JAX holds there."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        if sorted(map(int, out)) != list(range(len(out))):
+            raise ValueError(f"list items {sorted(out)}")
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def params_to_jax(state: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` (tensors or
+    numpy arrays) as the JAX recsys pytree of numpy arrays (nested dicts,
+    and lists where a level's names are the indices ``0..n-1``)."""
+    flat = {name: (leaf.detach().to("cpu", copy=True).numpy()
+                   if isinstance(leaf, torch.Tensor) else np.asarray(leaf))
+            for name, leaf in state.items()}
+    return _lists(nest(flat))

@@ -12,7 +12,8 @@ them for ``scan``: ``embed`` [V, d], ``blocks.<i>.attn.{wq,wk,wv,wo}``
 each layer's are cast to the compute ``cfg.dtype`` as it runs, and the
 embedding after the gather, as the JAX ``_cast_floats`` does.
 :func:`params_from_jax` turns a JAX params pytree (as numpy arrays) into
-the ``state_dict``.
+the ``state_dict``, and :func:`params_to_jax` the ``state_dict`` back into
+the JAX pytree, its blocks restacked [L, ...].
 
 ``prefill``'s attention goes through the CUDA ``flash_attention`` kernel
 (``use_kernel=True``, the default: the JAX LM has no such switch and runs
@@ -35,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import resolve_device
+from repro_torch.utils import nest, resolve_device
 
 EMPTY_SLOT = 2**31 - 1  # position of an empty cache slot: masked by <=
 
@@ -227,3 +228,29 @@ def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
         else:
             state[name] = torch.from_numpy(leaf.copy())
     return state
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.asarray(leaf)
+
+
+def params_to_jax(state: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: a ``state_dict`` (tensors or
+    numpy arrays) as the JAX params pytree of numpy arrays, nested by the
+    dotted names, with ``blocks.<i>.<leaf>`` stacked into
+    ``blocks.<leaf>`` [L, ...] in layer order."""
+    flat, blocks = {}, {}
+    for name, leaf in state.items():
+        if name.startswith("blocks."):
+            i, rest = name[len("blocks."):].split(".", 1)
+            blocks.setdefault(rest, {})[int(i)] = _host(leaf)
+        else:
+            flat[name] = _host(leaf)
+    for rest, layers in blocks.items():
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"blocks.*.{rest}: layers {sorted(layers)}")
+        flat[f"blocks.{rest}"] = np.stack([layers[i]
+                                           for i in range(len(layers))])
+    return nest(flat)

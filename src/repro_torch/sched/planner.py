@@ -26,9 +26,8 @@ cohort-independent; see ``score_tiled_bmp_grouped``); the planner only
 decides how much chunk work the partition saves.
 
 A numpy copy of :mod:`repro.sched.planner`, with the same semantics, tie
-rules and :data:`PAD_TAU`; the port imports nothing of ``repro``.  Not
-here yet: the ``obs`` span of :func:`plan_with_cache` (with the obs
-slice) and ``store_plan_token`` (with the store slice).
+rules, :data:`PAD_TAU`, ``plan`` span and :func:`store_plan_token`; the
+port imports nothing of ``repro``.
 """
 from __future__ import annotations
 
@@ -38,11 +37,28 @@ from typing import Hashable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs as obs_mod
 
 # Monotonic tokens stamped onto index objects by PlanCache.stream_key:
 # unlike id(), a token dies with its index, so object-id recycling can
 # never alias a stale plan.
 _INDEX_TOKENS = itertools.count()
+
+
+def store_plan_token(seg_dir: str, generation: int) -> tuple:
+    """Stable PlanCache token for a store-backed segment.
+
+    ``repro_torch.store.SegmentReader`` stamps this as
+    ``_plan_cache_token`` on every index it reconstructs, replacing the
+    process-local counter: a segment evicted by the pager and paged back
+    in gets the *same* token (its arrays are bit-identical, so cached
+    plans stay valid), while an in-place rewrite (compaction) bumps
+    ``generation`` and so invalidates every plan keyed on the old
+    contents.
+    """
+    import os
+
+    return ("store", os.path.abspath(seg_dir), int(generation))
 
 
 def demand_signatures(
@@ -298,19 +314,28 @@ class PlanCache:
 
 
 def plan_with_cache(plan_cache, queries, index, plan_fn,
-                    knobs: tuple = ()) -> DemandPlan:
+                    knobs: tuple = (), obs=None) -> DemandPlan:
     """The one memoization idiom every planning call site shares.
 
     ``plan_fn`` builds the :class:`DemandPlan` cold; ``knobs`` are the
     planner parameters the plan depends on (part of the cache key, so one
     cache can serve differently-configured callers); ``plan_cache=None``
-    means plan every call.
+    means plan every call.  ``obs`` (a ``repro_torch.obs.Obs`` or None)
+    wraps the call in a ``plan`` span whose ``cached`` attribute records
+    hit vs. miss.
     """
-    if plan_cache is None:
-        return plan_fn()
-    return plan_cache.get_or_plan(
-        plan_cache.stream_key(queries, index, extra=knobs), plan_fn
-    )
+    with obs_mod.span(obs, "plan") as sp:
+        if plan_cache is None:
+            if sp is not None:
+                sp.attrs["cached"] = False
+            return plan_fn()
+        hits_before = plan_cache.hits
+        plan = plan_cache.get_or_plan(
+            plan_cache.stream_key(queries, index, extra=knobs), plan_fn
+        )
+        if sp is not None:
+            sp.attrs["cached"] = plan_cache.hits > hits_before
+        return plan
 
 
 def bucketed_group_rows(groups: Sequence[np.ndarray], tau0: np.ndarray):

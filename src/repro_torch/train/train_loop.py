@@ -69,6 +69,21 @@ def state_from_jax(state: dict, params_from_jax: Callable) -> dict:
     }
 
 
+def state_to_jax(state: dict, params_to_jax: Callable) -> dict:
+    """The inverse of :func:`state_from_jax`: a port train state (tensors
+    or numpy leaves) as the JAX one, numpy leaves, each tree of the model's
+    shape carried by the model family's ``params_to_jax``."""
+    o = state["opt_state"]
+    step = o["step"]
+    return {
+        "params": params_to_jax(state["params"]),
+        "opt_state": {"step": np.array(step.cpu() if torch.is_tensor(step)
+                                       else step),
+                      "mu": params_to_jax(o["mu"]),
+                      "nu": params_to_jax(o["nu"])},
+    }
+
+
 def to_device(batch: dict, device) -> dict:
     """A batch of numpy arrays (or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}

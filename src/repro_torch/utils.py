@@ -27,3 +27,14 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+def nest(flat: dict, sep: str = ".") -> dict:
+    """``{"a.b.c": leaf}`` as ``{"a": {"b": {"c": leaf}}}``."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        node, parts = tree, name.split(sep)
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree

@@ -6,6 +6,11 @@ equal except inside a run of reference values closer than that tolerance
 (an f32 near-tie, which the two packages may order either way): there
 only the set of ids must match, and in the run that reaches the k-th slot
 — which may go on past the cut — each id must carry its float64 score.
+
+``dyadic`` rounds a JAX batch's weights to multiples of 2^-8: every f32
+sum of their products is then exact in any order, so the two packages'
+scores, top-k and certified thresholds agree bit for bit (the serving
+state's tests hold them so; ties break lower id first in both).
 """
 import numpy as np
 import torch
@@ -21,6 +26,18 @@ def port_batch(batch) -> SparseBatch:
     return SparseBatch(torch.from_numpy(np.array(batch.term_ids)),
                        torch.from_numpy(np.array(batch.values)),
                        batch.vocab_size)
+
+
+def dyadic(batch, scale: float = 2.0 ** 8):
+    """A JAX ``SparseBatch`` with its nonzero weights rounded to nonzero
+    multiples of ``1 / scale``."""
+    import jax.numpy as jnp
+    from repro.core.sparse import SparseBatch as JBatch
+
+    v = np.asarray(batch.values)
+    v = np.sign(v) * np.maximum(np.round(np.abs(v) * scale), 1) / scale
+    return JBatch(jnp.asarray(np.asarray(batch.term_ids)),
+                  jnp.asarray(v.astype(np.float32)), batch.vocab_size)
 
 
 def carry_tiled(j):

@@ -861,3 +861,101 @@ def test_async_checkpoint_round_trip_from_the_card(cuda, tmp_path):
         assert v.dtype == torch.float32 and torch.equal(v.cpu(), want[k]), k
     step = loaded["opt_state"]["step"]
     assert step.dtype == torch.int32 and step.device.type == "cuda"
+
+
+# -- the serving state on the card ---------------------------------------
+
+def _serve_corpus(cuda):
+    return make_msmarco_like(4096, 64, vocab_size=5000, seed=21,
+                             device=cuda)
+
+
+def test_fence_waits_for_a_queued_kernel(cuda):
+    """A fenced span covers the kernel: after ``fence`` the work is done,
+    and the span is at least the kernel's CUDA-event time."""
+    from repro_torch import obs as obs_mod
+
+    c = make_msmarco_like(200_000, 256, vocab_size=30522, seed=22,
+                          device=cuda)
+    idx = tidx.build_tiled_index(c.docs)
+    scoring.score_tiled(c.queries, idx)  # warm-up (build, first launch)
+    obs = obs_mod.Obs()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    before = scatter_ops.launches
+    with obs.span("kernel") as sp:
+        start.record()
+        out = scoring.score_tiled(c.queries, idx)
+        end.record()
+        obs_mod.fence(out)
+        assert end.query()
+    assert scatter_ops.launches == before + 1
+    assert sp.duration * 1e3 >= start.elapsed_time(end)
+
+
+def test_paged_index_is_bit_identical_after_a_pinned_copy(cuda, tmp_path):
+    from repro_torch.core.index import (
+        TILED_ARRAY_FIELDS, TILED_OPTIONAL_ARRAY_FIELDS,
+    )
+    from repro_torch.store import SegmentReader, SegmentWriter, Upload
+
+    c = _serve_corpus(cuda)
+    cfg = RetrievalConfig(engine="tiled-pruned", doc_block=64,
+                          bounds_format="csr")
+    SegmentWriter(str(tmp_path / "s"), cfg, segment_docs=4096,
+                  device=cuda).ingest([c.docs])
+    resident = RetrievalEngine(c.docs, cfg, device=cuda)._index
+    stream = torch.cuda.Stream(cuda)
+    upload = Upload(cuda, stream)
+    loaded = SegmentReader(str(tmp_path / "s" / "seg_00000")).load_index(
+        upload)
+    upload.finish()
+    assert upload.pinned and all(p.is_pinned() for p in upload.pinned)
+    upload.wait()
+    for name in TILED_ARRAY_FIELDS + TILED_OPTIONAL_ARRAY_FIELDS:
+        a, b = getattr(resident, name), getattr(loaded, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert b.is_cuda and a.dtype == b.dtype, name
+            assert torch.equal(a, b), name
+    torch.cuda.synchronize()
+    assert upload.done() and not upload.pinned
+
+
+@pytest.mark.parametrize("engine", ["tiled-bmp-fused", "ell"])
+@pytest.mark.parametrize("budget", [None, "two segments"])
+def test_prefetch_on_its_own_stream_gives_the_resident_results(
+        cuda, tmp_path, budget, engine):
+    """Prefetches staged on the pager's thread and stream, a persisted
+    index (fused) and a rebuild from the documents (``ell``)."""
+    from repro_torch.core.session import Retriever
+    from repro_torch.store import SegmentStore, SegmentWriter
+
+    c = _serve_corpus(cuda)
+    cfg = RetrievalConfig(engine=engine, k=50, doc_block=64)
+    SegmentWriter(str(tmp_path / "s"), cfg, segment_docs=1024,
+                  device=cuda).ingest([c.docs])
+    resident = Retriever(config=cfg, device=cuda)
+    for s in range(0, 4096, 1024):
+        resident.add_docs(c.docs.slice_rows(s, 1024))
+    want = resident.search(c.queries, return_tau=True)
+    if budget is not None:
+        # room for the working segment and a prefetch (bounded by its
+        # files' size), not for all four: the LRU must evict
+        mapped = max(h.mapped_bytes()
+                     for h in SegmentStore.open(str(tmp_path / "s")).segments)
+        budget = max(s.index_bytes() for s in resident._segments) + mapped
+    paged = Retriever.from_store(str(tmp_path / "s"),
+                                 device_budget_bytes=budget, device=cuda)
+    for _ in range(2):
+        got = paged.search(c.queries, return_tau=True)
+        for a, b in zip(got, want):
+            assert (a == b).all()
+    st = paged.pager_stats()
+    assert st["prefetches"] > 0
+    assert paged._pager._inflight == []  # released when the search ended
+    assert paged._pager._stream is not None
+    assert paged._pager._stream != torch.cuda.current_stream(cuda)
+    if budget is not None:
+        assert st["evictions"] > 0

@@ -121,10 +121,19 @@ def test_config_validation_matches_jax():
             jeng.RetrievalConfig(**bad)
         with pytest.raises(ValueError):
             teng.RetrievalConfig(**bad)
-    # The JAX knobs of later slices are not fields of the port's config
-    # yet: setting one fails instead of being ignored.
+    # The JAX knobs that nothing in the port reads are not fields of its
+    # config: setting one fails instead of being ignored.
     jax_fields = jeng.RetrievalConfig.__dataclass_fields__
-    for name in ("use_f32_scores", "pad_to", "obs"):
+    for name in ("use_f32_scores", "pad_to"):
         assert name in jax_fields
         with pytest.raises(TypeError):
             teng.RetrievalConfig(**{name: jax_fields[name].default})
+    # obs is one, as in JAX: an enabled Obs by default, serving state
+    # outside equality and repr.
+    from repro_torch.obs import Obs
+    port_obs = teng.RetrievalConfig.__dataclass_fields__["obs"]
+    assert isinstance(teng.RetrievalConfig().obs, Obs)
+    assert teng.RetrievalConfig(obs=None).obs is None
+    for attr in ("compare", "repr"):
+        assert getattr(port_obs, attr) is getattr(jax_fields["obs"], attr)
+        assert getattr(port_obs, attr) is False

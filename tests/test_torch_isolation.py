@@ -38,7 +38,13 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.train.optimizer", "repro_torch.train.train_loop",
               "repro_torch.checkpoint.checkpoint",
               "repro_torch.runtime.fault_tolerance",
-              "repro_torch.data.pipeline"):
+              "repro_torch.data.pipeline",
+              "repro_torch.obs", "repro_torch.obs.metrics",
+              "repro_torch.obs.trace", "repro_torch.obs.collect",
+              "repro_torch.core.session", "repro_torch.sched.queue",
+              "repro_torch.store", "repro_torch.store.format",
+              "repro_torch.store.writer", "repro_torch.store.reader",
+              "repro_torch.store.pager"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -13,8 +13,11 @@ held in ``tests/test_torch_optimizer.py``):
   are not compared elementwise after several steps: early Adam steps are
   about sign(g), so noise in a near-zero gradient can move an element by a
   whole lr either way);
-- a JAX checkpoint carried into the port continues with JAX's losses,
-  within 1e-5 relative.
+- checkpoints cross both ways with no hand step: the port's
+  ``load_latest`` opens a JAX checkpoint and JAX's opens a port one, and
+  either continues with the other's losses, within 1e-5 relative;
+  ``params_to_jax`` inverts ``params_from_jax`` leaf for leaf, for the
+  transformer and the recsys families.
 
 Gradient ties: ``splade_head_ref`` takes ``amax`` over tokens, which splits
 the gradient evenly among tied maxima, as ``jnp.max`` does; its
@@ -38,6 +41,7 @@ import pytest
 import torch
 
 from repro.checkpoint import Checkpointer as JCheckpointer
+from repro.checkpoint import load_latest as j_load_latest
 from repro.configs import autoint as j_autoint
 from repro.configs import dien as j_dien
 from repro.configs import din as j_din
@@ -60,15 +64,18 @@ from repro_torch.data.pipeline import (
 from repro_torch.data.synthetic import make_recsys_batch
 from repro_torch.models.recsys import build_model
 from repro_torch.models.recsys import params_from_jax as recsys_from_jax
+from repro_torch.models.recsys import params_to_jax as recsys_to_jax
 from repro_torch.models.splade import SpladeEncoder
-from repro_torch.models.transformer import TransformerLM, params_from_jax
+from repro_torch.models.transformer import (
+    TransformerLM, params_from_jax, params_to_jax,
+)
 from repro_torch.runtime import (
     FaultToleranceSupervisor, StragglerMonitor, run_with_restarts,
 )
 from repro_torch.train import (
     AdamWConfig, Trainer, adamw_init, copy_state, init_state, make_train_step,
 )
-from repro_torch.train.train_loop import state_from_jax, to_device
+from repro_torch.train.train_loop import to_device
 
 GRAD_TOL = 1e-5  # of each leaf's max |g|
 LOSS_RTOL = 1e-5
@@ -176,7 +183,9 @@ def test_async_checkpoint_and_gc():
         with open(os.path.join(d, "step_00000004", "manifest.json")) as f:
             manifest = json.load(f)
         assert manifest["format"] == 1 and manifest["process_count"] == 1
-        assert "params/blocks.0.attn.wq" in manifest["keys"]
+        # the JAX key space: blocks stacked, no state_dict names
+        assert "params/blocks/attn/wq" in manifest["keys"]
+        assert not any("blocks." in key for key in manifest["keys"])
         assert {"opt_state/step", "opt_state/mu/embed",
                 "opt_state/nu/ln_f"} <= set(manifest["keys"])
 
@@ -443,16 +452,20 @@ def _loop_batches():
     return paired_batch_fn(512, 8, 16)
 
 
+def _jax_step(jm):
+    return jax.jit(jloop.make_train_step(
+        lambda p, b: jm.contrastive_loss(p, b, flops_weight=LOOP_FLOPS),
+        jopt.AdamWConfig(**LOOP_ADAMW)))
+
+
 @pytest.fixture(scope="module")
 def jax_run():
     """The JAX loop of ``examples/train_splade.py`` at ``ENCODER_SMOKE``: 5
     steps from the JAX init, a checkpoint at step 3 -> (its losses, the
-    init params, the checkpoint's directory)."""
+    init params, the checkpoint's directory, the JAX model)."""
     jm, params, _ = _encoder(seed=6)
     adamw = jopt.AdamWConfig(**LOOP_ADAMW)
-    step = jax.jit(jloop.make_train_step(
-        lambda p, b: jm.contrastive_loss(p, b, flops_weight=LOOP_FLOPS),
-        adamw))
+    step = _jax_step(jm)
     d = tempfile.mkdtemp(prefix="jax_ckpt_")
     tr = jloop.Trainer(step, jloop.init_state(params, adamw).as_dict(),
                        iter(jpipe.DeterministicPipeline(_loop_batches(),
@@ -460,7 +473,7 @@ def jax_run():
                        checkpointer=JCheckpointer(d, async_write=False),
                        checkpoint_every=3)
     losses = [m["loss"] for m in tr.run(5)]
-    yield losses, params, d
+    yield losses, params, d, jm
     shutil.rmtree(d, ignore_errors=True)
 
 
@@ -477,7 +490,7 @@ def _port_trainer(state_values, start_step: int):
 
 
 def test_five_step_loop_matches_jax(jax_run):
-    losses, params, _ = jax_run
+    losses, params, _, _ = jax_run
     init = params_from_jax(_np(params))
     init = {"params": init, "opt_state": adamw_init(init)}
     got = [m["loss"] for m in _port_trainer(init, 0).run(5)]
@@ -485,18 +498,98 @@ def test_five_step_loop_matches_jax(jax_run):
 
 
 def test_jax_checkpoint_continues_in_the_port(jax_run):
-    losses, _, d = jax_run
-    flat = dict(np.load(os.path.join(d, "step_00000003",
-                                     "arrays_host0.npz")))
-    nested: dict = {}
-    for key, arr in flat.items():
-        node, parts = nested, key.split("/")
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = arr
-    state = state_from_jax(nested, params_from_jax)
-    assert int(state["opt_state"]["step"]) == 3
+    """The port's ``load_latest`` opens the JAX directory as it is."""
+    losses, _, d, _ = jax_run
+    port = SpladeEncoder(gpusparse.ENCODER_SMOKE, device="cpu")
+    template = _state(port, AdamWConfig(**LOOP_ADAMW))
+    state, step = load_latest(d, template)
+    assert step == 3 and int(state["opt_state"]["step"]) == 3
     tr = _port_trainer(state, 3)
     got = [m["loss"] for m in tr.run(2)]
     assert [m["step"] for m in tr.metrics_log] == [4, 5]
     np.testing.assert_allclose(got, losses[3:], rtol=LOSS_RTOL)
+
+
+def test_port_checkpoint_continues_in_jax(jax_run, tmp_path):
+    """JAX's ``load_latest`` opens a port checkpoint of the encoder's loop
+    (3 port steps from the JAX init), and JAX's steps 4-5 from it give the
+    unbroken JAX run's losses."""
+    losses, params, _, jm = jax_run
+    init = params_from_jax(_np(params))
+    tr = _port_trainer({"params": init, "opt_state": adamw_init(init)}, 0)
+    tr.checkpointer = Checkpointer(str(tmp_path), async_write=False)
+    tr.checkpoint_every = 3
+    tr.run(3)
+    adamw = jopt.AdamWConfig(**LOOP_ADAMW)
+    template = jloop.init_state(params, adamw).as_dict()
+    state, step = j_load_latest(str(tmp_path), template)
+    assert step == 3 and int(state["opt_state"]["step"]) == 3
+    jtr = jloop.Trainer(_jax_step(jm), state, iter(
+        jpipe.DeterministicPipeline(_loop_batches(), start_step=3,
+                                    prefetch=0)), start_step=3)
+    got = [m["loss"] for m in jtr.run(2)]
+    np.testing.assert_allclose(got, losses[3:], rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("model", sorted(RECSYS))
+def test_recsys_checkpoint_opens_in_jax(model, tmp_path):
+    """A recsys train state saved by a plain ``Checkpointer`` opens in
+    JAX's ``load_latest`` (``cin``/``attn_layers`` as lists, leaf for leaf
+    the port's), and the port's ``load_latest`` reads it back bit for
+    bit."""
+    jmod, tmod = RECSYS[model]
+    port = build_model(tmod.SMOKE, device="cpu", seed=4)
+    state = _state(port, AdamWConfig())
+    state["opt_state"]["step"].add_(7)
+    for t in state["opt_state"]["mu"].values():
+        t.normal_(generator=torch.Generator().manual_seed(t.numel()))
+    Checkpointer(str(tmp_path), async_write=False).save(7, state)
+    params = jax.jit(j_build_model(jmod.SMOKE).init)(jax.random.key(1))
+    template = jloop.init_state(params, jopt.AdamWConfig()).as_dict()
+    got, step = j_load_latest(str(tmp_path), template)
+    assert step == 7 and int(got["opt_state"]["step"]) == 7
+    want = {"params": recsys_to_jax(state["params"]),
+            "mu": recsys_to_jax(state["opt_state"]["mu"]),
+            "nu": recsys_to_jax(state["opt_state"]["nu"])}
+    for key, tree in (("params", got["params"]),
+                      ("mu", got["opt_state"]["mu"]),
+                      ("nu", got["opt_state"]["nu"])):
+        (wl, wt), (gl, gt) = (jax.tree_util.tree_flatten_with_path(t)
+                              for t in (want[key], tree))
+        assert wt == gt
+        for (wp, a), (gp, b) in zip(wl, gl):
+            assert wp == gp
+            np.testing.assert_array_equal(a, np.asarray(b))
+    back, step = load_latest(str(tmp_path), state)
+    assert step == 7
+    for k, v in _flatten_names(state).items():
+        assert torch.equal(_flatten_names(back)[k], v), k
+
+
+def _flatten_names(state):
+    return {f"{a}/{k}": v for a, tree in (("p", state["params"]),
+                                          ("mu", state["opt_state"]["mu"]),
+                                          ("nu", state["opt_state"]["nu"]))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("family", ["encoder", "xdeepfm", "autoint"])
+def test_params_to_jax_inverts_params_from_jax(family):
+    """Leaf for leaf and key path for key path: the JAX tree comes back
+    (the encoder's blocks restacked [L, ...], xDeepFM's ``cin`` and
+    AutoInt's ``attn_layers`` as lists)."""
+    if family == "encoder":
+        _, params, _ = _encoder(seed=2)
+        to_jax, from_jax = params_to_jax, params_from_jax
+    else:
+        cfg = {"xdeepfm": j_xdeepfm, "autoint": j_autoint}[family].SMOKE
+        params = j_build_model(cfg).init(jax.random.key(0))
+        to_jax, from_jax = recsys_to_jax, recsys_from_jax
+    want = _np(params)
+    got = to_jax(from_jax(want))
+    (wl, wt), (gl, gt) = (jax.tree_util.tree_flatten_with_path(t)
+                          for t in (want, got))
+    assert wt == gt
+    for (wp, a), (gp, b) in zip(wl, gl):
+        assert wp == gp and a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

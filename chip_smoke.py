@@ -2,8 +2,9 @@
 """Drive the PyTorch port's exact and pruned paths, SPLADE query encoding
 in front of the exact one, LM serving (prefill and decode), recsys
 serving (DIN, DIEN, AutoInt, xDeepFM), training (the encoder, the LM and
-the recsys models) and the serving state (sessions, deletions, the
-scheduler, the segment store), on one NVIDIA H100.
+the recsys models), the serving state (sessions, deletions, the
+scheduler, the segment store) and sharded serving with its serve driver,
+on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -214,6 +215,26 @@ Phases (each raises on failure; the script then exits non-zero):
    seconds, pager counters and the effective H2D rate.  A
    ``{"serving_state": {...}}`` line holds the numbers.
 
+9. Sharded serving at serve_1m, world size 1, with phase 8's data freed
+   (the three retrieval kernels' counters zeroed before and read after;
+   each must be launched).  9a: ``make_serve_step`` of each engine over a
+   one-shard index from ``build_sharded_ell``/``build_sharded_tiled``
+   (``build_sharded_tiled``'s geometry: doc_block 64, chunk 128): ``ell`` and
+   ``tiled`` on phase 3's corpus, ``tiled-pruned`` (BMP sweep and
+   two-pass), ``tiled-pruned-approx`` (theta 1), ``tiled-bmp-grouped``
+   and ``tiled-bmp-fused`` on phase 3b's topical corpus reordered by
+   ``df-signature``; each held to the single-index ``RetrievalEngine`` of
+   the same engine at that geometry (ids tie-aware, values within 1e-6
+   relative, tau equal) and to float64 as in phase 3; ms a step beside
+   the engine's ms a search.  9b: ``ell`` and ``tiled-bmp-fused`` under
+   an NCCL process group of one (``tcp://127.0.0.1``) give 9a's bits.
+   9c: ``repro_torch.launch.serve.main`` at ``--docs 1000000 --batch 500
+   --vocab 30522 --k 1000`` for ``--engine ell``, ``--engine
+   tiled-bmp-fused`` and ``--sched --max-batch 128``: ms a batch, us a
+   query, and the full batch's overlap with the float64 top-k (``ell``
+   1.0000 as printed, the others at least 0.999).  A ``{"sharded":
+   {...}}`` line holds the numbers.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -239,6 +260,9 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
 KERNEL_TOL = 1e-5  # max |kernel - plain| <= KERNEL_TOL * max |plain|
 OVERLAP_MIN = 0.999  # the paper's exactness bar; residue: f32 near-ties
 SCORE_RTOL = 1e-5  # returned f32 scores vs float64
+# A sharded step against the single-index engine (phase 9): the same
+# kernels on the same index arrays, so the same f32 sums.
+STEP_RTOL = 1e-6
 # flash_attention in f32: atol = rtol = 2e-5, the JAX package's bar for the
 # kernel (tests/test_kernels.py::test_flash_attention_sweep).  In bf16 the
 # kernel and its plain version both compute in f32 and round once to bf16,
@@ -377,6 +401,9 @@ class Sizes:
     sched_replays: int = 4
     sched_deadline_s: float = 0.5
     state_rounds: int = 3  # 8a: rounds after a warm-up
+    # Sharded serving (phase 9): launch.serve's rounds after its warm-up
+    # (--sched drains the queue once, after one micro-batch).
+    serve_rounds: int = 1
 
 
 def card_line() -> str:
@@ -626,20 +653,6 @@ def check_head(dev, sizes: Sizes) -> float:
     return err
 
 
-def docs_csr(docs, dtype):
-    """The docs as a CSR [N, V] tensor, for the library products this
-    script uses as yardstick and check (the port never calls them)."""
-    import torch
-
-    live = docs.term_ids >= 0
-    crow = torch.zeros(docs.batch + 1, dtype=torch.int64, device=docs.device)
-    crow[1:] = torch.cumsum(live.sum(dim=1), 0)
-    return torch.sparse_csr_tensor(
-        crow, docs.term_ids[live].long(), docs.values[live].to(dtype),
-        size=(docs.batch, docs.vocab_size),
-    )
-
-
 def overlap(a, b, k: int) -> float:
     return sum(len(set(x[:k].tolist()) & set(y[:k].tolist())) / k
                for x, y in zip(a, b)) / len(a)
@@ -757,6 +770,7 @@ def oracle_f64(docs, queries, sample):
     import torch
 
     from repro_torch.core import SparseBatch
+    from repro_torch.core.scoring import docs_csr
 
     sel = torch.from_numpy(sample).to(docs.device)
     return torch.sparse.mm(
@@ -2842,11 +2856,171 @@ def serve_state(dev, sizes: Sizes) -> dict:
     return out
 
 
+def same_step(name: str, got, want) -> dict:
+    """A sharded step's (values, ids, tau) tensors against the single-index
+    engine's ``search(..., return_tau=True)`` numpy triple: ids tie-aware,
+    values within ``STEP_RTOL`` (``same_results``), tau equal."""
+    import numpy as np
+
+    v, i, tau = (x.cpu().numpy() for x in got)
+    # The engine reports id -1 at a non-finite value; the step a position.
+    i = np.where(np.isfinite(v), i, -1)
+    res = same_results(name, (v, i), want[:2], rtol=STEP_RTOL)
+    if not np.array_equal(tau, want[2]):
+        raise AssertionError(f"{name}: tau differs from the engine's")
+    return res
+
+
+def serve_sharded(dev, sizes: Sizes) -> dict:
+    """Phase 9: the sharded serve step at world size 1 for each engine
+    (9a), the collective path under an NCCL group of one (9b), and
+    ``repro_torch.launch.serve`` at serve_1m (9c)."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core.distributed import (
+        build_sharded_ell, build_sharded_tiled, make_serve_step,
+    )
+    from repro_torch.core.index import reorder_docs
+    from repro_torch.data.synthetic import (
+        make_msmarco_like, make_topical_corpus,
+    )
+    from repro_torch.launch import serve as serve_mod
+
+    k, b = sizes.k, sizes.queries
+    # build_sharded_tiled's default geometry
+    geo = dict(term_block=512, doc_block=64, chunk_size=128)
+    out, keep = {}, {}
+
+    def step_of(name, idx, extra=None):
+        cfg = RetrievalConfig(engine=name, k=k, obs=None, **(extra or {}))
+        geometry = getattr(idx, "geometry", None)  # tiled indices only
+        return make_serve_step(
+            engine=name, cfg=cfg, docs_per_shard=idx.docs_per_shard,
+            geometry=geometry and geometry())
+
+    # 9a. the exact engines on phase 3's corpus
+    corpus = make_msmarco_like(sizes.docs, b, vocab_size=sizes.vocab,
+                               seed=0, device=dev)
+    q = corpus.queries
+    g = torch.Generator().manual_seed(5)
+    sample = torch.randperm(b, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle = oracle_f64(corpus.docs, q, sample)
+    for name in ("ell", "tiled"):
+        idx, build_ms = timed(
+            f"9a {name}: sharded build, 1 shard",
+            lambda: (build_sharded_ell(corpus.docs, 1) if name == "ell"
+                     else build_sharded_tiled(corpus.docs, 1)), dev)
+        step = step_of(name, idx)
+        got, ms = host_rounds(f"9a {name}: sharded step", lambda: step(
+            idx, queries=q), sizes.rounds, dev, b)
+        eng = RetrievalEngine(corpus.docs, RetrievalConfig(
+            engine=name, k=k, obs=None, **geo), device=dev)
+        want, eng_ms = host_rounds(
+            f"9a {name}: RetrievalEngine.search at the sharded geometry",
+            lambda: eng.search(q, k=k, return_tau=True), sizes.rounds, dev, b)
+        out[f"9a {name}"] = dict(step_ms=ms, search_ms=eng_ms,
+                                 build_ms=build_ms,
+                                 **same_step(f"9a {name}: step vs engine",
+                                             got, want))
+        check_exact(f"9a {name} step", got[0].cpu().numpy(),
+                    got[1].cpu().numpy(), oracle, sample, k)
+        keep[name] = (idx, got)
+        del eng, want
+        torch.cuda.empty_cache()
+
+    # 9a. the pruned engines on phase 3b's topical corpus, reordered as the
+    # engines reorder it (sharded serving takes the corpus as given)
+    topical = make_topical_corpus(sizes.docs, b, vocab_size=sizes.vocab,
+                                  seed=0, device=dev)
+    docs, _ = reorder_docs(topical.docs, method="df-signature")
+    tq = topical.queries
+    g = torch.Generator().manual_seed(6)
+    t_sample = torch.randperm(b, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    t_oracle = oracle_f64(docs, tq, t_sample)
+    idx, build_ms = timed("9a pruned: sharded build, 1 shard",
+                          lambda: build_sharded_tiled(docs, 1), dev)
+    single = RetrievalEngine(docs, RetrievalConfig(
+        engine="tiled-pruned", k=k, obs=None, **geo), device=dev)
+    for name, extra in (("tiled-pruned", {}),
+                        ("tiled-pruned", {"traversal": "two-pass"}),
+                        ("tiled-pruned-approx", {}),
+                        ("tiled-bmp-grouped", {}), ("tiled-bmp-fused", {})):
+        label = f"9a {name}{' two-pass' if extra else ''}"
+        step = step_of(name, idx, extra)
+        got, ms = host_rounds(f"{label}: sharded step",
+                              lambda: step(idx, queries=tq), 0, dev, b)
+        eng = RetrievalEngine.from_prebuilt(
+            docs, RetrievalConfig(engine=name, k=k, obs=None, **geo,
+                                  **extra), single._index, device=dev)
+        want, eng_ms = host_rounds(
+            f"{label}: RetrievalEngine.search at the sharded geometry",
+            lambda: eng.search(tq, k=k, return_tau=True), 0, dev, b)
+        out[label] = dict(step_ms=ms, search_ms=eng_ms, **same_step(
+            f"{label}: step vs engine", got, want))
+        check_exact(f"{label} step", got[0].cpu().numpy(),
+                    got[1].cpu().numpy(), t_oracle, t_sample, k)
+        if name == "tiled-bmp-fused":
+            keep[name] = (idx, got)
+    out["9a pruned build_ms"] = build_ms
+    del single, eng, want, topical
+    torch.cuda.empty_cache()
+
+    # 9b. the collective path on the card: an NCCL group of one
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        for name, queries in (("ell", q), ("tiled-bmp-fused", tq)):
+            idx, want = keep[name]
+            got, ms = timed(f"9b {name}: step under an NCCL group of 1",
+                            lambda: step_of(name, idx)(idx, queries=queries),
+                            dev)
+            for a, w in zip(got, want):
+                if not torch.equal(a, w):
+                    raise AssertionError(f"9b {name}: not 9a's bits")
+            out[f"9b {name}"] = dict(ms=ms, bitwise=True)
+    finally:
+        dist.destroy_process_group()
+    log("  9b: ell and tiled-bmp-fused under NCCL give 9a's bits")
+    del keep, corpus, q, tq, docs, idx, got, want
+    torch.cuda.empty_cache()
+
+    # 9c. the serve driver at serve_1m
+    base = ["--docs", str(sizes.docs), "--batch", str(b), "--vocab",
+            str(sizes.vocab), "--k", str(k), "--rounds",
+            str(sizes.serve_rounds)]
+    for label, flags, floor in (
+            ("ell", ["--engine", "ell"], 0.99995),
+            ("tiled-bmp-fused", ["--engine", "tiled-bmp-fused"], OVERLAP_MIN),
+            ("sched", ["--sched", "--max-batch", str(sizes.sched_batch)],
+             OVERLAP_MIN)):
+        t0 = time.perf_counter()
+        res = serve_mod.main(base + flags)
+        log(f"  9c {label}: {res['ms_per_batch']!r} ms/batch, "
+            f"{res['us_per_query']!r} us/query, overlap {res['overlap']!r} "
+            f"(the run {time.perf_counter() - t0:.3f} s)")
+        if res["overlap"] < floor:  # 0.99995 prints as 1.0000
+            raise AssertionError(f"9c {label}: overlap {res['overlap']}")
+        out[f"9c {label}"] = res
+        torch.cuda.empty_cache()
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
 
-    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core import RetrievalConfig, RetrievalEngine, scoring
     from repro_torch.core.topk import topk_two_stage
     from repro_torch.data.synthetic import make_msmarco_like
     from repro_torch.kernels import build
@@ -2979,7 +3153,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
         err = compare(f"{name} at {sizes.docs} docs x {b} queries",
                       s["kernel"](), s["plain"]())
         errs[name] = max(errs[name], err)
-    csr = docs_csr(corpus.docs, torch.float32)
+    csr = scoring.docs_csr(corpus.docs, torch.float32)
     library_ms = event_ms(lambda: torch.sparse.mm(csr, qw.T), sizes.reps, dev)
     del csr
     # Where a search call's time goes besides the kernel: the [B, N] top-k.
@@ -3106,6 +3280,25 @@ def run(dev, sizes: Sizes) -> list[dict]:
             raise AssertionError(f"{name} was not launched in phase 8")
     log(f"phase 8: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"serving_state": state}, default=float))
+
+    # 9. sharded serving; phase 8's data is gone
+    del state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 9: sharded serving at serve_1m, world size 1: the six "
+        f"engines' steps, NCCL, launch.serve; {sizes.docs} docs x "
+        f"{sizes.queries} queries, k={sizes.k}")
+    for mod in counters.values():
+        mod.launches = 0
+    sharded = serve_sharded(dev, sizes)
+    sharded_launches = {name: mod.launches for name, mod in counters.items()}
+    log(f"  launches in phase 9: {sharded_launches}")
+    for name, n in sharded_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched in phase 9")
+    sharded["launches"] = sharded_launches
+    log(f"phase 9: {time.perf_counter() - t0:.3f} s")
+    print(json.dumps({"sharded": sharded}, default=float))
     return rows
 
 

@@ -387,6 +387,26 @@ def reorder_docs(
     return SparseBatch(ids[perm], vals[perm], v), perm
 
 
+def shard_docs(docs: SparseBatch, num_shards: int,
+               shard: int) -> tuple[SparseBatch, int]:
+    """Contiguous document partition for document-sharded serving
+    (:func:`repro.core.index.shard_docs`): shard ``shard``'s rows and its
+    global doc-id offset.  Every shard gets ``cdiv(N, num_shards)`` rows,
+    the last ones padded with empty docs, so shard shapes are uniform.
+    Runs on ``docs``' device."""
+    per = cdiv(docs.batch, num_shards)
+    start = shard * per
+    end = min(start + per, docs.batch)
+    ids = torch.full((per, docs.max_terms), -1, dtype=torch.int32,
+                     device=docs.device)
+    vals = torch.zeros((per, docs.max_terms), dtype=torch.float32,
+                       device=docs.device)
+    if end > start:
+        ids[: end - start] = docs.term_ids[start:end]
+        vals[: end - start] = docs.values[start:end]
+    return SparseBatch(ids, vals, docs.vocab_size), start
+
+
 def filter_tiled_index(index: TiledIndex, queries: SparseBatch) -> TiledIndex:
     """Query-aware tile skipping (exact): drop chunks whose term block
     carries zero query mass.  Every doc block keeps at least one chunk (its

@@ -129,6 +129,43 @@ def config_supports_tau(cfg) -> bool:
     return True
 
 
+# -- serve-step factories (the sharded steps of repro_torch.core.distributed)
+
+_SERVE_FACTORIES: dict[str, Callable[..., Any]] = {}
+
+
+def register_serve_factory(name: str):
+    """Decorator: register a sharded serve-step factory for engine
+    ``name`` (:func:`repro.core.registry.register_serve_factory`).  The
+    factory signature is fixed by
+    :func:`repro_torch.core.distributed.make_serve_step`; only engines with
+    a sharded realization register."""
+
+    def deco(factory):
+        if name in _SERVE_FACTORIES:
+            raise ValueError(f"serve factory {name!r} is already registered")
+        _SERVE_FACTORIES[name] = factory
+        return factory
+
+    return deco
+
+
+def get_serve_factory(name: str):
+    """The sharded serve-step factory of engine ``name``; an engine with
+    none raises with the serveable list."""
+    # The factories register when repro_torch.core.distributed is imported
+    # (lazily: single-device users never need torch.distributed).
+    import repro_torch.core.distributed  # noqa: F401
+
+    try:
+        return _SERVE_FACTORIES[name]
+    except KeyError:
+        raise ValueError(
+            f"no sharded serve step for engine {name!r}; serveable engines: "
+            f"{', '.join(sorted(_SERVE_FACTORIES))}"
+        ) from None
+
+
 # ---------------------------------------------------------------------------
 # Engine registrations.  Build wrappers thread the config's index geometry.
 

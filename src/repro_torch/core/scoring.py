@@ -68,6 +68,27 @@ def score_dense_f64(queries: SparseBatch, docs: SparseBatch) -> torch.Tensor:
     return score_dense(queries, docs, dtype=torch.float64)
 
 
+def docs_csr(docs: SparseBatch, dtype=torch.float64) -> torch.Tensor:
+    """The docs as a sparse CSR [N, V] tensor on their device."""
+    live = docs.term_ids >= 0
+    crow = torch.zeros(docs.batch + 1, dtype=torch.int64, device=docs.device)
+    crow[1:] = torch.cumsum(live.sum(dim=1), 0)
+    return torch.sparse_csr_tensor(
+        crow, docs.term_ids[live].long(), docs.values[live].to(dtype),
+        size=(docs.batch, docs.vocab_size),
+    )
+
+
+def topk_f64(queries: SparseBatch, docs: SparseBatch, k: int):
+    """Float64 top-k (values, ids) [B, k] of the full batch, the exactness
+    oracle at any corpus size: the scores [B, N] come from the docs as CSR,
+    so the [N, V] corpus is never densified (``score_dense_f64`` would be
+    244 GB at 1M docs x V = 30,522)."""
+    scores = torch.sparse.mm(docs_csr(docs, torch.float64),
+                             queries.to_dense(torch.float64).T).T
+    return torch.topk(scores, min(k, docs.batch), dim=1)
+
+
 def _pad_queries_to_term_blocks(queries: SparseBatch,
                                 index: TiledIndex) -> torch.Tensor:
     """[B, V_pad] query weights, the vocab padded up to a term-block
@@ -489,7 +510,7 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
                    tau_init=None, return_stats: bool = False,
                    return_tau: bool = False, top_m: int = 8,
                    max_group: Optional[int] = None, min_share: float = 0.5,
-                   plan_cache=None, deleted_mask=None, obs=None):
+                   plan_cache=None, deleted_mask=None, obs=None, ub=None):
     """The BMP sweep per micro-batch group: [B, N] scores, unvisited docs
     ``-inf``; the top-k equals the flat sweep's for any partition, and the
     chunk work never exceeds it.
@@ -505,15 +526,17 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
     ``SchedStats.kernel_launches``.  ``obs`` (``repro_torch.obs.Obs`` or
     None) traces the ``plan``, the ``bucket.assembly`` of a stacked call
     and one fenced ``kernel`` span per launch, and counts
-    ``kernel.launches_total``, with the JAX engines' names.  Returns
-    ``out[, stats][, tau]``.
+    ``kernel.launches_total``, with the JAX engines' names.  ``ub`` is
+    the batch's :func:`block_upper_bounds` where the caller has them
+    already.  Returns ``out[, stats][, tau]``.
     """
     _require_runs(index)
     qw = _pad_queries_to_term_blocks(queries, index)
     dev = qw.device
     b = qw.shape[0]
     k_eff = max(min(k, index.num_docs), 1)
-    ub = block_upper_bounds(queries, index, qw=qw)
+    if ub is None:
+        ub = block_upper_bounds(queries, index, qw=qw)
     if groups is None:
         groups = planner_mod.plan_with_cache(
             plan_cache, queries, index,

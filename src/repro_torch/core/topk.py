@@ -148,3 +148,52 @@ def merge_topk(
 def topk_with_ids(scores: torch.Tensor, ids: torch.Tensor, k: int):
     v, p = _topk_lower_key(scores, min(k, scores.shape[-1]))
     return v, ids.gather(-1, p)
+
+
+def local_topk(scores: torch.Tensor, doc_offset: int, k: int):
+    """A shard's local top-k over [B, N_s] scores -> (values [B, kk],
+    global ids [B, kk] int32), kk = min(k, N_s): positions shifted by the
+    shard's first global id, ties to the lower id."""
+    kk = min(k, scores.shape[-1])
+    lv, li = _topk_lower_key(scores, kk)
+    return lv, li.to(torch.int32) + int(doc_offset)
+
+
+def gather_shards(x: torch.Tensor, group=None) -> torch.Tensor:
+    """[S, ...] every rank's ``x`` in rank order over ``group``
+    (``torch.distributed``'s list ``all_gather``, which gloo and NCCL both
+    take); ``x[None]`` at world size 1 with no process group."""
+    import torch.distributed as dist
+
+    if group is None and not (dist.is_available() and dist.is_initialized()):
+        return x[None]
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.stack(parts)
+
+
+def merge_gathered(vals: torch.Tensor, ids: torch.Tensor, k: int):
+    """Merge gathered per-shard top-ks ``vals``/``ids`` [S, B, kk] into the
+    global top-k [B, min(k, S * kk)]: the concatenation in shard order,
+    ties to the lower global id (shard order, then each shard's own order:
+    the lower position ``lax.top_k`` gives in
+    :func:`repro.core.topk.local_then_global_topk`)."""
+    s, b, kk = vals.shape
+    av = vals.permute(1, 0, 2).reshape(b, s * kk)
+    ai = ids.permute(1, 0, 2).reshape(b, s * kk)
+    mv, mp = _topk_lower_key(av, min(k, s * kk), key=ai)
+    return mv, ai.gather(-1, mp)
+
+
+def local_then_global_topk(local_scores: torch.Tensor, doc_offset: int,
+                           k: int, group=None, hierarchical: bool = True):
+    """Local top-k -> the collective -> merge: the replicated global
+    ([B, k] values, [B, k] global ids) of document-sharded scoring
+    (:func:`repro.core.topk.local_then_global_topk`).  Exact: a merge of
+    exact per-shard top-ks is an exact top-k.  ``hierarchical`` merges one
+    mesh axis at a time in JAX; a process group is one flat axis, where it
+    changes nothing."""
+    del hierarchical  # one flat group: a single gather either way
+    lv, gi = local_topk(local_scores, doc_offset, k)
+    return merge_gathered(gather_shards(lv, group), gather_shards(gi, group),
+                          k)

@@ -1,0 +1,2 @@
+"""Entry points: ``python -m repro_torch.launch.serve`` (the sharded serve
+driver)."""

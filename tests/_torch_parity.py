@@ -69,3 +69,34 @@ def assert_same_topk(port, ref, oracle, deleted=None):
         np.testing.assert_allclose(pv[row][live], got, rtol=RTOL, atol=ATOL)
         if deleted is not None:
             assert not np.any(deleted[pi[row][live]])
+
+
+def shard_run(tdocs, tq, shards, *, k, geo, min_share):
+    """What one rank of a sharded serve does, as ``run(group)``: build the
+    whole index, keep its own shard, serve ``ell`` and ``tiled-bmp-fused``
+    -> ({name: (values, ids, tau)}, the fused step's plan groups).  Shared
+    by the thread emulation and the gloo ranks of
+    ``test_torch_distributed.py``."""
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.engine import RetrievalConfig
+    from repro_torch.sched.planner import PlanCache
+
+    def run(group):
+        rank = tdist.group_rank_size(group)[0]
+        ell = tdist.build_sharded_ell(tdocs, shards).keep_shard(rank, "cpu")
+        tiled = tdist.build_sharded_tiled(tdocs, shards, **geo).keep_shard(
+            rank, "cpu")
+        out = {"ell": tdist.make_serve_step(
+            group, engine="ell", k=k,
+            docs_per_shard=ell.docs_per_shard)(ell, queries=tq)}
+        cfg = RetrievalConfig(engine="tiled-bmp-fused", k=k,
+                              sched_min_share=min_share)
+        cfg.plan_cache = PlanCache()
+        out["fused"] = tdist.make_serve_step(
+            group, cfg=cfg, docs_per_shard=tiled.docs_per_shard,
+            geometry=tiled.geometry())(tiled, queries=tq)
+        groups = [[g.tolist() for g in plan.groups]
+                  for plan in cfg.plan_cache._plans.values()]
+        return out, groups
+
+    return run

@@ -23,6 +23,7 @@ at most a few products, in another order), bitwise equal between launches,
 between its routes (the lane vectors a table allows) and, for unweighted
 bags, to the sequential f32 sum over l.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -959,3 +960,69 @@ def test_prefetch_on_its_own_stream_gives_the_resident_results(
     assert paged._pager._stream != torch.cuda.current_stream(cuda)
     if budget is not None:
         assert st["evictions"] > 0
+
+
+# -- sharded serving on the card ---------------------------------------------
+
+@pytest.mark.parametrize("engine", ["ell", "tiled", "tiled-pruned",
+                                    "tiled-pruned-approx",
+                                    "tiled-bmp-grouped", "tiled-bmp-fused"])
+def test_sharded_step_at_world_size_one_equals_the_engine(cuda, engine):
+    """The world-size-1 step on the card gives the single-index engine's
+    bits at the sharded build's geometry, through the kernels."""
+    from repro_torch.core.distributed import (
+        build_sharded_ell, build_sharded_tiled, make_serve_step,
+    )
+
+    c = make_topical_corpus(20_000, 64, vocab_size=5000, seed=23,
+                            device=cuda)
+    k = 100
+    extra = {"theta": 0.8} if engine == "tiled-pruned-approx" else {}
+    ell = engine == "ell"
+    idx = (build_sharded_ell(c.docs, 1) if ell
+           else build_sharded_tiled(c.docs, 1))
+    geo = None if ell else idx.geometry()
+    cfg = RetrievalConfig(engine=engine, k=k, **extra)
+    before = (ell_ops.launches, scatter_ops.launches, bmp_ops.launches)
+    vals, ids, tau = make_serve_step(
+        engine=engine, cfg=cfg, docs_per_shard=idx.docs_per_shard,
+        geometry=geo)(idx, queries=c.queries)
+    after = (ell_ops.launches, scatter_ops.launches, bmp_ops.launches)
+    assert after != before  # a kernel ran
+    single = RetrievalConfig(engine=engine, k=k, term_block=512,
+                             doc_block=64, chunk_size=128, **extra)
+    want = RetrievalEngine(c.docs, single, device=cuda).search(
+        c.queries, k=k, return_tau=True)
+    vals, ids = vals.cpu().numpy(), ids.cpu().numpy()
+    assert (vals == want[0]).all()
+    # The engine reports -1 at a non-finite value; the step its position.
+    assert (np.where(np.isfinite(vals), ids, -1) == want[1]).all()
+    assert (tau.cpu().numpy() == want[2]).all()
+
+
+def test_sharded_step_under_an_nccl_group_of_one(cuda):
+    """The collective path on the card: an NCCL group of world size 1
+    gives the no-group step's bits."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (
+        build_sharded_ell, make_serve_step,
+    )
+
+    c = make_msmarco_like(30_000, 64, vocab_size=5000, seed=24, device=cuda)
+    idx = build_sharded_ell(c.docs, 1)
+    step = dict(engine="ell", k=100, docs_per_shard=idx.docs_per_shard)
+    want = make_serve_step(**step)(idx, queries=c.queries)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        got = make_serve_step(**step)(idx, queries=c.queries)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

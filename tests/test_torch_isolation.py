@@ -44,7 +44,8 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.core.session", "repro_torch.sched.queue",
               "repro_torch.store", "repro_torch.store.format",
               "repro_torch.store.writer", "repro_torch.store.reader",
-              "repro_torch.store.pager"):
+              "repro_torch.store.pager", "repro_torch.core.distributed",
+              "repro_torch.launch", "repro_torch.launch.serve"):
         assert m in mods
     code = (
         "import importlib, sys\n"

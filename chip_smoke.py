@@ -3,8 +3,9 @@
 in front of the exact one, LM serving (prefill and decode), recsys
 serving (DIN, DIEN, AutoInt, xDeepFM), training (the encoder, the LM and
 the recsys models), the serving state (sessions, deletions, the
-scheduler, the segment store) and sharded serving with its serve driver,
-on one NVIDIA H100.
+scheduler, the segment store), sharded serving with its serve driver and
+the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
+WAND/BMW and Seismic CPU baselines), on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -69,7 +70,9 @@ Phases (each raises on failure; the script then exits non-zero):
    shapes (the serve_1m index, all 500 queries: several query tiles and a
    ragged last one), then per-kernel times with CUDA events at those
    shapes: the kernel, its plain version, one library call computing the
-   same scores (``torch.sparse.mm``, used nowhere in the port), and the
+   same scores (``torch.sparse.mm`` of the docs as CSR by a row-major
+   QW^T, the ``bcoo`` engine's product; the strided QW.T of earlier runs
+   printed beside it), and the
    least time the card could take (bytes over 3.35 TB/s or f32 operations
    over 67 TFLOP/s, H100 SXM data sheet).  The bytes count the index's
    live slots (every ELL slot's term id, which marks the padding), QW and
@@ -234,6 +237,31 @@ Phases (each raises on failure; the script then exits non-zero):
    query, and the full batch's overlap with the float64 top-k (``ell``
    1.0000 as printed, the others at least 0.999).  A ``{"sharded":
    {...}}`` line holds the numbers.
+
+10. The paper's system comparison, with phase 9's data freed (the
+   counters of ``scatter_score``, ``ell_gather`` and the ``segment``
+   engine's ``index_add_`` calls zeroed before and read after; each must
+   be launched).  The host baselines start first in worker processes
+   (``host_baseline``; pure Python, one core each) and run while the card
+   works.  10a: serve_1m as in phase 3, ``bcoo`` (the docs as CSR times
+   QW^T, ``torch.sparse.mm``) and ``segment`` (a ``FlatIndex`` and one
+   ``index_add_`` a query term) beside ``tiled`` and ``ell`` through
+   ``RetrievalEngine.search``: ms a search (median of 5, of 3 for an
+   engine whose first search took over 1 s), float64 exactness as in phase
+   3, the ids against ``tiled``'s tie-aware, ``segment``'s launches a
+   search and its ratios to ``tiled`` and ``ell`` (the paper: 23-270x),
+   the ``FlatIndex``'s build seconds, slots, eps_pad (Eq. 3) and bytes
+   beside the tiled and ELL indices', and each search's peak device
+   memory.  ``dense`` stays out: its [1M, V] f32 doc matrix is 122 GB.
+   10b: the paper's Table 2 at its own size (4,000 docs, 64 queries, V =
+   4,096, k = 100, ``make_msmarco_like`` seed 0): ``dense``, ``bcoo``,
+   ``segment``, ``tiled`` and ``ell`` on the card against float64, the
+   exhaustive oracle, WAND and BMW on the host against float64
+   (tie-aware), Seismic at query_cut 5, 10 and 50 (overlap@100 and
+   MRR@10, the overlap non-decreasing in the cut); µs a query each and
+   the host CPU's name.  10c: WAND and BMW at serve_100k (k = 1000) on 3
+   and 1 queries, held to the exhaustive oracle: ms a query on the host.
+   A ``{"comparison": {...}}`` line holds the numbers.
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -404,6 +432,22 @@ class Sizes:
     # Sharded serving (phase 9): launch.serve's rounds after its warm-up
     # (--sched drains the queue once, after one micro-batch).
     serve_rounds: int = 1
+    # The system comparison (phase 10).  10a is serve_1m; 10b the paper's
+    # Table 2 at its own size (benchmarks/table2_systems.py:18, the
+    # corpus of benchmarks/common.py: V = 4,096, seed 0); 10c WAND and BMW
+    # at serve_100k (src/repro/configs/gpusparse.py:52), their queries cut
+    # 500 -> 3 and 1 (pure-Python traversals, seconds a query there).
+    slow_search_ms: float = 1000.0  # above it, a median of 3 searches
+    slow_rounds: int = 3
+    table2_docs: int = 4000
+    table2_queries: int = 64
+    table2_vocab: int = 4096
+    table2_k: int = 100
+    seismic_cuts: tuple = (5, 10, 50)
+    wand_docs: int = 100_000
+    wand_queries: int = 3
+    bmw_queries: int = 1
+    host_timeout_s: float = 600.0  # a host baseline's worker at most
 
 
 def card_line() -> str:
@@ -3016,6 +3060,329 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the paper's system comparison
+
+
+def host_baseline(job: dict) -> dict:
+    """One CPU baseline job of phase 10, run in a worker process so that
+    the pure-Python traversals overlap the card's work: ``CpuPostings``
+    built over the corpus saved at ``job["path"]`` (``save_corpus``), then
+    each of ``job["kinds"]`` ("exhaustive", "wand", "bmw") over queries
+    ``job["rows"]`` at ``job["k"]`` -> {kind: (values, ids, seconds)},
+    the build seconds and the query count.  Touches no card."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+
+    from repro_torch.core import wand
+    from repro_torch.core.sparse import SparseBatch
+
+    torch.set_num_threads(1)
+    with np.load(job["path"]) as f:
+        a = {name: torch.from_numpy(f[name]) for name in f.files}
+    vocab = int(a["vocab"])
+    lo, hi = job["rows"]
+    docs = SparseBatch(a["doc_ids"], a["doc_vals"], vocab)
+    queries = SparseBatch(a["q_ids"][lo:hi], a["q_vals"][lo:hi], vocab)
+    t0 = time.perf_counter()
+    cp = wand.CpuPostings.build(docs)
+    out = {"build_s": time.perf_counter() - t0, "queries": hi - lo}
+    for kind in job["kinds"]:
+        t0 = time.perf_counter()
+        if kind == "exhaustive":
+            res = wand.exhaustive_topk_cpu(queries, cp, job["k"])
+        else:
+            res = wand.wand_topk_cpu(queries, cp, job["k"],
+                                     block_max=kind == "bmw")
+        out[kind] = (*res, time.perf_counter() - t0)
+    return out
+
+
+def save_corpus(path: str, corpus) -> str:
+    """A corpus's docs and queries as one ``.npz`` a worker can load."""
+    import numpy as np
+
+    np.savez(path, doc_ids=corpus.docs.term_ids.cpu().numpy(),
+             doc_vals=corpus.docs.values.cpu().numpy(),
+             q_ids=corpus.queries.term_ids.cpu().numpy(),
+             q_vals=corpus.queries.values.cpu().numpy(),
+             vocab=np.int64(corpus.vocab_size))
+    return path
+
+
+def host_results(parts, timeout: float) -> dict:
+    """The results of one baseline's worker jobs, each a slice of the
+    queries in order: values and ids stacked, seconds summed."""
+    import numpy as np
+
+    got = [p.get(timeout=timeout) for p in parts]
+    out = {"queries": sum(g["queries"] for g in got),
+           "build_s": max(g["build_s"] for g in got)}
+    for kind in got[0]:
+        if kind not in out:
+            out[kind] = (np.concatenate([g[kind][0] for g in got]),
+                         np.concatenate([g[kind][1] for g in got]),
+                         sum(g[kind][2] for g in got))
+    return out
+
+
+def host_cpu_name() -> str:
+    """The host CPU's model name (``/proc/cpuinfo``, else ``lscpu``, which
+    names Arm cores too) and its core count."""
+    import platform
+
+    name = None
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                name = line.split(":", 1)[1].strip()
+                break
+    if name is None:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+        except OSError:
+            out = ""
+        names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+                 if line.startswith("Model name")]
+        name = names[0] if names else platform.machine()
+    return f"{name}, {os.cpu_count()} cores"
+
+
+def f64_topk(docs, queries, k: int):
+    """Float64 top-k (values, ids) of every query, as numpy."""
+    from repro_torch.core.scoring import topk_f64
+
+    v, i = topk_f64(queries, docs, k)
+    return v.cpu().numpy(), i.cpu().numpy()
+
+
+def host_exact(name: str, got, want) -> dict:
+    """A host baseline's float64 top-k against float64 scoring, tie-aware
+    (``same_results`` at SCORE_RTOL, all k ranks)."""
+    vals, ids, secs = got
+    res = same_results(name, (vals, ids), want, rtol=SCORE_RTOL)
+    return dict(s=secs, **res)
+
+
+def serve_1m_comparison(dev, sizes: Sizes) -> dict:
+    """10a: ``bcoo`` and ``segment`` beside ``tiled`` and ``ell`` at
+    serve_1m through ``RetrievalEngine.search``: times, float64 exactness,
+    the ids against ``tiled``'s, the segment loop's launches, the indices'
+    bytes and peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine, scoring
+    from repro_torch.data.synthetic import make_msmarco_like
+
+    k, b = sizes.k, sizes.queries
+    corpus = make_msmarco_like(sizes.docs, b, vocab_size=sizes.vocab,
+                               seed=0, device=dev)
+    q = corpus.queries
+    g = torch.Generator().manual_seed(5)
+    sample = torch.randperm(b, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle = oracle_f64(corpus.docs, q, sample)
+    log(f"  dense: left out at serve_1m (its [{sizes.docs}, {sizes.vocab}] "
+        f"f32 document matrix would be "
+        f"{sizes.docs * sizes.vocab * 4 / 1e9:.1f} GB)")
+    out, results = {}, {}
+    for name in ("tiled", "ell", "bcoo", "segment"):
+        eng, build_ms = timed(f"10a {name}: index build", lambda: (
+            RetrievalEngine(corpus.docs, RetrievalConfig(engine=name, k=k),
+                            device=dev)), dev)
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rounds, note = sizes.rounds, f"median of {sizes.rounds}"
+        if name == "segment":
+            before = scoring.segment_launches
+            _, first_ms = timed("10a segment: one search",
+                                lambda: eng.search(q, k=k), dev)
+            launches = scoring.segment_launches - before
+            log(f"  10a segment: {launches} index_add_ launches a search "
+                f"({launches / b!r} a query)")
+            if first_ms > sizes.slow_search_ms:
+                rounds = sizes.slow_rounds
+                note = (f"median of {rounds}: one search took "
+                        f"{first_ms:.1f} ms > {sizes.slow_search_ms} ms")
+        vals, ids, ms = time_search(f"10a {name}", eng, q, k, rounds, dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"  10a {name}: {ms!r} ms a search ({note}); peak device memory "
+            f"{peak} B, {peak - held} B above the {held} B held before it")
+        check_exact(f"10a {name}", vals, ids, oracle, sample, k)
+        row = dict(ms=ms, timing=note, build_ms=build_ms, peak_bytes=peak,
+                   search_bytes=peak - held, index_bytes=eng.index_bytes(),
+                   padding_overhead=eng.padding_overhead())
+        if name == "segment":
+            flat = eng._flat
+            row.update(launches_per_search=launches,
+                       total_postings=flat.total_postings,
+                       total_padded=flat.total_padded, pad_to=flat.pad_to)
+            log(f"  10a FlatIndex: built in {build_ms / 1e3!r} s, "
+                f"{flat.total_postings} postings in {flat.total_padded} "
+                f"slots (pad_to {flat.pad_to}), padding_overhead "
+                f"{flat.padding_overhead!r} (Eq. 3), memory_bytes "
+                f"{flat.memory_bytes()} B")
+        if name != "tiled":
+            row["vs_tiled"] = same_results(
+                f"10a {name} vs tiled", (vals, ids), results["tiled"])
+        results[name] = vals, ids
+        out[name] = row
+        del eng
+        torch.cuda.empty_cache()
+    for name in ("tiled", "ell"):
+        log(f"  10a {name} index: {out[name]['index_bytes']} B, padding "
+            f"overhead {out[name]['padding_overhead']!r}")
+    seg = out["segment"]["ms"]
+    out["ratios"] = {f"{a} / {b_}": out[a]["ms"] / out[b_]["ms"]
+                     for a in ("segment", "bcoo") for b_ in ("tiled", "ell")}
+    log(f"  10a segment / tiled = {seg / out['tiled']['ms']!r}, segment / "
+        f"ell = {seg / out['ell']['ms']!r} (the paper: 23-270x); bcoo / "
+        f"tiled = {out['ratios']['bcoo / tiled']!r}, bcoo / ell = "
+        f"{out['ratios']['bcoo / ell']!r}")
+    return out
+
+
+def table2(dev, sizes: Sizes, corpus, host: dict) -> dict:
+    """10b: the paper's Table 2 at its own size — the host baselines (the
+    exhaustive oracle, WAND and BMW from ``host``'s workers, Seismic here)
+    against float64, and ``dense``, ``bcoo``, ``segment``, ``tiled`` and
+    ``ell`` on the card against float64, µs a query each."""
+    import numpy as np
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine, seismic
+    from repro_torch.core.metrics import mrr_at_k, ranking_overlap
+
+    k, nq = sizes.table2_k, sizes.table2_queries
+    docs, q = corpus.docs, corpus.queries
+    want = f64_topk(docs, q, k)
+    out = {}
+    everyone = np.arange(nq)
+    oracle = oracle_f64(docs, q, everyone)
+    for name in ("dense", "bcoo", "segment", "tiled", "ell"):
+        eng = RetrievalEngine(docs, RetrievalConfig(
+            engine=name, k=k, term_block=512, doc_block=256,
+            chunk_size=256), device=dev)
+        vals, ids, ms = time_search(f"10b {name}", eng, q, k, sizes.rounds,
+                                    dev)
+        check_exact(f"10b {name}", vals, ids, oracle, everyone, k)
+        out[name] = dict(us_per_query=1e3 * ms / nq,
+                         overlap=ranking_overlap(ids, want[1], k))
+    t0 = time.perf_counter()
+    si = seismic.SeismicIndex.build(docs)
+    log(f"  10b SeismicIndex build {time.perf_counter() - t0!r} s")
+    overlaps = []
+    for cut in sizes.seismic_cuts:
+        t0 = time.perf_counter()
+        _, ids = seismic.seismic_topk_cpu(q, si, k, query_cut=cut)
+        secs = time.perf_counter() - t0
+        ov = ranking_overlap(ids, want[1], k)
+        mrr = mrr_at_k(ids, corpus.qrels, 10)
+        overlaps.append(ov)
+        log(f"  10b seismic cut {cut}: {1e6 * secs / nq!r} us a query "
+            f"(host), overlap@{k} {ov!r}, MRR@10 {mrr!r}")
+        out[f"seismic_cut{cut}"] = dict(us_per_query=1e6 * secs / nq,
+                                        overlap=ov, mrr10=mrr)
+    # tests/test_wand_baselines.py's bar: the smallest cut never beats
+    # the largest (between neighbours the heap-factor pruning may trade a
+    # few ids either way).
+    if overlaps[0] > overlaps[-1] + 1e-9:
+        raise AssertionError(f"10b: Seismic's overlap at the smallest cut "
+                             f"beats the largest: {overlaps}")
+    res = host_results(host["10b wand"], sizes.host_timeout_s)
+    res.update(host_results(host["10b bmw"], sizes.host_timeout_s))
+    for kind in ("exhaustive", "wand", "bmw"):
+        row = host_exact(f"10b {kind} (host)", res[kind], want)
+        row["us_per_query"] = 1e6 * row["s"] / nq
+        log(f"  10b {kind}: {row['us_per_query']!r} us a query (host, "
+            f"worker processes)")
+        out[kind] = row
+    return out
+
+
+def wand_100k(sizes: Sizes, host: dict) -> dict:
+    """10c: WAND and BMW at serve_100k on the host, each held to the
+    exhaustive oracle on its queries (values within 1e-9, ids
+    tie-aware)."""
+    out = {}
+    for kind in ("wand", "bmw"):
+        res = host_results(host[f"10c {kind}"], sizes.host_timeout_s)
+        ev, ei, _ = res["exhaustive"]
+        vals, ids, secs = res[kind]
+        same_results(f"10c {kind} vs exhaustive", (vals, ids), (ev, ei),
+                     rtol=1e-9)
+        out[kind] = dict(queries=res["queries"],
+                         ms_per_query=1e3 * secs / res["queries"],
+                         postings_build_s=res["build_s"])
+        log(f"  10c {kind}: {out[kind]['ms_per_query']!r} ms a query over "
+            f"{sizes.wand_docs} docs (host; {res['queries']} queries, k = "
+            f"{sizes.k}; CpuPostings built in {res['build_s']!r} s)")
+    return out
+
+
+def system_comparison(dev, sizes: Sizes) -> dict:
+    """Phase 10: 10b's and 10c's corpora made on the card and saved for
+    the host baselines' worker processes (BMW on 10b's queries in two
+    halves), then 10a (serve_1m) and 10b (Table 2) on the card while they
+    work, then the host results collected and checked."""
+    import multiprocessing
+    import tempfile
+
+    from repro_torch.data.synthetic import make_msmarco_like
+
+    nq, half = sizes.table2_queries, sizes.table2_queries // 2
+    t2 = make_msmarco_like(sizes.table2_docs, nq,
+                           vocab_size=sizes.table2_vocab, seed=0, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        big = make_msmarco_like(
+            sizes.wand_docs, max(sizes.wand_queries, sizes.bmw_queries),
+            vocab_size=sizes.vocab, seed=0, device=dev)
+        b = dict(path=save_corpus(os.path.join(tmp, "table2.npz"), t2),
+                 k=sizes.table2_k)
+        c = dict(path=save_corpus(os.path.join(tmp, "100k.npz"), big),
+                 k=sizes.k)
+        del big
+        jobs = {  # the longest first
+            "10b bmw": [dict(b, rows=(0, half), kinds=("bmw",)),
+                        dict(b, rows=(half, nq), kinds=("bmw",))],
+            "10c bmw": [dict(c, rows=(0, sizes.bmw_queries),
+                             kinds=("exhaustive", "bmw"))],
+            "10c wand": [dict(c, rows=(0, sizes.wand_queries),
+                              kinds=("exhaustive", "wand"))],
+            "10b wand": [dict(b, rows=(0, nq), kinds=("exhaustive", "wand"))],
+        }
+        n = sum(len(parts) for parts in jobs.values())
+        pool = multiprocessing.get_context("spawn").Pool(n)
+        try:
+            host = {name: [pool.apply_async(host_baseline, (job,))
+                           for job in parts] for name, parts in jobs.items()}
+            t0 = time.perf_counter()
+            log(f"phase 10a: bcoo and segment beside tiled and ell at "
+                f"serve_1m, {sizes.docs} docs x {sizes.queries} queries, "
+                f"k={sizes.k} (the host baselines run meanwhile in {n} "
+                f"worker processes)")
+            out["10a"] = serve_1m_comparison(dev, sizes)
+            out["10a seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            log(f"phase 10b: Table 2, {sizes.table2_docs} docs x {nq} "
+                f"queries, V={sizes.table2_vocab}, k={sizes.table2_k}; "
+                f"host CPU: {host_cpu_name()}")
+            out["10b"] = table2(dev, sizes, t2, host)
+            out["10b seconds"] = time.perf_counter() - t0
+            log("phase 10c: WAND and BMW at serve_100k on the host")
+            out["10c"] = wand_100k(sizes, host)
+        finally:
+            pool.terminate()
+            pool.join()
+    out["host_cpu"] = host_cpu_name()
+    log(f"  10a {out['10a seconds']:.1f} s, 10b {out['10b seconds']:.1f} s "
+        f"(the host baselines' wait included)")
+    return out
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -3153,9 +3520,19 @@ def run(dev, sizes: Sizes) -> list[dict]:
         err = compare(f"{name} at {sizes.docs} docs x {b} queries",
                       s["kernel"](), s["plain"]())
         errs[name] = max(errs[name], err)
+    # The library call: cuSPARSE SpMM of the docs as CSR by QW^T laid out
+    # row-major, as the ``bcoo`` engine calls it (the strided view QW.T,
+    # the old yardstick, takes a far slower cuSPARSE path; printed beside).
     csr = scoring.docs_csr(corpus.docs, torch.float32)
-    library_ms = event_ms(lambda: torch.sparse.mm(csr, qw.T), sizes.reps, dev)
-    del csr
+    rhs = qw.T.contiguous()
+    library_ms = event_ms(lambda: torch.sparse.mm(csr, rhs), sizes.reps,
+                          dev)
+    strided_ms = event_ms(lambda: torch.sparse.mm(csr, qw.T), sizes.reps,
+                          dev)
+    log(f"  library: torch.sparse.mm of the CSR docs by QW^T {library_ms!r} "
+        f"ms (row-major QW^T); by the strided view QW.T {strided_ms!r} ms "
+        f"(the old yardstick)")
+    del csr, rhs
     # Where a search call's time goes besides the kernel: the [B, N] top-k.
     scores = engines["ell"].score(corpus.queries)
     topk_ms = event_ms(lambda: topk_two_stage(scores, sizes.k), sizes.reps,
@@ -3299,6 +3676,27 @@ def run(dev, sizes: Sizes) -> list[dict]:
     sharded["launches"] = sharded_launches
     log(f"phase 9: {time.perf_counter() - t0:.3f} s")
     print(json.dumps({"sharded": sharded}, default=float))
+
+    # 10. the system comparison; phase 9's data is gone
+    del sharded
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for mod in counters.values():
+        mod.launches = 0
+    scoring.segment_launches = 0
+    comparison = system_comparison(dev, sizes)
+    comparison_launches = {name: mod.launches
+                           for name, mod in counters.items()}
+    comparison_launches["segment"] = scoring.segment_launches
+    log(f"  launches in phase 10 (segment: its index_add_ calls): "
+        f"{comparison_launches}")
+    for name in ("scatter_score", "ell_gather", "segment"):
+        if comparison_launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched in phase 10")
+    comparison["launches"] = comparison_launches
+    comparison["seconds"] = time.perf_counter() - t0
+    log(f"phase 10: {comparison['seconds']:.3f} s")
+    print(json.dumps({"comparison": comparison}, default=float))
     return rows
 
 

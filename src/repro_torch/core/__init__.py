@@ -1,10 +1,13 @@
 """The exact-retrieval loop: sparse batches, indices, scoring, top-k,
 engine; the stateful serving layer (``Retriever``, ``SearchSession``); and
-document-sharded serving over ``torch.distributed`` (``make_serve_step``)."""
+document-sharded serving over ``torch.distributed`` (``make_serve_step``).
+The paper's CPU baselines are in ``core.wand`` and ``core.seismic``."""
 from repro_torch.core.sparse import SparseBatch, from_lists, dense_to_sparse
 from repro_torch.core.index import (
+    FlatIndex,
     TiledIndex,
     EllIndex,
+    build_flat_index,
     build_tiled_index,
     build_ell_index,
     filter_tiled_index,
@@ -36,8 +39,10 @@ __all__ = [
     "SparseBatch",
     "from_lists",
     "dense_to_sparse",
+    "FlatIndex",
     "TiledIndex",
     "EllIndex",
+    "build_flat_index",
     "build_tiled_index",
     "build_ell_index",
     "filter_tiled_index",

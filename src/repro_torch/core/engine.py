@@ -32,23 +32,22 @@ from repro_torch import obs as obs_mod
 from repro_torch.core import index as index_mod
 from repro_torch.core import metrics as metrics_mod
 from repro_torch.core import registry, scoring, topk
-from repro_torch.core.index import TiledIndex
+from repro_torch.core.index import EllIndex, FlatIndex, TiledIndex
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.utils import resolve_device
 
 EngineName = Literal[
-    "dense", "tiled", "ell", "tiled-pruned", "tiled-pruned-approx",
-    "tiled-bmp-grouped", "tiled-bmp-fused",
+    "dense", "bcoo", "segment", "tiled", "ell", "tiled-pruned",
+    "tiled-pruned-approx", "tiled-bmp-grouped", "tiled-bmp-fused",
 ]
 
 
 @dataclasses.dataclass
 class RetrievalConfig:
-    """The JAX config's fields that the port's engines read.  ``pad_to``
-    (read only by the unported ``FlatIndex`` engines) and
-    ``use_f32_scores`` (read by nothing) are not fields, so setting one
+    """The JAX config's fields that the port's engines read.
+    ``use_f32_scores`` (read by nothing) is not a field, so setting it
     fails (``TypeError``) instead of doing nothing; a store's config
-    snapshot carries both (``repro_torch.store.format``)."""
+    snapshot carries it at JAX's default (``repro_torch.store.format``)."""
 
     engine: EngineName = "tiled"
     k: int = 1000
@@ -56,6 +55,8 @@ class RetrievalConfig:
     term_block: int = 512
     doc_block: int = 256
     chunk_size: int = 512
+    # FlatIndex posting-list pad (the ``segment`` engine's index).
+    pad_to: int = index_mod.LANE
     topk_block: int = 4096
     # Query-aware tile skipping (exact): drop chunks whose term block
     # carries zero query mass before scoring.
@@ -160,6 +161,7 @@ class RetrievalEngine:
             unperm[perm] = torch.arange(perm.numel(), device=perm.device)
             self._doc_unperm = unperm
         self._index = self.spec.build_index(index_docs, self.config)
+        self._set_views()
         # Tombstones, original doc numbering (None = nothing deleted).
         self._deleted: Optional[np.ndarray] = None
         self._deleted_dev: Optional[torch.Tensor] = None
@@ -193,6 +195,7 @@ class RetrievalEngine:
                                  device=self.device)
         )
         self._index = index
+        self._set_views()
         self._deleted = (
             None if deleted is None or not np.any(deleted)
             else np.array(deleted, dtype=bool)
@@ -200,6 +203,14 @@ class RetrievalEngine:
         self._deleted_dev = None
         self._deleted_index_dev = None
         return self
+
+    def _set_views(self) -> None:
+        """Typed views of the index, kept for callers that inspect the
+        concrete layout (None where the index is another type)."""
+        idx = self._index
+        self._flat = idx if isinstance(idx, FlatIndex) else None
+        self._tiled = idx if isinstance(idx, TiledIndex) else None
+        self._ell = idx if isinstance(idx, EllIndex) else None
 
     # -- deletions ---------------------------------------------------------
     @property
@@ -256,13 +267,15 @@ class RetrievalEngine:
 
     # -- index stats ------------------------------------------------------
     def index_bytes(self) -> int:
-        if self.spec.index_type is None:
-            return 0
-        return self._index.memory_bytes()
+        for idx in (self._flat, self._tiled, self._ell):
+            if idx is not None:
+                return idx.memory_bytes()
+        return 0
 
     def padding_overhead(self) -> float:
-        if isinstance(self._index, TiledIndex):
-            return self._index.padding_overhead
+        for idx in (self._flat, self._tiled):
+            if idx is not None:
+                return idx.padding_overhead
         return 0.0
 
     # -- scoring ----------------------------------------------------------

@@ -2,6 +2,12 @@
 
 The layouts of :mod:`repro.core.index`, field for field:
 
+``FlatIndex`` — the paper's §3 layout verbatim: every posting list
+concatenated into ``doc_ids`` / ``values``, each list padded to ``pad_to``
+slots (default ``LANE`` = 128, the JAX package's pad), with per-term
+``offsets``, ``lengths``, ``padded_lengths`` and ``max_values``.  The
+per-term loop of the ``segment`` engine reads it.
+
 ``TiledIndex`` — postings bucketed into ``(term_block x doc_block)`` tiles
 and packed into fixed-capacity COO chunks (``local_term``, ``local_doc``,
 ``value``), sorted by doc block then term block.  Every doc block owns a
@@ -32,7 +38,14 @@ import torch
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.utils import cdiv, ceil_to, resolve_device
 
+LANE = 128  # FlatIndex's default pad (the JAX package's TPU lane width)
 SUBLANE = 8
+
+# The array payload of a FlatIndex, in JAX's field order.
+FLAT_ARRAY_FIELDS = (
+    "doc_ids", "values", "offsets", "lengths", "padded_lengths",
+    "max_values",
+)
 
 # The complete array payload of a TiledIndex (copied from
 # repro.core.index): the fields every build produces, the optional ones
@@ -166,6 +179,81 @@ def _postings(docs: SparseBatch):
     order ``repro.core.sparse.to_numpy_rows`` concatenates them in."""
     doc, slot = torch.nonzero(docs.term_ids >= 0, as_tuple=True)
     return docs.term_ids[doc, slot].long(), doc, docs.values[doc, slot]
+
+
+@dataclasses.dataclass
+class FlatIndex:
+    """Paper §3 flat inverted index (posting lists padded to ``pad_to``)."""
+
+    doc_ids: torch.Tensor  # int32 [P], -1 at padding
+    values: torch.Tensor  # f32 [P], 0 at padding
+    offsets: torch.Tensor  # int32 [V] start of each term's (padded) list
+    lengths: torch.Tensor  # int32 [V] true posting count
+    padded_lengths: torch.Tensor  # int32 [V] rounded up to pad_to
+    max_values: torch.Tensor  # f32 [V] per-term max value, floored at 0
+    num_docs: int
+    vocab_size: int
+    pad_to: int = LANE
+
+    @property
+    def total_postings(self) -> int:
+        return int(self.lengths.sum())
+
+    @property
+    def total_padded(self) -> int:
+        return int(self.doc_ids.shape[0])
+
+    @property
+    def padding_overhead(self) -> float:
+        """eps_pad of the paper's Eq. (3)."""
+        nnz = max(self.total_postings, 1)
+        return self.total_padded / nnz - 1.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.doc_ids.device
+
+    def memory_bytes(self) -> int:
+        return sum(_nbytes(getattr(self, f)) for f in FLAT_ARRAY_FIELDS)
+
+
+def build_flat_index(
+    docs: SparseBatch, pad_to: int = LANE, sort_postings: bool = True
+) -> FlatIndex:
+    """CSC over (term -> doc) postings (paper §3.2), on ``docs``' device.
+
+    JAX sorts the postings by (term, doc), or stably by term when
+    ``sort_postings`` is off.  The postings come doc-major, so one stable
+    sort by term gives that order either way.  The total rounds up to at
+    least ``pad_to`` slots, as in JAX (an empty vocabulary included).
+    """
+    dev = docs.device
+    v = docs.vocab_size
+    i32 = torch.int32
+    terms, doc, vals = _postings(docs)
+    terms, order = torch.sort(terms, stable=True)
+    doc, vals = doc[order], vals[order]
+    # Each term's run in the sorted postings: [start, start + length).
+    bounds = torch.searchsorted(terms, torch.arange(v + 1, device=dev))
+    start = bounds[:-1]
+    lengths = bounds[1:] - start
+    padded = (lengths + pad_to - 1) // pad_to * pad_to
+    offsets = _exclusive_cumsum(padded)
+    total = max(int(padded.sum()), pad_to)
+    flat_docs = torch.full((total,), -1, dtype=i32, device=dev)
+    flat_vals = torch.zeros(total, dtype=torch.float32, device=dev)
+    pos = offsets[terms] + torch.arange(terms.numel(), device=dev) \
+        - start[terms]
+    flat_docs[pos] = doc.to(i32)
+    flat_vals[pos] = vals
+    max_values = torch.zeros(v, dtype=torch.float32, device=dev)
+    max_values.scatter_reduce_(0, terms, vals, "amax")
+    return FlatIndex(
+        doc_ids=flat_docs, values=flat_vals, offsets=offsets.to(i32),
+        lengths=lengths.to(i32), padded_lengths=padded.to(i32),
+        max_values=max_values, num_docs=docs.batch, vocab_size=v,
+        pad_to=pad_to,
+    )
 
 
 def build_tiled_index(

@@ -6,7 +6,9 @@ registered once with ``@register_engine``: ``build_index(docs, cfg)`` and
 [B, num_docs] score matrix.  ``get_engine`` raises with the registered
 list on an unknown name.
 
-Registered here: ``dense``, ``tiled`` (the ``scatter_score`` kernel),
+Registered here: ``dense``, the paper's comparison points ``bcoo`` (a
+``torch.sparse`` product) and ``segment`` (the per-term ``index_add_``
+loop over a ``FlatIndex``), ``tiled`` (the ``scatter_score`` kernel),
 ``ell`` (the ``ell_gather`` kernel), and the pruned engines
 ``tiled-pruned`` (BMP sweep or two-pass), ``tiled-pruned-approx``
 (``theta``), ``tiled-bmp-grouped`` (one sweep a demand group) and
@@ -22,7 +24,7 @@ from typing import Any, Callable, Optional
 
 from repro_torch.core import index as index_mod
 from repro_torch.core import scoring
-from repro_torch.core.index import EllIndex, TiledIndex
+from repro_torch.core.index import EllIndex, FlatIndex, TiledIndex
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
 
@@ -174,6 +176,10 @@ def _build_docs(docs: SparseBatch, cfg) -> SparseBatch:
     return docs
 
 
+def _build_flat(docs: SparseBatch, cfg) -> FlatIndex:
+    return index_mod.build_flat_index(docs, pad_to=cfg.pad_to)
+
+
 def _build_tiled(docs: SparseBatch, cfg) -> TiledIndex:
     return index_mod.build_tiled_index(
         docs,
@@ -202,6 +208,18 @@ def _build_ell(docs: SparseBatch, cfg) -> EllIndex:
                  doc="dense matmul oracle (paper's GPU Dense MatMul)")
 def _score_dense(queries, index, cfg, k=None, tau_init=None):
     return scoring.score_dense(queries, index)
+
+
+@register_engine("bcoo", build_index=_build_docs,
+                 doc="sparse CSR @ dense (cuSPARSE SpMV / SPARe dot)")
+def _score_bcoo(queries, index, cfg, k=None, tau_init=None):
+    return scoring.score_bcoo(queries, index)
+
+
+@register_engine("segment", build_index=_build_flat, index_type=FlatIndex,
+                 doc="per-term gather + scatter-add loop (SPARe iterative)")
+def _score_segment(queries, index, cfg, k=None, tau_init=None):
+    return scoring.score_segment(queries, index)
 
 
 @register_engine("tiled", build_index=_build_tiled, index_type=TiledIndex,

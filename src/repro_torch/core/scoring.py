@@ -9,6 +9,16 @@ Exact, the full matrix:
   ``score_ell``        doc-parallel gather over an EllIndex, through the
                        ``ell_gather`` kernel.
 
+The paper's comparison points, plain PyTorch by design (each is what the
+kernels above are measured against, not a kernel to write):
+
+  ``score_bcoo``       the docs as a sparse CSR matrix times QW^T: one
+                       library product (cuSPARSE SpMM on the card), the
+                       JAX ``BCOO @ dense``.
+  ``score_segment``    SPARe's iterative mode over a FlatIndex: one
+                       slice and one ``index_add_`` per query term, in row
+                       order (``segment_launches`` counts the adds).
+
 Block-max pruned (docs provably outside the top-k come back ``-inf``), as
 in :mod:`repro.core.scoring`:
 
@@ -41,7 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs as obs_mod
 from repro_torch.core import topk as topk_mod
-from repro_torch.core.index import EllIndex, TiledIndex
+from repro_torch.core.index import EllIndex, FlatIndex, TiledIndex
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
 from repro_torch.kernels.ell_gather import ops as ell_ops
@@ -49,6 +59,10 @@ from repro_torch.kernels.scatter_score import ops as scatter_ops
 from repro_torch.sched import planner as planner_mod
 
 NEG_INF = float("-inf")
+
+# ``index_add_`` calls of score_segment, one a valid query term: the
+# per-term launches the fused kernels remove.
+segment_launches = 0
 
 
 def queries_to_dense(queries: SparseBatch, dtype=torch.float32) -> torch.Tensor:
@@ -132,6 +146,50 @@ def score_ell(queries: SparseBatch, index: EllIndex) -> torch.Tensor:
     the dense query matrix — bandwidth-friendly streaming, O(N*k*B)."""
     out = ell_ops.ell_gather(queries.to_dense(), index.terms, index.values)
     return out[:, : index.num_docs]
+
+
+# ---------------------------------------------------------------------------
+# The paper's comparison points: a library product and the per-term loop
+
+
+def score_bcoo(queries: SparseBatch, docs: SparseBatch) -> torch.Tensor:
+    """cuSPARSE SpMV / SPARe "dot" analogue: the docs as CSR [N, V] times
+    the dense QW^T [V, B], transposed to [B, N].  The CSR is built each
+    call, as JAX builds its BCOO each call."""
+    qw_t = queries.to_dense().T.contiguous()
+    return torch.sparse.mm(docs_csr(docs, torch.float32), qw_t).T.contiguous()
+
+
+def score_segment(queries: SparseBatch, index: FlatIndex) -> torch.Tensor:
+    """SPARe-iterative analogue: for each query, for each of its terms in
+    row order, one slice of the term's postings and one ``index_add_`` of
+    ``w * values`` into the query's score row.
+
+    JAX reads a fixed-size slice and masks it (``pos < padded_lengths``,
+    ``doc >= 0``, ``t >= 0``); a list's real postings are its first
+    ``lengths[t]`` slots, so the slice here is exactly those.  A list holds
+    a doc once, so each add touches a cell once and the f32 sums follow
+    JAX's order of adds.  The query's terms and the index's offsets come to
+    the host once a call; the loop issues two launches a term (the product
+    and the add), which is the structure the fused kernels remove.
+    """
+    global segment_launches
+    ids = queries.term_ids.cpu().numpy()
+    weights = queries.values.cpu().numpy()
+    offsets = index.offsets.cpu().numpy()
+    lengths = index.lengths.cpu().numpy()
+    out = torch.zeros((queries.batch, index.num_docs), dtype=torch.float32,
+                      device=index.device)
+    for b in range(queries.batch):
+        row = out[b]
+        for t, w in zip(ids[b].tolist(), weights[b].tolist()):
+            if t < 0:
+                continue
+            start, n = int(offsets[t]), int(lengths[t])
+            docs = index.doc_ids[start:start + n]
+            row.index_add_(0, docs, index.values[start:start + n] * w)
+            segment_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

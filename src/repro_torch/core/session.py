@@ -336,10 +336,11 @@ class Retriever:
         ``config`` defaults to the store's committed config snapshot; a
         caller-supplied one may change serving knobs (``k``,
         ``query_chunk``, scheduling) but must keep the engine and index
-        geometry the persisted arrays were built for.  A snapshot's JAX
-        keys with no port field (``pad_to``, ``use_f32_scores``) must hold
-        JAX's defaults, and a JAX engine with no port name (``pallas``,
-        ``pallas_ell``) raises (see :mod:`repro_torch.store.format`).
+        geometry the persisted arrays were built for (``pad_to``
+        included).  A snapshot's JAX key with no port field
+        (``use_f32_scores``) must hold JAX's default, and a JAX engine with
+        no port name (``pallas``, ``pallas_ell``) raises (see
+        :mod:`repro_torch.store.format`).
         """
         from repro_torch.store import SegmentPager, SegmentStore
         from repro_torch.store import format as store_fmt
@@ -349,8 +350,8 @@ class Retriever:
         if config is None:
             config = RetrievalConfig(**snap)
         else:
-            frozen = ("engine", "reorder_docs",
-                      "reorder_method") + store_fmt.GEOMETRY_KEYS
+            frozen = ("engine", "reorder_docs", "reorder_method",
+                      "pad_to") + store_fmt.GEOMETRY_KEYS
             for key in frozen:
                 if getattr(config, key) != snap[key]:
                     raise ValueError(

@@ -42,14 +42,14 @@ A store written by either package opens in the other: the arrays are the
 ``TILED_ARRAY_FIELDS`` / ``TILED_OPTIONAL_ARRAY_FIELDS`` of ``TiledIndex``
 (field for field the same in both), the docs and the optional
 tombstones, id map and reorder inverse, with the JAX dtypes.  The config
-snapshot in ``STORE.json`` carries two JAX keys the port's
-``RetrievalConfig`` has no field for: ``pad_to`` (read only by JAX's
-``FlatIndex`` engines, not ported) and ``use_f32_scores`` (read by
-nothing).  :func:`config_to_manifest` writes both at JAX's defaults, so
-JAX's frozen-key check finds ``pad_to``; :func:`config_from_manifest`
-requires those defaults and drops them, and refuses the JAX engines the
-port does not register under that name (``pallas`` -> ``tiled``,
-``pallas_ell`` -> ``ell``: the same kernels, other names).
+snapshot in ``STORE.json`` holds every config field, ``pad_to`` included
+(a ``segment`` store rebuilds its ``FlatIndex`` at that pad), and one JAX
+key the port's ``RetrievalConfig`` has no field for: ``use_f32_scores``
+(read by nothing).  :func:`config_to_manifest` writes it at JAX's
+default; :func:`config_from_manifest` requires that default and drops it,
+and refuses the JAX engines the port does not register under that name
+(``pallas`` -> ``tiled``, ``pallas_ell`` -> ``ell``: the same kernels,
+other names).
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ GEOMETRY_KEYS = ("term_block", "doc_block", "chunk_size", "bounds_format")
 
 # The JAX config snapshot's keys with no field in the port's config, at
 # the only values the port serves: JAX's defaults.
-JAX_ONLY_CONFIG = {"pad_to": 128, "use_f32_scores": True}
+JAX_ONLY_CONFIG = {"use_f32_scores": True}
 # JAX engine names the port registers under another name.
 JAX_ENGINE_NAMES = {"pallas": "tiled", "pallas_ell": "ell"}
 
@@ -283,7 +283,7 @@ def prune_stale_generations(seg_dir: str, manifest: dict) -> int:
 def config_to_manifest(config) -> dict:
     """A JSON-able snapshot of a RetrievalConfig (serving-layer state —
     ``plan_cache``, ``obs`` — excluded; it is process-local by
-    definition), with the JAX-only keys at JAX's defaults."""
+    definition), with the JAX-only key at JAX's default."""
     import dataclasses
 
     out = dict(JAX_ONLY_CONFIG)

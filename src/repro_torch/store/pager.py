@@ -59,7 +59,7 @@ from repro_torch.utils import resolve_device
 
 def engine_device_bytes(engine) -> int:
     """Device-side footprint of one segment engine: its index's bytes,
-    else (the ``dense`` engine, whose index is the docs batch) the doc
+    else (``dense`` and ``bcoo``, whose index is the docs batch) the doc
     arrays it holds."""
     n = engine.index_bytes()
     if n:
@@ -69,7 +69,8 @@ def engine_device_bytes(engine) -> int:
 
 def _device_tensors(engine) -> list:
     """The CUDA tensors a page-in made for ``engine``: its index's, its
-    docs' (the ``dense`` engine's index) and its reorder permutation."""
+    docs' (the index of ``dense`` and ``bcoo``) and its reorder
+    permutation."""
     parts = [getattr(engine, "_index", None), getattr(engine, "docs", None)]
     found = [getattr(engine, "_doc_unperm", None)]
     found += [v for p in parts if p is not None for v in vars(p).values()]

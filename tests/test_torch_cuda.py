@@ -21,7 +21,10 @@ once, so within one bf16 ulp of the output plus that f32 bar.
 ``embedding_bag``: atol = rtol = 1e-5 of the plain version (an f32 sum of
 at most a few products, in another order), bitwise equal between launches,
 between its routes (the lane vectors a table allows) and, for unweighted
-bags, to the sequential f32 sum over l.
+bags, to the sequential f32 sum over l.  The comparison engines (no
+kernel of their own): ``segment`` bit for bit its CPU run, ``bcoo``
+(cuSPARSE) within TOL of its CPU run, both within 1e-5 of float64; the
+``FlatIndex`` built on the card equal to the CPU build.
 """
 import numpy as np
 import pytest
@@ -1026,3 +1029,41 @@ def test_sharded_step_under_an_nccl_group_of_one(cuda):
         dist.destroy_process_group()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pad_to", [32, 128])
+def test_flat_index_built_on_the_card_equals_the_cpu_build(cuda, pad_to):
+    c = make_msmarco_like(4001, 4, vocab_size=5000, seed=41, device=cuda)
+    got = tidx.build_flat_index(c.docs, pad_to=pad_to)
+    want = tidx.build_flat_index(c.docs.to("cpu"), pad_to=pad_to)
+    assert got.device.type == "cuda"
+    for name in tidx.FLAT_ARRAY_FIELDS:
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert got.padding_overhead == want.padding_overhead
+
+
+@pytest.mark.parametrize("engine", ["bcoo", "segment"])
+def test_comparison_engines_on_the_card_match_cpu_and_f64(cuda, engine):
+    """``bcoo`` (cuSPARSE through ``torch.sparse.mm``) and ``segment`` (the
+    per-term ``index_add_`` loop) on the card: scores within TOL of their
+    CPU runs and 1e-5 relative of float64; ``segment`` bit for bit its CPU
+    run (each cell is added once a launch, in the same order) and one
+    launch a valid query term."""
+    c = make_msmarco_like(3001, 24, vocab_size=5000, seed=43, device=cuda)
+    cfg = RetrievalConfig(engine=engine, k=50)
+    eng = RetrievalEngine(c.docs, cfg, device=cuda)
+    cpu = RetrievalEngine(c.docs.to("cpu"), cfg, device="cpu")
+    scoring.segment_launches = 0
+    got = eng.score(c.queries)
+    if engine == "segment":
+        assert scoring.segment_launches == int((c.queries.term_ids >= 0).sum())
+        assert torch.equal(got.cpu(), cpu.score(c.queries.to("cpu")))
+    else:
+        _close(got, cpu.score(c.queries.to("cpu")).to(cuda))
+    f64 = scoring.score_dense_f64(c.queries, c.docs)
+    assert float(((got.double() - f64).abs() / f64.abs().clamp_min(1e-30))
+                 .max()) <= 1e-5
+    v, i = eng.search(c.queries, k=50)
+    fv, fi = scoring.topk_f64(c.queries, c.docs, 50)
+    np.testing.assert_allclose(v, fv.cpu().numpy(), rtol=1e-5)

@@ -16,8 +16,8 @@ from repro_torch.core import engine as teng
 
 GEOM = dict(term_block=128, doc_block=32, chunk_size=64)
 ENGINES = [("dense", {}), ("tiled", {}), ("tiled", {"tile_skip": True}),
-           ("ell", {})]
-IDS = ["dense", "tiled", "tiled-tile_skip", "ell"]
+           ("ell", {}), ("bcoo", {}), ("segment", {})]
+IDS = ["dense", "tiled", "tiled-tile_skip", "ell", "bcoo", "segment"]
 
 
 @pytest.fixture(scope="module")
@@ -121,13 +121,25 @@ def test_config_validation_matches_jax():
             jeng.RetrievalConfig(**bad)
         with pytest.raises(ValueError):
             teng.RetrievalConfig(**bad)
-    # The JAX knobs that nothing in the port reads are not fields of its
-    # config: setting one fails instead of being ignored.
+    # The JAX knob that nothing in the port reads is not a field of its
+    # config: setting it fails instead of being ignored.
     jax_fields = jeng.RetrievalConfig.__dataclass_fields__
-    for name in ("use_f32_scores", "pad_to"):
-        assert name in jax_fields
-        with pytest.raises(TypeError):
-            teng.RetrievalConfig(**{name: jax_fields[name].default})
+    assert "use_f32_scores" in jax_fields
+    with pytest.raises(TypeError):
+        teng.RetrievalConfig(use_f32_scores=True)
+    # pad_to is read by the segment engine's FlatIndex: JAX's default, and
+    # a segment engine built at another pad holds JAX's index and results.
+    assert teng.RetrievalConfig().pad_to == jax_fields["pad_to"].default
+    c = make_msmarco_like(64, 3, vocab_size=200, seed=4)
+    port, ref = _pair(c, "segment", {}, pad_to=32, k=8)
+    assert port._flat.pad_to == ref._flat.pad_to == 32
+    np.testing.assert_array_equal(port._flat.doc_ids.numpy(),
+                                  np.asarray(ref._flat.doc_ids))
+    assert port.index_bytes() == ref.index_bytes()
+    assert port.padding_overhead() == ref.padding_overhead()
+    assert_same_topk(port.search(port_batch(c.queries)),
+                     ref.search(c.queries),
+                     jscoring.score_dense_f64(c.queries, c.docs))
     # obs is one, as in JAX: an enabled Obs by default, serving state
     # outside equality and repr.
     from repro_torch.obs import Obs

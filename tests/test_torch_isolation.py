@@ -82,8 +82,8 @@ def test_unknown_engine_lists_the_registered_ones():
     for name in ("dense", "ell", "tiled"):
         assert name in str(e.value)
     assert registry.available_engines() == (
-        "dense", "ell", "tiled", "tiled-bmp-fused", "tiled-bmp-grouped",
-        "tiled-pruned", "tiled-pruned-approx")
+        "bcoo", "dense", "ell", "segment", "tiled", "tiled-bmp-fused",
+        "tiled-bmp-grouped", "tiled-pruned", "tiled-pruned-approx")
 
 
 def test_chip_smoke_compiles_and_refuses_to_run_without_a_card(tmp_path):

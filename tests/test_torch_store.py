@@ -166,7 +166,10 @@ def test_config_snapshot_jax_only_keys(tmp_path, corpus):
     assert snap["config"]["pad_to"] == 128
     assert snap["config"]["use_f32_scores"] is True
     assert "obs" not in snap["config"] and "plan_cache" not in snap["config"]
-    for key, bad in (("pad_to", 64), ("use_f32_scores", False),
+    # pad_to is a config field now: another value round-trips.
+    assert store_fmt.config_from_manifest(
+        {**snap["config"], "pad_to": 64})["pad_to"] == 64
+    for key, bad in (("use_f32_scores", False),
                      ("engine", "pallas"), ("engine", "pallas_ell")):
         with pytest.raises(ValueError, match=key if key != "engine" else
                            ("'tiled'" if bad == "pallas" else "'ell'")):
@@ -177,6 +180,28 @@ def test_config_snapshot_jax_only_keys(tmp_path, corpus):
         _batches(docs, SEG))
     with pytest.raises(ValueError, match="'tiled'"):
         Retriever.from_store(jpath, device="cpu")
+
+
+def test_jax_segment_store_keeps_its_pad(tmp_path, corpus):
+    """A JAX ``segment`` store written at pad_to 32 opens in the port with
+    that pad (its FlatIndex rebuilt at 32, as JAX's is) and gives JAX's
+    results; the port's store of it opens in JAX."""
+    docs, queries, _ = corpus
+    jpath, ppath = str(tmp_path / "jax"), str(tmp_path / "port")
+    JWriter(jpath, JConfig(engine="segment", k=K, pad_to=32),
+            segment_docs=SEG).ingest(_batches(docs, SEG))
+    port = Retriever.from_store(jpath, device="cpu")
+    assert port.config.pad_to == 32
+    flat = port._segments[0].engine._flat
+    assert flat.pad_to == 32 and flat.total_padded % 32 == 0
+    _same_search(port, JRetriever.from_store(jpath), queries, jax_b=True)
+    SegmentWriter(ppath, RetrievalConfig(engine="segment", k=K, pad_to=32),
+                  segment_docs=SEG, device="cpu").ingest(
+        port_batch(b) for b in _batches(docs, SEG))
+    assert JRetriever.from_store(ppath).config.pad_to == 32
+    with pytest.raises(ValueError, match="pad_to"):
+        Retriever.from_store(jpath, config=RetrievalConfig(
+            engine="segment", k=K), device="cpu")
 
 
 # -- round trips in the port -------------------------------------------------

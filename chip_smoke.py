@@ -3,9 +3,11 @@
 in front of the exact one, LM serving (prefill and decode), recsys
 serving (DIN, DIEN, AutoInt, xDeepFM), training (the encoder, the LM and
 the recsys models), the serving state (sessions, deletions, the
-scheduler, the segment store), sharded serving with its serve driver and
+scheduler, the segment store), sharded serving with its serve driver,
 the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
-WAND/BMW and Seismic CPU baselines), on one NVIDIA H100.
+WAND/BMW and Seismic CPU baselines) and every LM architecture of the
+registry (mixture-of-experts layers, the training driver, data-parallel
+training), on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -263,6 +265,34 @@ Phases (each raises on failure; the script then exits non-zero):
    and 1 queries, held to the exhaustive oracle: ms a query on the host.
    A ``{"comparison": {...}}`` line holds the numbers.
 
+11. Every LM architecture of ``repro_torch.configs`` at its published
+   widths (seeded weights, f32 parameters, bf16 compute), with phase 10's
+   data freed; each prefill a warm-up and 3 rounds, ``flash_attention``'s
+   counter zeroed before and read after (one launch a layer), the kernel
+   at layer 0's own q, k, v against its plain version, timed beside its
+   plain version, one ``scaled_dot_product_attention`` call and its bound
+   (as phase 5), and the whole prefill against the plain path in bf16
+   (within ARCH_BF16_DRIFTS of the plain path's own bf16-vs-f32 drift;
+   phase 5's one-drift bar printed) and f32 (phase 5's PREFILL_F32_RTOL,
+   held for the dense arch).  11a: ``olmoe-1b-7b`` at full width and depth
+   (16 layers, 64 experts, top-8; 6.92 B parameters), prefill 4 x 2,048
+   (``prefill_32k`` cut to that), 8 decode steps of 32 sequences from
+   2,048 cached positions with the (token, slot) entries dropped at
+   capacity counted, and layer 0's ``moe_block`` on 256 tokens on the card
+   against the CPU in f32 (MOE_CPU_TOL; expert ids and drops equal).
+   11b: ``mixtral-8x22b`` at full width, **56 -> 2 layers** (~10 GB of f32
+   a layer: the model does not fit one card), prefill 1 x 8,192 under its
+   4,096-token window.  11c: ``qwen3-4b`` at full width and depth (Dh 128,
+   qk_norm), prefill 1 x 4,096.  11d: ``repro_torch.launch.train.main``
+   (``smollm-135m``, full width, its default 8 x 64 tokens, 6 steps, a
+   checkpoint every 3) under deterministic algorithms, then its later
+   checkpoint removed and a restart: the restarted steps' losses bit for
+   bit the unbroken run's; one ``olmoe-1b-7b`` step at full width and 2
+   layers x 2,048 tokens (ce + aux); ``make_ddp_train_step`` under an NCCL
+   group of one, bit for bit ``make_train_step`` (losses and parameters),
+   and compressed (its loss and error buffer).  A ``{"lm_archs": {...}}``
+   line holds the numbers.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -319,6 +349,17 @@ TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 on the tensor cores, dense
 # summed in another order through 12 layers and back, no TF32).
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4
+# One MoE layer on the card against the CPU, f32 (phase 11a): the same
+# f32 products summed in another order, held as the LM parity tests hold
+# the port to JAX.
+MOE_CPU_TOL = 1e-5
+# The whole prefill of a phase-11 architecture, kernel path against plain
+# path, in bf16: within twice the plain path's own bf16-vs-f32 drift (the
+# LM parity tests' bar for bf16).  Each path rounds its attention output to
+# bf16 once a layer at other points; over qwen3-4b's 36 layers that noise
+# grows to about one drift (1.07 drifts on the first chip run), so phase
+# 5's one-drift bar is printed beside it, not held.
+ARCH_BF16_DRIFTS = 2.0
 # The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
 # flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
 TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "splade_head": "HMMA"}
@@ -448,6 +489,37 @@ class Sizes:
     wand_queries: int = 3
     bmw_queries: int = 1
     host_timeout_s: float = 600.0  # a host baseline's worker at most
+    # Every LM architecture (phase 11), each a config of its ArchSpec in
+    # repro_torch.configs (``config``: the published widths).  11a:
+    # olmoe-1b-7b at full depth, LM_SHAPES' prefill_32k cut to 4 x 2,048
+    # and decode_32k to 32 sequences over 2,048 cached positions.
+    arch_config: str = "config"
+    lm_rounds: int = 3
+    moe_arch: str = "olmoe-1b-7b"
+    moe_batch: int = 4
+    moe_len: int = 2048
+    decode_moe_batch: int = 32
+    decode_moe_context: int = 2048
+    decode_moe_steps: int = 8
+    moe_cpu_len: int = 256  # one layer's moe_block, card vs CPU in f32
+    # 11b: mixtral-8x22b cut 56 -> 2 layers (~10 GB of f32 a layer: the
+    # whole model does not fit one card); one prefill of 8,192 tokens, so
+    # the 4,096-token window bites.
+    swa_arch: str = "mixtral-8x22b"
+    swa_layers: int = 2
+    swa_len: int = 8192
+    # 11c: qwen3-4b at full depth, one prefill of 4,096 tokens.
+    dense_arch: str = "qwen3-4b"
+    dense_len: int = 4096
+    # 11d: launch.train's defaults (8 x 64 tokens) for 6 steps with a
+    # checkpoint every 3; one olmoe step at 2 layers x 2,048 tokens; the
+    # data-parallel step for 2 steps.
+    train_arch: str = "smollm-135m"
+    train_args: tuple = ("--steps", "6", "--checkpoint-every", "3")
+    moe_train_layers: int = 2
+    moe_train_len: int = 2048
+    moe_train_steps: int = 2
+    ddp_steps: int = 2
 
 
 def card_line() -> str:
@@ -3383,6 +3455,485 @@ def system_comparison(dev, sizes: Sizes) -> dict:
         f"(the host baselines' wait included)")
     return out
 
+# ---------------------------------------------------------------------------
+# Phase 11: every LM architecture of the registry
+
+
+def arch_config(sizes: Sizes, arch: str, **cut):
+    """``sizes.arch_config`` (``config`` or ``smoke_config``) of ``arch``'s
+    ArchSpec, with ``cut`` replaced (a depth cut)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = getattr(get_arch(arch), sizes.arch_config)
+    return dataclasses.replace(cfg, **cut) if cut else cfg
+
+
+def seeded_lm(cfg, dev, seed: int = 0):
+    """``TransformerLM(cfg)`` on ``dev`` from a generator seeded there,
+    logged with its size and init time."""
+    import torch
+
+    from repro_torch.models.transformer import TransformerLM
+
+    t0 = time.perf_counter()
+    lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    sync(dev)
+    n = sum(p.numel() for p in lm.parameters())
+    moe = cfg.moe
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}, V={cfg.vocab_size}, qk_norm={cfg.qk_norm}, "
+        f"window={cfg.sliding_window}, "
+        f"experts={None if moe is None else (moe.num_experts, moe.top_k)}, "
+        f"{cfg.dtype} compute over f32 parameters; num_params "
+        f"{cfg.num_params()} ({n} held, {4 * n} B), active "
+        f"{cfg.num_active_params()}; seeded init "
+        f"{time.perf_counter() - t0:.3f} s")
+    return lm
+
+
+def flash_at(lm, tokens, dev, sizes: Sizes, label: str) -> dict:
+    """``flash_attention`` on layer 0's own q, k, v of ``tokens``: the
+    kernel against its plain version, then the kernel's time, the plain
+    version's, one ``scaled_dot_product_attention`` call's (the window as
+    a boolean mask over the kv heads repeated, where there is one) and the
+    bound (as phase 5's)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers as L
+
+    cfg = lm.cfg
+    dt = cfg.compute_dtype
+    p = lm.blocks[0].cast(dt)
+    b, s = tokens.shape
+    x = L.rms_norm(lm.embed_tokens(tokens).to(dt), p["ln_attn"],
+                   cfg.norm_eps)
+    q, k, v = L.qkv(p["attn"], x, cfg, torch.arange(s, device=dev))
+    del x, p
+    win = cfg.sliding_window
+    err = flash_within(
+        f"{label}: flash_attention, layer 0 at {tuple(q.shape)} {q.dtype}",
+        flash_ops.flash_attention(q, k, v, True, win),
+        flash_attention_ref(q, k, v, True, win))
+    kernel_ms = event_ms(lambda: flash_ops.flash_attention(q, k, v, True,
+                                                           win),
+                         sizes.reps, dev)
+    plain_ms = event_ms(lambda: flash_attention_ref(q, k, v, True, win), 1,
+                        dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if win is None:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), sizes.reps,
+                dev)
+    else:
+        g = cfg.n_heads // cfg.n_kv_heads
+        kt, vt = (t.repeat_interleave(g, dim=1) for t in (kt, vt))
+        i = torch.arange(s, device=dev)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < win)
+        library_ms = event_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), sizes.reps, dev)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = attention_flops(b, s, cfg.n_heads, cfg.head_dim, win)
+    peak = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    out = dict(shape=list(q.shape), kv_heads=cfg.n_kv_heads, window=win,
+               dtype=str(q.dtype), max_abs_err=err, ms=kernel_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               launches_a_prefill=cfg.n_layers)
+    log(f"  {label}: flash_attention at {tuple(q.shape)} over "
+        f"{cfg.n_kv_heads} kv heads, window {win}, {q.dtype}: kernel "
+        f"{kernel_ms!r} ms ({kernel_ms * cfg.n_layers!r} ms a prefill), "
+        f"plain {plain_ms!r} ms, library (scaled_dot_product_attention) "
+        f"{library_ms!r} ms, bound {out['bound_ms']!r} ms "
+        f"({out['bound_by']}: {nbytes} B, {flops!r} flop); max_abs_err vs "
+        f"plain {err!r}")
+    return out
+
+
+def prefill_arch(dev, sizes: Sizes, lm, b: int, s: int, label: str,
+                 hold_f32: bool) -> dict:
+    """``lm.prefill`` of b x s tokens through ``flash_attention`` (a
+    warm-up and ``lm_rounds`` rounds, the counter zeroed before and read
+    after: one launch a layer), the kernel at layer 0's shape
+    (:func:`flash_at`), then the whole prefill against the plain path:
+    bf16 logits within ARCH_BF16_DRIFTS times the plain path's own
+    bf16-vs-f32 drift (phase 5's bar is one drift; whether it holds is
+    printed), the argmax equal where the top-2 margin is clear, and with
+    ``hold_f32`` the f32 logits within PREFILL_F32_RTOL of max |plain|
+    (phase 5's f32 bar).  A MoE's f32 routing may flip a near-tied expert
+    between the two orders of summation, which moves a token by a gate's
+    share, so its f32 error is printed, not held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    cfg = lm.cfg
+    tokens = torch.from_numpy(make_lm_batch(b, s, cfg.vocab_size,
+                                            seed=0)["tokens"]).to(dev)
+    out = {}
+    with torch.inference_mode():
+        flash_ops.launches = 0
+        got16, ms = host_rounds(f"{label}: prefill {b} x {s}",
+                                lambda: lm.prefill(tokens), sizes.lm_rounds,
+                                dev, b * s, unit="tokens/s")
+        launches = flash_ops.launches
+        calls = sizes.lm_rounds + 1
+        log(f"  {label}: flash_attention launches {launches} in {calls} "
+            f"prefill calls")
+        if launches != calls * cfg.n_layers:
+            raise AssertionError(f"{label}: flash_attention launched "
+                                 f"{launches} times, not {cfg.n_layers} a "
+                                 f"prefill")
+        if (tuple(got16.shape) != (b, 1, cfg.vocab_size)
+                or not bool(torch.isfinite(got16).all())):
+            raise AssertionError(f"{label}: not finite [B, 1, V] logits")
+        out["prefill"] = dict(ms=ms, tokens=b * s, launches=launches,
+                              calls=calls)
+        out["flash"] = flash_at(lm, tokens, dev, sizes, label)
+
+        plain16 = lm.prefill(tokens, use_kernel=False)
+        lm.cfg = dataclasses.replace(cfg, dtype="float32")
+        try:
+            got32 = lm.prefill(tokens)
+            plain32 = lm.prefill(tokens, use_kernel=False)
+        finally:
+            lm.cfg = cfg
+    e32 = float((got32 - plain32).abs().max())
+    scale = float(plain32.abs().max())
+    e16 = float((got16 - plain16).abs().max())
+    drift = float((plain16 - plain32).abs().max())
+    top2 = plain16[:, 0].topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    clear = margin > 2 * e16
+    same = bool((got16[:, 0].argmax(-1) == plain16[:, 0].argmax(-1))[
+        clear].all())
+    log(f"  {label}: prefill {b} x {s}, kernel vs plain path: bf16 max err "
+        f"{e16!r}, the plain path's own bf16-vs-f32 drift {drift!r} "
+        f"(within one drift, phase 5's bar: {e16 <= drift}); f32 max err "
+        f"{e32!r} (max |plain| {scale!r}, held: {hold_f32}); argmax equal "
+        f"where the top-2 margin is clear: {same}")
+    if (e16 > ARCH_BF16_DRIFTS * drift or not same
+            or (hold_f32 and e32 > PREFILL_F32_RTOL * scale)):
+        raise AssertionError(f"{label}: the kernel path disagrees with the "
+                             f"plain path")
+    out["check"] = dict(err16=e16, drift=drift, err32=e32, scale32=scale,
+                        within_one_drift=e16 <= drift)
+    return out
+
+
+def moe_layer_vs_cpu(dev, sizes: Sizes, lm, label: str) -> dict:
+    """Layer 0's ``moe_block`` in f32 on ``moe_cpu_len`` seeded normal
+    tokens, on the card against the same call on the CPU: expert ids and
+    the kept (token, slot) entries equal, the output within MOE_CPU_TOL of
+    max |CPU|, the aux loss within 1e-6 relative."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(lm.cfg, dtype="float32")
+    moe = cfg.moe
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((1, sizes.moe_cpu_len, cfg.d_model), generator=g,
+                    device=dev)
+    res = {}
+    with torch.inference_mode():
+        for where in ("card", "cpu"):
+            p = {k: v.detach().to(where if where == "cpu" else dev)
+                 for k, v in lm.blocks[0].moe.items()}
+            xx = x.to(p["router"].device)
+            t0 = time.perf_counter()
+            out, aux = L.moe_block(p, xx, cfg)
+            sync(dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+            _, ids, _ = L.route(p, xx[0], moe)
+            t = ids.shape[0]
+            g_tok = L.moe_group_tokens(t, moe)
+            pos = L.capacity_positions(ids.view(t // g_tok, g_tok, -1),
+                                       moe.num_experts)
+            kept = (pos < L.moe_capacity(g_tok, moe)).view(t, -1)
+            res[where] = (out.cpu(), float(aux), ids.cpu(), kept.cpu(), ms)
+            del p
+    (go, ga, gi, gk, gms), (co, ca, ci, ck, cms) = res["card"], res["cpu"]
+    err = float((go - co).abs().max())
+    scale = float(co.abs().max())
+    log(f"  {label}: layer 0's moe_block in f32 on {sizes.moe_cpu_len} "
+        f"tokens, card {gms!r} ms vs CPU {cms!r} ms: max err {err!r} (max "
+        f"|CPU| {scale!r}); aux {ga!r} vs {ca!r}; expert ids equal: "
+        f"{torch.equal(gi, ci)}; kept entries equal: {torch.equal(gk, ck)} "
+        f"({int((~ck).sum())} of {ck.numel()} dropped)")
+    if (not torch.equal(gi, ci) or not torch.equal(gk, ck)
+            or err > MOE_CPU_TOL * scale or abs(ga - ca) > 1e-6 * abs(ca)):
+        raise AssertionError(f"{label}: moe_block on the card disagrees "
+                             f"with the CPU")
+    return dict(err=err, scale=scale, dropped=int((~ck).sum()),
+                entries=ck.numel())
+
+
+def decode_moe(dev, sizes: Sizes, lm, label: str) -> dict:
+    """``decode_moe_steps`` decode steps for ``decode_moe_batch`` sequences
+    from a cache whose first ``decode_moe_context`` slots hold seeded K/V;
+    the (token, slot) entries dropped at capacity counted on each layer's
+    dispatch (T = B tokens a step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import layers as L
+
+    cfg = lm.cfg
+    moe = cfg.moe
+    db, ctx = sizes.decode_moe_batch, sizes.decode_moe_context
+    steps = sizes.decode_moe_steps
+    dropped, entries = [], []
+    positions = L.capacity_positions
+
+    def counting(expert_idx, num_experts):
+        pos = positions(expert_idx, num_experts)
+        dropped.append((pos >= L.moe_capacity(expert_idx.shape[1],
+                                               moe)).sum())
+        entries.append(pos.numel())
+        return pos
+
+    with torch.inference_mode():
+        cache = lm.init_cache(db, ctx + steps)
+        g = torch.Generator(device=dev).manual_seed(3)
+        kv_shape = (db, ctx, cfg.n_kv_heads, cfg.head_dim)
+        for li in range(cfg.n_layers):
+            for name in ("k", "v"):
+                cache[name][li, :, :ctx] = torch.randn(
+                    kv_shape, generator=g, device=dev).to(cfg.compute_dtype)
+        cache["pos"][:, :ctx] = torch.arange(ctx, dtype=torch.int32,
+                                             device=dev)
+        dtoks = torch.from_numpy(make_lm_batch(db, steps, cfg.vocab_size,
+                                               seed=2)["tokens"]).to(dev)
+        times = []
+        L.capacity_positions = counting
+        try:
+            for i in range(steps):
+                sync(dev)
+                t0 = time.perf_counter()
+                dl, cache = lm.decode_step(cache, dtoks[:, i], ctx + i)
+                sync(dev)
+                times.append(time.perf_counter() - t0)
+        finally:
+            L.capacity_positions = positions
+    if (tuple(dl.shape) != (db, cfg.vocab_size)
+            or not bool(torch.isfinite(dl).all())):
+        raise AssertionError(f"{label}: decode: not finite [B, V] logits")
+    n_drop = int(sum(int(d) for d in dropped))
+    step_ms = 1e3 * float(np.median(times[1:]))
+    log(f"  {label}: decode {db} x {steps} steps from {ctx} cached "
+        f"positions: {step_ms!r} ms per step (median of steps 2-{steps}, "
+        f"all {[1e3 * t for t in times]!r}); capacity "
+        f"{L.moe_capacity(db, moe)} a expert per step's group of {db}: "
+        f"{n_drop} of {sum(entries)} (token, slot) entries dropped over "
+        f"{steps} steps x {cfg.n_layers} layers")
+    del cache
+    return dict(ms=step_ms, batch=db, context=ctx, steps=steps,
+                dropped=n_drop, entries=sum(entries))
+
+
+def train_archs(dev, sizes: Sizes) -> dict:
+    """11d: ``launch.train.main`` at ``train_arch``'s width with
+    checkpoints, its later checkpoints removed, then a restart: the
+    restarted steps' losses bit for bit the unbroken run's (both under
+    deterministic algorithms); one step of ``moe_arch`` at full width and
+    ``moe_train_layers`` layers, aux included; ``make_ddp_train_step``
+    under an NCCL group of one: uncompressed, bit for bit
+    ``make_train_step``; compressed, its loss and error buffer."""
+    import dataclasses
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import lm_batch_fn
+    from repro_torch.launch import train as train_main
+    from repro_torch.train import (AdamWConfig, init_state,
+                                   make_ddp_train_step, make_train_step)
+    from repro_torch.train.train_loop import to_device
+
+    out = {}
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        argv = ["--arch", sizes.train_arch, "--device", dev.type,
+                "--checkpoint-dir", tmp, *sizes.train_args]
+        if sizes.arch_config == "smoke_config":
+            argv.append("--smoke")
+        t0 = time.perf_counter()
+        unbroken = train_main.main(argv)
+        first_s = time.perf_counter() - t0
+        every = int(argv[argv.index("--checkpoint-every") + 1])
+        for name in os.listdir(tmp):
+            if int(name.split("_")[1]) > every:
+                shutil.rmtree(os.path.join(tmp, name))
+        restarted = train_main.main(argv)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = [m["loss"] for m in unbroken[every:]]
+    got = [m["loss"] for m in restarted]
+    log(f"  11d launch.train {' '.join(argv[:2])} {' '.join(sizes.train_args)}"
+        f": {len(unbroken)} steps in {first_s:.3f} s, losses "
+        f"{[m['loss'] for m in unbroken]!r}; restarted from step {every}: "
+        f"{got!r}")
+    if got != want:
+        raise AssertionError("launch.train: the restart's losses are not "
+                             "the unbroken run's")
+    out["launch_train"] = dict(losses=[m["loss"] for m in unbroken],
+                               restarted=got, seconds=first_s)
+
+    # one MoE step at full width, depth cut
+    cfg = arch_config(sizes, sizes.moe_arch, n_layers=sizes.moe_train_layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm = seeded_lm(cfg, dev)
+    batch = lm_batch_fn(1, sizes.moe_train_len, cfg.vocab_size)(0, 0)
+    with torch.no_grad():
+        total, parts = lm.loss_fn(to_device(batch, dev))
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    clock = StepClock(make_train_step(lm.loss_fn, adamw), dev)
+    state = init_state(dict(lm.named_parameters()), adamw).as_dict()
+    losses = [float(clock(state, batch)[1]["loss"])
+              for _ in range(sizes.moe_train_steps)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  11d {cfg.name} x {cfg.n_layers} layers, 1 x "
+        f"{sizes.moe_train_len} tokens: ce {float(parts['ce'])!r} + aux "
+        f"{float(parts['aux'])!r} = {float(total)!r}; step losses "
+        f"{losses!r}, ms {clock.ms!r}; peak {peak} B")
+    if not (float(parts["aux"]) > 0 and abs(losses[0] - float(total))
+            <= TRAIN_LOSS_RTOL * abs(float(total))):
+        raise AssertionError(f"{cfg.name}: the step's loss is not ce + aux")
+    out["moe_step"] = dict(ms=clock.ms, losses=losses,
+                           ce=float(parts["ce"]), aux=float(parts["aux"]),
+                           peak_bytes=peak, layers=cfg.n_layers)
+    del lm, state, clock
+    torch.cuda.empty_cache()
+
+    # make_ddp_train_step under an NCCL group of one
+    cfg = arch_config(sizes, sizes.train_arch)
+    batches = [lm_batch_fn(8, 64, cfg.vocab_size)(0, i)
+               for i in range(sizes.ddp_steps)]
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for mode in ("single", "ddp", "compressed"):
+            lm = seeded_lm(cfg, dev)
+            adamw = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+            step = (make_train_step(lm.loss_fn, adamw) if mode == "single"
+                    else make_ddp_train_step(lm.loss_fn, adamw,
+                                             compress=mode == "compressed"))
+            clock = StepClock(step, dev)
+            state = init_state(dict(lm.named_parameters()), adamw).as_dict()
+            losses = []
+            for b_ in batches:
+                state, m = clock(state, b_)
+                losses.append(float(m["loss"]))
+            runs[mode] = (losses, {k: v.detach().clone()
+                                   for k, v in lm.named_parameters()},
+                          state.get("err_buf"), clock.ms)
+            del lm
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    (l1, p1, _, ms1), (l2, p2, _, ms2) = runs["single"], runs["ddp"]
+    lc, _, err_buf, msc = runs["compressed"]
+    same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+    err_bytes = sum(e.numel() * e.element_size() for e in err_buf.values())
+    log(f"  11d make_ddp_train_step under NCCL of 1, {cfg.name}: "
+        f"uncompressed losses {l2!r} vs make_train_step {l1!r}, bit for "
+        f"bit (losses and parameters): {same}; ms {ms2!r} vs {ms1!r}; "
+        f"compressed losses {lc!r}, ms {msc!r}, err_buf {len(err_buf)} "
+        f"leaves, {err_bytes} B")
+    if not same:
+        raise AssertionError("make_ddp_train_step at world size 1 is not "
+                             "make_train_step")
+    out["ddp"] = dict(losses=l2, single_losses=l1, compressed_losses=lc,
+                      bitwise=same, err_buf_bytes=err_bytes, ms=ms2,
+                      single_ms=ms1, compressed_ms=msc)
+    return out
+
+
+def lm_archs(dev, sizes: Sizes) -> dict:
+    """Phase 11: 11a ``moe_arch`` at full width and depth (prefill, the
+    kernel at layer 0, decode with drops, one layer on the card against
+    the CPU), 11b ``swa_arch`` at full width and ``swa_layers`` layers
+    (prefill over the window), 11c ``dense_arch`` at full width and depth
+    (Dh 128 with qk_norm), 11d training (:func:`train_archs`)."""
+    import torch
+
+    out = {"card": card_line() if dev.type == "cuda" else "cpu"}
+    log(f"  tf32 in matmuls: {torch.backends.cuda.matmul.allow_tf32}")
+
+    t0 = time.perf_counter()
+    lm = seeded_lm(arch_config(sizes, sizes.moe_arch), dev)
+    label = f"11a {lm.cfg.name}"
+    run = prefill_arch(dev, sizes, lm, sizes.moe_batch, sizes.moe_len, label,
+                       hold_f32=False)
+    run["decode"] = decode_moe(dev, sizes, lm, label)
+    run["layer_vs_cpu"] = moe_layer_vs_cpu(dev, sizes, lm, label)
+    run["seconds"] = time.perf_counter() - t0
+    out[lm.cfg.name] = run
+    del lm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm = seeded_lm(arch_config(sizes, sizes.swa_arch,
+                               n_layers=sizes.swa_layers), dev)
+    run = prefill_arch(dev, sizes, lm, 1, sizes.swa_len,
+                       f"11b {lm.cfg.name} x {lm.cfg.n_layers} layers",
+                       hold_f32=False)
+    run["layers"] = lm.cfg.n_layers
+    run["seconds"] = time.perf_counter() - t0
+    out[lm.cfg.name] = run
+    del lm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lm = seeded_lm(arch_config(sizes, sizes.dense_arch), dev)
+    run = prefill_arch(dev, sizes, lm, 1, sizes.dense_len,
+                       f"11c {lm.cfg.name}", hold_f32=True)
+    run["seconds"] = time.perf_counter() - t0
+    out[lm.cfg.name] = run
+    del lm
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    out["training"] = train_archs(dev, sizes)
+    out["training"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -3697,6 +4248,19 @@ def run(dev, sizes: Sizes) -> list[dict]:
     comparison["seconds"] = time.perf_counter() - t0
     log(f"phase 10: {comparison['seconds']:.3f} s")
     print(json.dumps({"comparison": comparison}, default=float))
+
+    # 11. every LM architecture; phase 10's data is gone
+    del comparison
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 11: LM architectures: {sizes.moe_arch} prefill "
+        f"{sizes.moe_batch} x {sizes.moe_len} and decode, {sizes.swa_arch} x "
+        f"{sizes.swa_layers} layers prefill 1 x {sizes.swa_len}, "
+        f"{sizes.dense_arch} prefill 1 x {sizes.dense_len}; training")
+    archs = lm_archs(dev, sizes)
+    archs["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {archs['seconds']:.3f} s")
+    print(json.dumps({"lm_archs": archs}, default=float))
     return rows
 
 

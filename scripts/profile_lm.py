@@ -1,16 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of an LM prefill and of a decode step goes, on the card.
 
-Builds ``qwen2-0.5b`` (``repro_torch.configs.qwen2_0_5b.FULL``) with seeded
-random weights, runs one prefill of B x S tokens and a few decode steps
-from a cache whose first slots hold seeded K/V (the shapes of
-``chip_smoke.py``'s phase 5), each after a warm-up, under
-``torch.profiler``, and prints for each: the host-clock time of the
+Builds ``--arch`` (default ``qwen2-0.5b``; any LM of
+``repro_torch.configs.get_arch``, its full config, ``--layers`` cutting its
+depth) with seeded random weights, runs one prefill of B x S tokens and a
+few decode steps from a cache whose first slots hold seeded K/V (the
+shapes of ``chip_smoke.py``'s phase 5 by default), each after a warm-up,
+under ``torch.profiler``, and prints for each: the host-clock time of the
 window (synchronised), the device time summed over its kernels (one
 stream, so the busy share is their ratio) and the kernels that took the
-most device time.  Run from the root of a checkout with one CUDA card:
+most device time.  For a mixture-of-experts arch it also prints the MoE
+layers' share of the window: CUDA events around each ``moe_block`` call
+(routing, dispatch, expert products and combine), summed.  Run from the
+root of a checkout with one CUDA card:
 
     python3 scripts/profile_lm.py [--prefill-len 32768] [--decode-batch 32]
+    python3 scripts/profile_lm.py --arch olmoe-1b-7b --prefill-batch 4 \
+        --prefill-len 2048 --decode-context 2048
 """
 from __future__ import annotations
 
@@ -22,18 +28,56 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def profile(name: str, fn, dev, top: int) -> None:
+class MoETimer:
+    """Wraps ``layers.moe_block`` to record a CUDA event pair around each
+    call while ``on``; ``ms()`` sums the pairs recorded since ``reset``."""
+
+    def __init__(self, layers):
+        self.layers, self.inner = layers, layers.moe_block
+        self.pairs, self.on = [], False
+        layers.moe_block = self
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        if not self.on:
+            return self.inner(*args, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.inner(*args, **kw)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def reset(self):
+        self.pairs = []
+
+    def ms(self) -> float:
+        return sum(a.elapsed_time(b) for a, b in self.pairs)
+
+
+def profile(name: str, fn, dev, top: int, moe=None) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()  # warm-up
     torch.cuda.synchronize(dev)
+    if moe is not None:
+        moe.reset()
+        moe.on = True
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    if moe is not None:
+        moe.on = False
+        moe_ms = moe.ms()
+        print(f"{name}: MoE layers {moe_ms!r} ms between their events over "
+              f"{len(moe.pairs)} calls ({moe_ms / wall_ms!r} of the "
+              f"window)")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -49,6 +93,10 @@ def main() -> int:
     import torch
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--arch", default="qwen2-0.5b")
+    p.add_argument("--layers", type=int, default=0,
+                   help="cut the depth to this many layers (0: the "
+                        "config's)")
     p.add_argument("--prefill-batch", type=int, default=1)
     p.add_argument("--prefill-len", type=int, default=32768)
     p.add_argument("--decode-batch", type=int, default=32)
@@ -60,19 +108,27 @@ def main() -> int:
         print("profile_lm: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs.qwen2_0_5b import FULL as cfg
+    import dataclasses
+
+    from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.models import layers
     from repro_torch.models.transformer import TransformerLM
 
+    cfg = get_arch(args.arch).config
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    moe = MoETimer(layers) if cfg.moe else None
     dev = torch.device("cuda", 0)
-    print(torch.cuda.get_device_name(0), torch.__version__)
+    print(torch.cuda.get_device_name(0), torch.__version__, cfg.name,
+          f"{cfg.n_layers} layers")
     lm = TransformerLM(cfg, device=dev,
                        generator=torch.Generator(device=dev).manual_seed(0))
     tokens = torch.from_numpy(make_lm_batch(
         args.prefill_batch, args.prefill_len, cfg.vocab_size)["tokens"]).to(dev)
     with torch.inference_mode():
         profile(f"prefill {args.prefill_batch} x {args.prefill_len}",
-                lambda: lm.prefill(tokens), dev, args.top)
+                lambda: lm.prefill(tokens), dev, args.top, moe)
         db, ctx, steps = (args.decode_batch, args.decode_context,
                           args.decode_steps)
         cache = lm.init_cache(db, ctx + 2 * steps)
@@ -94,7 +150,7 @@ def main() -> int:
                 pos[0] += 1
 
         profile(f"decode {db} x {steps} steps from {ctx}", decode, dev,
-                args.top)
+                args.top, moe)
     return 0
 
 

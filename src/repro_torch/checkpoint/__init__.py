@@ -1,3 +1,5 @@
-from repro_torch.checkpoint.checkpoint import Checkpointer, load_latest
+from repro_torch.checkpoint.checkpoint import (
+    Checkpointer, load_latest, reshard,
+)
 
-__all__ = ["Checkpointer", "load_latest"]
+__all__ = ["Checkpointer", "load_latest", "reshard"]

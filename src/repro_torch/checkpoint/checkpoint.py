@@ -22,7 +22,9 @@ directory.  The one pair serves every family: a recsys model has no
 ``save`` copies every leaf to host memory before it returns, so the next
 step may overwrite the live tensors while the writer thread works: on the
 CPU ``t.cpu()`` and ``t.numpy()`` share the live tensor's memory, so the
-copy is explicit.  ``reshard`` (placing a tree on a mesh) is not ported.
+copy is explicit.  ``reshard`` places a host tree on this rank's device:
+under data parallelism every rank takes the whole tree, where JAX places
+it on a mesh under its specs.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.train.train_loop import state_from_jax, state_to_jax
-from repro_torch.utils import nest
+from repro_torch.utils import nest, resolve_device
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -171,3 +173,18 @@ def load_latest(directory: str, template: Any):
         return None, 0
     step = steps[-1]
     return ck.load(step, template), step
+
+
+def reshard(tree, device):
+    """A host tree (numpy arrays or CPU tensors, nested in dicts, lists or
+    tuples) as the same tree of tensors on ``device`` (``"cuda"`` raises
+    without a card): the whole tree on this rank, as data parallelism
+    holds it (the counterpart of ``repro.checkpoint.reshard``, which
+    places each leaf on a mesh under its spec; an elastic restart reads
+    the same tree whatever the writer's world size)."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: reshard(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(reshard(v, dev) for v in tree)
+    return torch.as_tensor(tree).to(dev)

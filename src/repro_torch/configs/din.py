@@ -1,6 +1,8 @@
 """din [arXiv:1706.06978; paper] — target attention over behaviours
 (``repro.configs.din``, field for field)."""
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import (
+    ArchSpec, RECSYS_SHAPES, RecsysConfig, register,
+)
 from repro_torch.configs.recsys_common import (
     AMAZON_CTX, ITEM_VOCAB, SMOKE_CTX, SMOKE_ITEMS,
 )
@@ -27,4 +29,19 @@ SMOKE = RecsysConfig(
     seq_len=12,
     item_vocab=SMOKE_ITEMS,
     attn_mlp=(16, 8),
+)
+
+register(
+    ArchSpec(
+        arch_id="din",
+        family="recsys",
+        config=FULL,
+        shapes=RECSYS_SHAPES,
+        smoke_config=SMOKE,
+        source="arXiv:1706.06978; paper",
+        notes=(
+            "retrieval_cand runs full target attention as a batched einsum "
+            "over all candidates + the paper's sharded top-k."
+        ),
+    )
 )

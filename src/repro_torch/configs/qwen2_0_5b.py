@@ -4,7 +4,9 @@
 ``rope_theta`` stays at the JAX config's default of 10,000, as in the
 reference; the published Qwen2-0.5B ``config.json`` gives 1,000,000.
 """
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import (
+    ArchSpec, LM_SHAPES, TransformerConfig, register,
+)
 
 FULL = TransformerConfig(
     name="qwen2-0.5b",
@@ -32,4 +34,17 @@ SMOKE = TransformerConfig(
     tie_embeddings=True,
     dtype="float32",
     param_dtype="float32",
+)
+
+register(
+    ArchSpec(
+        arch_id="qwen2-0.5b",
+        family="lm",
+        config=FULL,
+        shapes=LM_SHAPES,
+        smoke_config=SMOKE,
+        source="arXiv:2407.10671; hf",
+        skip_shapes=("long_500k",),
+        notes="Pure full attention -> long_500k skipped (DESIGN.md §4).",
+    )
 )

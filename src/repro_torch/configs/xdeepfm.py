@@ -1,6 +1,8 @@
 """xdeepfm [arXiv:1803.05170; paper] — CIN + deep MLP + linear
 (``repro.configs.xdeepfm``, field for field)."""
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import (
+    ArchSpec, RECSYS_SHAPES, RecsysConfig, register,
+)
 from repro_torch.configs.recsys_common import CRITEO39, SMOKE_39
 
 FULL = RecsysConfig(
@@ -21,4 +23,15 @@ SMOKE = RecsysConfig(
     vocab_sizes=SMOKE_39,
     mlp_dims=(32, 32),
     cin_layers=(16, 16),
+)
+
+register(
+    ArchSpec(
+        arch_id="xdeepfm",
+        family="recsys",
+        config=FULL,
+        shapes=RECSYS_SHAPES,
+        smoke_config=SMOKE,
+        source="arXiv:1803.05170; paper",
+    )
 )

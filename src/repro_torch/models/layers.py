@@ -10,6 +10,13 @@ chunk loop); the LM's prefill attention can instead go through the CUDA
 ``flash_attention`` kernel (:func:`attention_block`), which computes the
 same function.  Single-token decode against a KV cache stays plain PyTorch,
 as it has no Pallas kernel in the JAX package either.
+
+The mixture-of-experts layer (:func:`moe_block`) routes each token to its
+top-k experts (:func:`route`) and runs them through one of two dispatches:
+:func:`moe_einsum`, GShard's, with a capacity per dispatch group and the
+tokens past it dropped, and :func:`moe_ragged`, dropless.  Its expert
+products are ``torch.bmm``/``matmul`` (``jnp.einsum`` and
+``lax.ragged_dot`` in JAX, outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -19,8 +26,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention import flash_attention
+
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: Optional[float] = None,
@@ -255,3 +263,189 @@ def mlp_block(params, x: torch.Tensor, cfg: TransformerConfig):
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+
+
+def init_moe(gen: torch.Generator, cfg: TransformerConfig, dtype,
+             device=None) -> dict:
+    """``router`` [d, E] f32, ``w_gate``/``w_up`` [E, d, F] and ``w_down``
+    [E, F, d] in ``dtype``: N(0, 1/d) for the first three, N(0, 1/F) for
+    ``w_down``, drawn on the generator's device."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+        return w.to(device=device, dtype=dtype)
+
+    return {
+        "router": dense_init(gen, d, e, torch.float32, device=device),
+        "w_gate": normal((e, d, f), 1.0 / math.sqrt(d)),
+        "w_up": normal((e, d, f), 1.0 / math.sqrt(d)),
+        "w_down": normal((e, f, d), 1.0 / math.sqrt(f)),
+    }
+
+
+def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in ``idx`` (int64 [n]).  A
+    ``scatter_add_``, where ``bincount`` and ``one_hot`` read the largest
+    id back to the host first: no sync, so the host runs ahead."""
+    return torch.zeros(n, dtype=torch.long, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
+def route(params, xf: torch.Tensor, moe: MoEConfig):
+    """The router over tokens ``xf`` [T, d] -> (gates [T, k] f32, expert ids
+    [T, k] int64, aux loss): f32 logits ``xf @ router`` (the router in
+    whatever dtype the layer was cast to, promoted to f32, as in JAX), a
+    softmax, the top k with ties to the lower expert (a stable descending
+    sort: ``lax.top_k``'s order), the gates renormalised to sum 1, and
+    Switch's load-balancing loss ``E * sum_e f_e p_e * aux_loss_weight``."""
+    e, k = moe.num_experts, moe.top_k
+    t = xf.shape[0]
+    probs = torch.softmax(xf.float() @ params["router"].float(), dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, expert_idx = top.values[:, :k], top.indices[:, :k]
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    me = torch.mean(probs, dim=0)
+    ce = _counts(expert_idx.reshape(-1), e).float() / t / k
+    aux = e * torch.sum(me * ce) * moe.aux_loss_weight
+    return gate_vals, expert_idx, aux
+
+
+def capacity_positions(expert_idx: torch.Tensor,
+                       num_experts: int) -> torch.Tensor:
+    """Expert ids [G, g, k] -> each (token, slot)'s position in its
+    expert's queue: the number of the group's earlier entries, counted
+    token-major and slot-minor, routed to the same expert (the cumsum of
+    ``_moe_einsum``'s one-hots, here by a stable sort)."""
+    g, tg, k = expert_idx.shape
+    dev = expert_idx.device
+    groups = torch.arange(g, device=dev)[:, None, None]
+    key = (expert_idx + num_experts * groups).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    counts = _counts(key, g * num_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(key)
+    pos[order] = torch.arange(key.numel(), device=dev) - starts[key[order]]
+    return pos.reshape(g, tg, k)
+
+
+def moe_group_tokens(t: int, moe: MoEConfig) -> int:
+    """Tokens a dispatch group of ``t`` tokens: ``group_tokens`` halved
+    until it divides ``t`` (1 at worst: an odd ``t``)."""
+    g_tok = moe.group_tokens
+    while t % g_tok:
+        g_tok //= 2
+    return g_tok
+
+
+def moe_capacity(tokens_per_group: int, moe: MoEConfig) -> int:
+    """Slots per expert per group: JAX's float expression, truncated."""
+    return max(int(tokens_per_group * moe.top_k / moe.num_experts
+                   * moe.capacity_factor), 1)
+
+
+def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
+               expert_idx: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """GShard dispatch over groups: ``xg`` [G, g, d], gates and ids
+    [G, g, k] -> [G, g, d] in ``xg``'s dtype.
+
+    Each expert takes at most C = :func:`moe_capacity` (token, slot)
+    entries a group, in token-major, slot-minor order; the rest are
+    dropped (add nothing).  Where JAX multiplies [G, g, E, C] one-hots,
+    the kept entries' rows are gathered into an [E, G C, d] buffer (empty
+    slots zero), the experts run as three batched products, and each
+    token sums its kept slots' outputs times its gates, the gates rounded
+    to the compute dtype first (``gate_vals.astype(dt)`` in JAX)."""
+    g, tg, d = xg.shape
+    e = moe.num_experts
+    c = moe_capacity(tg, moe)
+    dev, dt = xg.device, xg.dtype
+    pos = capacity_positions(expert_idx, e)
+    kept = pos < c
+    n_slots = e * g * c
+    groups = torch.arange(g, device=dev)[:, None, None]
+    slot = expert_idx * (g * c) + groups * c + pos  # [G, g, k]
+    # the token each buffer slot holds (g * tg: none, a zero row); each
+    # dropped entry writes a slot of its own past the buffer
+    entry = torch.arange(slot.numel(), device=dev).view_as(slot)
+    dest = torch.where(kept, slot, n_slots + entry).reshape(-1)
+    token = (groups * tg + torch.arange(tg, device=dev)[None, :, None])
+    src = torch.full((n_slots + slot.numel(),), g * tg, dtype=torch.long,
+                     device=dev)
+    src[dest] = token.expand_as(slot).reshape(-1)
+    x_pad = torch.cat([xg.reshape(g * tg, d), xg.new_zeros(1, d)])
+    expert_in = x_pad[src[:n_slots]].view(e, g * c, d)
+    h = F.silu(torch.bmm(expert_in, params["w_gate"])) * torch.bmm(
+        expert_in, params["w_up"])
+    expert_out = torch.bmm(h, params["w_down"]).view(n_slots, d)
+    y = expert_out[torch.where(kept, slot, 0)]  # [G, g, k, d]
+    gates = torch.where(kept, gate_vals.to(dt), 0).float()
+    return torch.sum(y.float() * gates[..., None], dim=2).to(dt)
+
+
+def moe_ragged(params, xf: torch.Tensor, gate_vals: torch.Tensor,
+               expert_idx: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+    """Dropless dispatch: tokens [T, d], gates and ids [T, k] -> [T, d].
+    The (token, slot) entries sorted by expert (stable), each expert's
+    contiguous rows through its three products (``lax.ragged_dot``; one
+    host sync reads the group sizes), the outputs times the gates in the
+    outputs' dtype, then each token's k rows summed."""
+    t, d = xf.shape
+    k = expert_idx.shape[-1]
+    flat = expert_idx.reshape(-1)
+    sort_idx = torch.sort(flat, stable=True).indices
+    xs = xf[sort_idx // k]  # [T k, d] permuted copies
+    sizes = torch.bincount(flat, minlength=moe.num_experts).tolist()
+    outs, start = [], 0
+    for i, n in enumerate(sizes):
+        rows = xs[start:start + n]
+        h = F.silu(rows @ params["w_gate"][i]) * (rows @ params["w_up"][i])
+        outs.append(h @ params["w_down"][i])
+        start += n
+    ys = torch.cat(outs)
+    ys = ys * gate_vals.reshape(-1)[sort_idx][:, None].to(ys.dtype)
+    by_entry = torch.empty_like(ys)
+    by_entry[sort_idx] = ys
+    return torch.sum(by_entry.view(t, k, d), dim=1)
+
+
+# dispatch volume (T x g x k x capacity factor) above which the einsum
+# dispatch runs the sequence in super-chunks of g tokens, one at a time
+MOE_SUPER_CHUNK_ELEMS = 4e9
+
+
+def moe_block(params, x: torch.Tensor, cfg: TransformerConfig):
+    """Top-k mixture of experts over ``x`` [B, S, d] -> (out [B, S, d] in
+    x's dtype, aux loss).  The einsum dispatch regroups the B S tokens into
+    groups of :func:`moe_group_tokens`; above
+    ``MOE_SUPER_CHUNK_ELEMS`` (and when S splits into such groups) it runs
+    each super-chunk of g tokens of every row in turn, the same groups, so
+    the same result, with one chunk's buffers live."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    gate_vals, expert_idx, aux = route(params, xf, moe)
+    if moe.dispatch == "ragged":
+        out = moe_ragged(params, xf, gate_vals, expert_idx, moe)
+        return out.reshape(b, s, d).to(x.dtype), aux
+    t, k = b * s, gate_vals.shape[-1]
+    g_tok = moe_group_tokens(t, moe)
+    dispatch_elems = t * g_tok * moe.top_k * moe.capacity_factor
+    if (dispatch_elems > MOE_SUPER_CHUNK_ELEMS and s > g_tok
+            and s % g_tok == 0):
+        gv = gate_vals.reshape(b, s, k)
+        ei = expert_idx.reshape(b, s, k)
+        out = torch.cat([
+            moe_einsum(params, x[:, j:j + g_tok], gv[:, j:j + g_tok],
+                       ei[:, j:j + g_tok], moe)
+            for j in range(0, s, g_tok)], dim=1)
+    else:
+        n = t // g_tok
+        out = moe_einsum(params, xf.reshape(n, g_tok, d),
+                         gate_vals.reshape(n, g_tok, k),
+                         expert_idx.reshape(n, g_tok, k), moe)
+    return out.reshape(b, s, d).to(x.dtype), aux

@@ -35,10 +35,15 @@ class SpladeEncoder(Backbone):
     """The encoder of ``cfg`` on ``device`` (default ``"cuda"``: raises
     without a card), initialised from ``generator`` with the JAX init's
     laws (other numbers: carry JAX weights with :func:`params_from_jax`):
-    the backbone's parameters, then the head's bias."""
+    the backbone's parameters, then the head's bias.  A config with
+    ``moe`` set raises ``NotImplementedError``."""
 
     def __init__(self, cfg: TransformerConfig, device="cuda",
                  generator: Optional[torch.Generator] = None):
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the SPLADE encoder has no expert layers (the "
+                f"JAX encode reads each block's mlp)")
         super().__init__(cfg, device, generator)
         self.mlm_bias = nn.Parameter(torch.zeros(
             cfg.vocab_size, dtype=torch.float32, device=self.embed.device))

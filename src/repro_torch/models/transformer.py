@@ -1,16 +1,19 @@
-"""Decoder-only transformer LM: prefill and single-token decode against a
-KV cache, and the next-token loss of training (``repro.models.transformer``;
-dense layers only).
+"""Decoder-only transformer LM, dense or mixture-of-experts: prefill and
+single-token decode against a KV cache, and the next-token loss of training
+(``repro.models.transformer``).
 
 ``TransformerLM(cfg, device="cuda", generator=None)`` holds the JAX params
 pytree's leaves under the same names, one block per layer where JAX stacks
 them for ``scan``: ``embed`` [V, d], ``blocks.<i>.attn.{wq,wk,wv,wo}``
 (``bq``/``bk``/``bv`` with ``qkv_bias``, ``q_norm``/``k_norm`` with
 ``qk_norm``), ``blocks.<i>.ln_attn``, ``blocks.<i>.ln_mlp``,
-``blocks.<i>.mlp.{w_gate,w_up,w_down}`` (no ``w_gate`` for gelu),
+``blocks.<i>.mlp.{w_gate,w_up,w_down}`` (no ``w_gate`` for gelu) or, with
+``cfg.moe``, ``blocks.<i>.moe.{router,w_gate,w_up,w_down}`` in its place,
 ``ln_f``, and ``lm_head`` when the head is untied.  Parameters are f32;
-each layer's are cast to the compute ``cfg.dtype`` as it runs, and the
-embedding after the gather, as the JAX ``_cast_floats`` does.
+each layer's are cast to the compute ``cfg.dtype`` as it runs (the
+router's too: under bf16 it is rounded to bf16 and promoted back to f32
+for the routing logits), and the embedding after the gather, as the JAX
+``_cast_floats`` does.
 :func:`params_from_jax` turns a JAX params pytree (as numpy arrays) into
 the ``state_dict``, and :func:`params_to_jax` the ``state_dict`` back into
 the JAX pytree, its blocks restacked [L, ...].
@@ -22,7 +25,11 @@ runs here).  Decode is plain PyTorch.  The kernel has no backward, so run
 the LM under ``torch.inference_mode()``.  ``loss_fn`` trains through the
 plain chunked attention; with ``cfg.remat`` each block of a forward that
 records gradients runs under ``torch.utils.checkpoint`` (its activations
-recomputed in the backward, as ``jax.checkpoint`` does in JAX).
+recomputed in the backward, as ``jax.checkpoint`` does in JAX).  A MoE
+layer adds its load-balancing loss to ``loss_fn``'s total (summed over the
+layers); prefill and decode drop it, as JAX does.  At decode the T = B
+tokens of a step form the dispatch groups, so decode drops tokens at
+capacity too.
 """
 from __future__ import annotations
 
@@ -54,15 +61,19 @@ class _Block(nn.Module):
                                                device=device))
         self.ln_mlp = nn.Parameter(torch.ones(cfg.d_model, dtype=dtype,
                                               device=device))
-        self.mlp = _params(L.init_mlp(gen, cfg, dtype, device))
+        self.ffn = "moe" if cfg.moe else "mlp"
+        init = L.init_moe if cfg.moe else L.init_mlp
+        setattr(self, self.ffn, _params(init(gen, cfg, dtype, device)))
 
     def cast(self, dtype) -> dict:
-        """The layer's parameters as plain tensors in ``dtype``."""
+        """The layer's parameters as plain tensors in ``dtype`` (every
+        float leaf, the router's too, as ``_cast_floats`` does)."""
         return {
             "attn": {k: v.to(dtype) for k, v in self.attn.items()},
             "ln_attn": self.ln_attn.to(dtype),
             "ln_mlp": self.ln_mlp.to(dtype),
-            "mlp": {k: v.to(dtype) for k, v in self.mlp.items()},
+            self.ffn: {k: v.to(dtype)
+                       for k, v in getattr(self, self.ffn).items()},
         }
 
 
@@ -105,11 +116,17 @@ class Backbone(nn.Module):
 
 
 class TransformerLM(Backbone):
-    """The LM of ``cfg`` (no experts): ``prefill`` and ``decode_step``."""
+    """The LM of ``cfg``: ``prefill``, ``decode_step`` and ``loss_fn``."""
 
-    def _mlp_half(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        pre = L.rms_norm(x, p["ln_mlp"], self.cfg.norm_eps)
-        return x + L.mlp_block(p["mlp"], pre, self.cfg)
+    def _mlp_half(self, p: dict, x: torch.Tensor):
+        """The block's second half -> (x + the MLP's or the experts'
+        output, the experts' aux loss: 0.0 for an MLP)."""
+        cfg = self.cfg
+        pre = L.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+        if cfg.moe:
+            h, aux = L.moe_block(p["moe"], pre, cfg)
+            return x + h, aux
+        return x + L.mlp_block(p["mlp"], pre, cfg), 0.0
 
     def _block(self, blk: _Block, x: torch.Tensor, positions: torch.Tensor,
                q_chunk: int, kv_chunk: int, use_kernel: bool):
@@ -121,9 +138,9 @@ class TransformerLM(Backbone):
         return self._mlp_half(p, x + h)
 
     def backbone(self, tokens: torch.Tensor, q_chunk: Optional[int] = None,
-                 kv_chunk: Optional[int] = None,
-                 use_kernel: bool = True) -> torch.Tensor:
-        """[B, S] tokens -> [B, S, d] final hidden states in ``cfg.dtype``.
+                 kv_chunk: Optional[int] = None, use_kernel: bool = True):
+        """[B, S] tokens -> ([B, S, d] final hidden states in
+        ``cfg.dtype``, the f32 aux loss summed over the layers).
         ``q_chunk``/``kv_chunk`` (default ``cfg.attn_q_chunk``/
         ``attn_kv_chunk``) tile the plain attention of ``use_kernel=False``.
         With ``cfg.remat``, a forward that records gradients recomputes each
@@ -134,11 +151,13 @@ class TransformerLM(Backbone):
         x = self.embed_tokens(tokens).to(cfg.compute_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = x.new_zeros((), dtype=torch.float32)
         for blk in self.blocks:
             args = (blk, x, positions, q_chunk, kv_chunk, use_kernel)
-            x = (checkpoint(self._block, *args, use_reentrant=False) if remat
-                 else self._block(*args))
-        return L.rms_norm(x, self.ln_f, cfg.norm_eps)
+            x, a = (checkpoint(self._block, *args, use_reentrant=False)
+                    if remat else self._block(*args))
+            aux = aux + a
+        return L.rms_norm(x, self.ln_f, cfg.norm_eps), aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """``hidden @ head`` in the hidden states' dtype, returned in f32."""
@@ -147,22 +166,22 @@ class TransformerLM(Backbone):
     def loss_fn(self, batch: dict):
         """Next-token cross-entropy over ``batch["tokens"]`` [B, S]: the f32
         log-softmax of the logits at ``targets``, averaged over
-        ``loss_mask`` -> (loss, ``{"ce", "aux"}``); ``aux`` is 0 (no
-        experts).  Runs the plain attention (the kernel has no backward)."""
-        hidden = self.backbone(batch["tokens"], use_kernel=False)
+        ``loss_mask``, plus the layers' aux loss -> (total, ``{"ce",
+        "aux"}``; ``aux`` is 0 without experts).  Runs the plain attention
+        (the kernel has no backward)."""
+        hidden, aux = self.backbone(batch["tokens"], use_kernel=False)
         logp = F.log_softmax(self.logits(hidden), dim=-1)
         targets = batch["targets"].to(logp.device).long()
         ll = logp.gather(-1, targets[..., None])[..., 0]
         mask = batch["loss_mask"].to(device=logp.device, dtype=torch.float32)
         loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-        aux = torch.zeros((), device=loss.device)
-        return loss + aux, {"ce": loss.detach(), "aux": aux}
+        return loss + aux, {"ce": loss.detach(), "aux": aux.detach()}
 
     def prefill(self, tokens: torch.Tensor,
                 use_kernel: bool = True) -> torch.Tensor:
         """The full forward over [B, S] tokens; the last position's logits,
         f32 [B, 1, V] (the cache is not returned, as in JAX)."""
-        hidden = self.backbone(tokens, use_kernel=use_kernel)
+        hidden, _ = self.backbone(tokens, use_kernel=use_kernel)
         return self.logits(hidden[:, -1:, :])
 
     def cache_len(self, max_context: int) -> int:
@@ -197,7 +216,7 @@ class TransformerLM(Backbone):
             h, _ = L.decode_attention(p["attn"], h, cfg, cache["k"][li],
                                       cache["v"][li], position,
                                       cache["pos"][li])
-            x = self._mlp_half(p, x + h)
+            x, _ = self._mlp_half(p, x + h)
         hidden = L.rms_norm(x, self.ln_f, cfg.norm_eps)
         return self.logits(hidden)[:, 0, :], cache
 

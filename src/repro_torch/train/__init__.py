@@ -1,5 +1,5 @@
-"""Training at world size 1 (``repro.train``): AdamW, the train step and
-the ``Trainer`` loop."""
+"""Training (``repro.train``): AdamW, the train step, the data-parallel
+step with its int8 gradient compression, and the ``Trainer`` loop."""
 from repro_torch.train.optimizer import (
     AdamWConfig,
     adamw_init,
@@ -7,8 +7,10 @@ from repro_torch.train.optimizer import (
     cosine_schedule,
     global_norm,
 )
+from repro_torch.train.grad_compress import compressed_psum
 from repro_torch.train.train_loop import (
-    TrainState, Trainer, copy_state, init_state, make_train_step,
+    TrainState, Trainer, copy_state, init_state, make_ddp_train_step,
+    make_train_step,
 )
 
 __all__ = [
@@ -21,5 +23,7 @@ __all__ = [
     "Trainer",
     "copy_state",
     "init_state",
+    "make_ddp_train_step",
     "make_train_step",
+    "compressed_psum",
 ]

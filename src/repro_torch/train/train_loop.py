@@ -13,8 +13,13 @@ gradients of ``loss_fn(batch) -> (loss, aux)`` are taken with
 ``torch.autograd.grad`` (over ``microbatches`` contiguous splits of the
 leading dim, f32 sums scaled by ``1 / microbatches``, the loss their mean),
 and AdamW updates the state.  As in JAX, the metrics are ``loss``, ``lr``
-and ``grad_norm``: the loss's own aux metrics are dropped.  The
-data-parallel step (``make_ddp_train_step``) is not ported.
+and ``grad_norm``: the loss's own aux metrics are dropped.
+
+``make_ddp_train_step`` is the data-parallel step over a
+``torch.distributed`` process group: each rank holds a full replica and
+its own rows of the batch, and the gradients and the loss are averaged
+over the ranks (optionally as int8, :mod:`repro_torch.train.grad_compress`)
+before the same AdamW update runs on every rank.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ import numpy as np
 import torch
 
 from repro_torch.train import optimizer as opt
+from repro_torch.train.grad_compress import (
+    all_reduce, compressed_psum, world_size,
+)
 
 
 @dataclasses.dataclass
@@ -137,6 +145,59 @@ def make_train_step(loss_fn: Callable, adamw: opt.AdamWConfig,
         _, new_opt, ometrics = opt.adamw_update(
             grads, params, state["opt_state"], adamw, schedule)
         return ({"params": params, "opt_state": new_opt},
+                {"loss": loss, **ometrics})
+
+    return train_step
+
+
+def _pmean(tree: dict, group) -> dict:
+    """The mean of each leaf over ``group``'s ranks: one SUM all-reduce of
+    the leaves packed in a flat f32 buffer, then / world size (JAX's
+    ``pmean``)."""
+    names = list(tree)
+    flat = all_reduce(torch.cat([tree[k].float().reshape(-1)
+                                 for k in names]), "sum", group)
+    n = float(world_size(group))
+    out, start = {}, 0
+    for k in names:
+        size = tree[k].numel()
+        out[k] = flat[start:start + size].view(tree[k].shape) / n
+        start += size
+    return out
+
+
+def make_ddp_train_step(loss_fn: Callable, adamw: opt.AdamWConfig,
+                        group=None, compress: bool = False,
+                        microbatches: int = 1):
+    """(state, batch) -> (state, metrics), the data-parallel step
+    (``repro.train.train_loop.make_ddp_train_step``) over the process
+    group ``group`` (``None``: the default group, or world size 1 when
+    none is initialised).  The process group takes the place of JAX's
+    ``mesh``, ``dp_axes``, ``param_specs`` and ``batch_specs``: every rank
+    holds the whole state, and ``batch`` is this rank's own rows.
+
+    The gradients of the local rows are averaged over the ranks, as f32
+    (``pmean``: a SUM all-reduce / world size) or, with ``compress``, as
+    int8 through :func:`compressed_psum`, whose error buffer rides in the
+    state as ``state["err_buf"]`` (absent or ``None``: no feedback on the
+    first step).  The loss is averaged the same way; then every rank runs
+    the same AdamW update.  The state is updated in place."""
+    schedule = opt.cosine_schedule(adamw)
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        device = next(iter(params.values())).device
+        loss, _metrics, grads = _accumulate_grads(
+            loss_fn, params, to_device(batch, device), microbatches)
+        if compress:
+            grads, err = compressed_psum(grads, group, state.get("err_buf"))
+            state = dict(state, err_buf=err)
+        else:
+            grads = _pmean(grads, group)
+        loss = _pmean({"loss": loss}, group)["loss"]
+        _, new_opt, ometrics = opt.adamw_update(
+            grads, params, state["opt_state"], adamw, schedule)
+        return (dict(state, params=params, opt_state=new_opt),
                 {"loss": loss, **ometrics})
 
     return train_step

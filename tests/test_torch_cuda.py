@@ -24,7 +24,10 @@ between its routes (the lane vectors a table allows) and, for unweighted
 bags, to the sequential f32 sum over l.  The comparison engines (no
 kernel of their own): ``segment`` bit for bit its CPU run, ``bcoo``
 (cuSPARSE) within TOL of its CPU run, both within 1e-5 of float64; the
-``FlatIndex`` built on the card equal to the CPU build.
+``FlatIndex`` built on the card equal to the CPU build.  The MoE layer
+(plain PyTorch) on the card within TOL of its CPU run, with the same
+expert ids and drops; the data-parallel step under an NCCL group of one
+bit for bit ``make_train_step``.
 """
 import numpy as np
 import pytest
@@ -530,6 +533,8 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, s, hq, hkv,
     (1, 1, 1, 4, 2, 64, True, None),  # one row
     (1, 100, 300, 6, 2, 64, False, None),  # more keys than queries
     (1, 300, 100, 6, 2, 128, True, None),  # rows past the last key
+    (1, 4096, 4096, 32, 8, 128, True, None),  # qwen3-4b's heads (qk_norm)
+    (1, 8192, 8192, 48, 8, 128, True, 4096),  # mixtral-8x22b's window
 ])
 def test_flash_attention_bf16_route(cuda, b, sq, skv, hq, hkv, dh, causal,
                                     window):
@@ -1029,6 +1034,91 @@ def test_sharded_step_under_an_nccl_group_of_one(cuda):
         dist.destroy_process_group()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# -- mixture of experts and data-parallel training on the card ---------------
+
+@pytest.mark.parametrize("dispatch", ["einsum", "ragged"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, dispatch):
+    """olmoe-1b-7b's routing (64 experts, top-8) at a narrow width, f32:
+    the same expert ids and kept (token, slot) entries as the CPU, the
+    output within TOL of max |CPU|, the aux loss within 1e-6 relative."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+
+    full = get_arch("olmoe-1b-7b").config
+    cfg = dataclasses.replace(full, d_model=256, d_ff=128, dtype="float32",
+                              moe=dataclasses.replace(full.moe,
+                                                      dispatch=dispatch))
+    g = torch.Generator().manual_seed(5)
+    p = L.init_moe(g, cfg, torch.float32)
+    x = torch.randn(2, 300, cfg.d_model, generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        y, aux = L.moe_block(pd, x.to(dev), cfg)
+        _, ids, _ = L.route(pd, x.to(dev).reshape(600, -1), cfg.moe)
+        g_tok = L.moe_group_tokens(600, cfg.moe)
+        pos = L.capacity_positions(ids.view(600 // g_tok, g_tok, -1),
+                                   cfg.moe.num_experts)
+        kept = pos.view(600, -1) < L.moe_capacity(g_tok, cfg.moe)
+        out[str(dev)] = y.cpu(), float(aux), ids.cpu(), kept.cpu()
+    (cy, ca, ci, ck), (gy, ga, gi, gk) = out["cpu"], out[str(cuda)]
+    assert torch.equal(gi, ci) and torch.equal(gk, ck)
+    assert (gy - cy).abs().max().item() <= TOL * cy.abs().max().item()
+    assert abs(ga - ca) <= 1e-6 * abs(ca)
+
+
+def test_ddp_step_under_an_nccl_group_of_one(cuda, monkeypatch):
+    """``make_ddp_train_step`` under an NCCL group of one gives
+    ``make_train_step``'s losses and parameters bit for bit (both under
+    deterministic algorithms); compressed, its error buffer holds every
+    parameter."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.data.pipeline import lm_batch_fn
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.train import (AdamWConfig, init_state,
+                                   make_ddp_train_step, make_train_step)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = smollm_135m.SMOKE
+    batches = [lm_batch_fn(4, 32, cfg.vocab_size)(0, i) for i in range(2)]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for mode in ("single", "ddp", "compressed"):
+            lm = TransformerLM(cfg, device=cuda, generator=torch.Generator(
+                device=cuda).manual_seed(0))
+            adamw = AdamWConfig(lr=1e-3, warmup_steps=1)
+            step = (make_train_step(lm.loss_fn, adamw) if mode == "single"
+                    else make_ddp_train_step(
+                        lm.loss_fn, adamw, compress=mode == "compressed"))
+            state = init_state(dict(lm.named_parameters()), adamw).as_dict()
+            losses = []
+            for b in batches:
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+            runs[mode] = losses, state
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    (l1, s1), (l2, s2), (_, s3) = (runs[m] for m in ("single", "ddp",
+                                                     "compressed"))
+    assert l1 == l2
+    for k, v in s1["params"].items():
+        assert torch.equal(v, s2["params"][k]), k
+    assert set(s3["err_buf"]) == set(s3["params"])
 
 
 @pytest.mark.parametrize("pad_to", [32, 128])

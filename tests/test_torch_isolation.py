@@ -45,7 +45,13 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.store", "repro_torch.store.format",
               "repro_torch.store.writer", "repro_torch.store.reader",
               "repro_torch.store.pager", "repro_torch.core.distributed",
-              "repro_torch.launch", "repro_torch.launch.serve"):
+              "repro_torch.launch", "repro_torch.launch.serve",
+              "repro_torch.launch.train", "repro_torch.configs.base",
+              "repro_torch.configs.qwen3_4b",
+              "repro_torch.configs.smollm_135m",
+              "repro_torch.configs.olmoe_1b_7b",
+              "repro_torch.configs.mixtral_8x22b",
+              "repro_torch.models.layers", "repro_torch.train.grad_compress"):
         assert m in mods
     code = (
         "import importlib, sys\n"

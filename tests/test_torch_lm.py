@@ -221,9 +221,3 @@ def test_make_lm_batch_is_the_jax_batch():
     for k in got:
         assert got[k].dtype == want[k].dtype
         np.testing.assert_array_equal(got[k], want[k])
-
-
-def test_qwen2_configs_copy_the_jax_ones_field_for_field():
-    for t, j in ((tq.FULL, jq.FULL), (tq.SMOKE, jq.SMOKE)):
-        for f in dataclasses.fields(t):
-            assert getattr(t, f.name) == getattr(j, f.name), f.name

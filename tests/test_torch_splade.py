@@ -25,6 +25,7 @@ from repro.kernels.splade_head import splade_head_ref as j_splade_head_ref
 from repro.models import layers as JL
 from repro.models.splade import SpladeEncoder as JEncoder
 from repro_torch.configs import gpusparse as tcfg
+from repro_torch.configs.base import MoEConfig
 from repro_torch.core import engine as teng
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels.splade_head import ops as head_ops
@@ -243,8 +244,10 @@ def test_encoder_defaults_to_cuda_and_checks_token_ids():
     for bad in (-1, tcfg.ENCODER_SMOKE.vocab_size):
         with pytest.raises(ValueError, match="token ids"):
             port.encode(torch.tensor([[1, bad, 2]]), mask)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tcfg.ENCODER_SMOKE, moe=object())
+    with pytest.raises(NotImplementedError, match="expert"):
+        SpladeEncoder(dataclasses.replace(
+            tcfg.ENCODER_SMOKE, moe=MoEConfig(num_experts=4, top_k=2)),
+            device="cpu")
 
 
 @pytest.mark.parametrize("knob,value", [

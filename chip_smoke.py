@@ -5,9 +5,9 @@ serving (DIN, DIEN, AutoInt, xDeepFM), training (the encoder, the LM and
 the recsys models), the serving state (sessions, deletions, the
 scheduler, the segment store), sharded serving with its serve driver,
 the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
-WAND/BMW and Seismic CPU baselines) and every LM architecture of the
+WAND/BMW and Seismic CPU baselines), every LM architecture of the
 registry (mixture-of-experts layers, the training driver, data-parallel
-training), on one NVIDIA H100.
+training), and SchNet with the cell layer's dry run, on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -293,6 +293,30 @@ Phases (each raises on failure; the script then exits non-zero):
    and compressed (its loss and error buffer).  A ``{"lm_archs": {...}}``
    line holds the numbers.
 
+12. SchNet (``repro_torch.models.schnet``) at FULL width (d 64, 300 RBFs,
+   3 interactions; seeded weights, f32, TF32 off, not under deterministic
+   algorithms: ``index_add_`` accumulates with atomics), with phase 11's
+   data freed; no kernel lies on its path (the counters, zeroed before,
+   must stay 0).  12a, each of GNN_SHAPES' cells but one, built by the
+   cell layer (``launch.cells.make_cell`` on the card: seeded weights,
+   ``gnn_batch``'s graph), a warm-up and 10 steps of the cell's
+   ``make_train_step`` timed with CUDA events (ms a step, the median;
+   ``max_memory_allocated``; model FLOPs over the step against 66.9
+   TFLOP/s; the dry run's estimated peak and bound beside them):
+   ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features; one
+   step's loss within TRAIN_LOSS_RTOL and gradients within TRAIN_GRAD_TOL
+   of the CPU's), ``minibatch_lg`` (a Reddit-size CSR of 232,965 nodes and
+   114,615,892 edges made on the host, ``sample_neighbors`` from 1,024
+   seeds at fanout (15, 10), padded to the cell's 169,984 nodes and
+   168,960 edges, 602 features; the forward within 1e-5 of the CPU's) and
+   ``molecule`` (128 x 30 nodes x 64 edges).  ``ogb_products`` is not run:
+   its [E, 300] RBFs alone are 74.2 GB, and the dry run must say it does
+   not fit.  12b, after 12a, in worker processes: the ``meta`` dry run of
+   every cell of ``launch.cells.all_cells()`` at ``"single"`` (counted and
+   analytic FLOPs, useful ratio, bytes, estimated peak, fit, dominant
+   term, bound ms), printed as a table; every cell must count.  A
+   ``{"schnet": {...}}`` line holds the numbers.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -520,6 +544,17 @@ class Sizes:
     moe_train_len: int = 2048
     moe_train_steps: int = 2
     ddp_steps: int = 2
+    # SchNet and the cell layer (phase 12).  12a: FULL width (d 64, 300
+    # RBFs, 3 interactions), f32, each GNN_SHAPES cell but ogb_products a
+    # warm-up and schnet_steps timed train steps; minibatch_lg samples a
+    # Reddit-size CSR (GNN_SHAPES' 232,965 nodes, 114,615,892 edges).
+    # 12b, after 12a: the meta dry run of every cell in dryrun_workers
+    # processes (the machine's 8 cores; the card is idle meanwhile).
+    schnet_cells: tuple = ("full_graph_sm", "minibatch_lg", "molecule")
+    schnet_steps: int = 10
+    reddit_nodes: int = 232_965
+    reddit_edges: int = 114_615_892
+    dryrun_workers: int = 8
 
 
 def card_line() -> str:
@@ -3934,6 +3969,222 @@ def lm_archs(dev, sizes: Sizes) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: SchNet at full width and the cell layer's dry run
+
+
+def dryrun_cell(cell: tuple) -> dict:
+    """12b's job, in a worker process: the meta count of one ``"single"``
+    cell (``launch.dryrun.run_cell``, nothing saved) -> the numbers of
+    its table row, or its error.  Touches no card."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    arch, shape = cell
+    t0 = time.perf_counter()
+    try:
+        art = dryrun.run_cell(arch, shape, save=False, verbose=False)
+    except Exception as e:  # listed by the caller, which then fails
+        return {"arch": arch, "shape": shape, "error": repr(e)}
+    roof = art["roofline"]
+    return {"arch": arch, "shape": shape, "model_flops": art["model_flops"],
+            "flops": art["cost"]["flops"], "bytes": art["cost"]["bytes"],
+            "peak_bytes": art["cost"]["peak_bytes"], "fits": art["fits"],
+            "compute": roof["compute"], "useful_ratio": roof["useful_ratio"],
+            "dominant": roof["dominant"],
+            "bound_ms": 1e3 * max(roof["t_compute_s"], roof["t_memory_s"],
+                                  roof["t_collective_s"]),
+            "seconds": time.perf_counter() - t0}
+
+
+def within(name: str, got, want, tol: float) -> float:
+    """max |got - want| / max |want|, raising above ``tol`` (both finite,
+    of one shape)."""
+    import torch
+
+    got = got.to(want.device)
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    rel = float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                1e-30)
+    log(f"  {name}: card vs CPU, max rel err {rel!r} (<= {tol})")
+    if not rel <= tol:
+        raise AssertionError(f"{name}: the card and the CPU disagree "
+                             f"(rel {rel} > {tol})")
+    return rel
+
+
+def schnet_cell(dev, sizes: Sizes, name: str, est: dict) -> dict:
+    """12a: one GNN_SHAPES cell at FULL width on the card, built by the
+    cell layer (``launch.cells.make_cell`` on ``dev``: seeded weights and
+    ``gnn_batch``'s graph; minibatch_lg samples a CSR of
+    ``reddit_nodes`` x ``reddit_edges``): the card against the CPU
+    (full_graph_sm: one step's loss and gradients; minibatch_lg: the
+    forward), then a warm-up and ``schnet_steps`` train steps of the
+    cell's step timed with CUDA events, the peak of
+    ``max_memory_allocated`` (and what earlier phases held before the
+    cell), the model FLOPs over the median step against the f32 peak, and
+    the dry run's count (``est``) beside them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import make_cell, shape_of
+    from repro_torch.models.schnet import SchNet
+
+    spec = get_arch("schnet")
+    shape = shape_of(spec, name)
+    if shape.kind == "gnn_minibatch":
+        shape = dataclasses.replace(shape, n_nodes=sizes.reddit_nodes,
+                                    n_edges=sizes.reddit_edges)
+    held = torch.cuda.memory_allocated(dev)  # what earlier phases left
+    t0 = time.perf_counter()
+    cell = make_cell(spec, shape, "single", dev, seed=0)
+    sync(dev)
+    model, (state, dbatch) = cell.model, cell.args
+    out = {"data_s": time.perf_counter() - t0,
+           **{k: cell.meta[k] for k in ("graph_nodes", "graph_edges",
+                                        "seeds", "sampled_nodes",
+                                        "sampled_edges") if k in cell.meta}}
+    log(f"  {name}: cell built in {out['data_s']:.3f} s {cell.meta}")
+    if name in ("full_graph_sm", "minibatch_lg"):
+        batch = {k: v.cpu() for k, v in dbatch.items()}
+        cpu = SchNet(model.cfg, device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        if name == "full_graph_sm":
+            loss, grads = loss_and_grads(model, model.loss_fn, dbatch, dev)
+            closs, cgrads = loss_and_grads(cpu, cpu.loss_fn, batch, "cpu")
+            rel = abs(loss - closs) / max(abs(closs), 1e-30)
+            log(f"  {name}: one step's loss card {loss!r} vs CPU {closs!r} "
+                f"(rel {rel!r} <= {TRAIN_LOSS_RTOL})")
+            if not rel <= TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{name}: loss card vs CPU rel {rel}")
+            out["grad_rel_err"] = grads_within(name, grads, cgrads,
+                                               TRAIN_GRAD_TOL)
+            log(f"  {name}: gradients within {out['grad_rel_err']!r} of "
+                f"each leaf's max (<= {TRAIN_GRAD_TOL})")
+            out["loss_rel_err"] = rel
+        else:
+            keys = ("node_feat", "senders", "receivers", "distances")
+            with torch.no_grad():
+                got = model(*(dbatch[k] for k in keys))
+                want = cpu(*(batch[k] for k in keys))
+            out["forward_rel_err"] = within(f"{name} forward", got, want,
+                                            RECSYS_TOL)
+        del cpu, batch
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = [], []
+    for _ in range(1 + sizes.schnet_steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = cell.step_fn(state, dbatch)
+        end.record()
+        sync(dev)
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    med = float(np.median(ms[1:]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    share = est["model_flops"] / (med * 1e-3) / PEAK_FLOPS["f32"]
+    out.update(ms=med, step_ms=ms, losses=losses, peak_bytes=peak,
+               held_bytes=held, model_flops=est["model_flops"],
+               flop_share=share,
+               est_peak_bytes=est["peak_bytes"], bound_ms=est["bound_ms"],
+               bound_by=est["dominant"], counted_flops=est["flops"],
+               counted_bytes=est["bytes"])
+    log(f"  {name}: {med!r} ms a step (median of steps 2-{len(ms)}, all "
+        f"{ms!r}), losses {losses!r}; peak {peak} B, {held} B of it held "
+        f"before the cell (the dry run's estimate {est['peak_bytes']!r} "
+        f"B); model FLOPs {est['model_flops']!r} "
+        f"-> {share!r} of {PEAK_FLOPS['f32']:.4g} FLOP/s; the dry run's "
+        f"unfused count {est['bound_ms']!r} ms ({est['dominant']}: "
+        f"{est['flops']!r} flop counted, {est['bytes']!r} B)")
+    del model, state, dbatch, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def schnet_phase(dev, sizes: Sizes) -> dict:
+    """Phase 12: 12a runs the SchNet cells on the card (ogb_products is
+    not run: the dry run must say it does not fit) with no other work on
+    the host, then 12b counts every ``"single"`` cell on ``meta`` in
+    ``dryrun_workers`` processes and prints the table; every cell must
+    count."""
+    import multiprocessing
+
+    import torch
+
+    from repro_torch.analysis.roofline import HBM_BYTES
+    from repro_torch.launch.cells import all_cells
+
+    total = torch.cuda.get_device_properties(dev).total_memory \
+        if dev.type == "cuda" else HBM_BYTES
+    log(f"  the card's memory: {total} B (analysis.roofline.HBM_BYTES "
+        f"{HBM_BYTES}); deterministic algorithms: "
+        f"{torch.are_deterministic_algorithms_enabled()} (index_add_ "
+        f"accumulates with atomics); tf32 in matmuls: "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    out = {"12a": {}}
+    t0 = time.perf_counter()
+    # the SchNet cells' counts first (small), for 12a's comparisons
+    est = {s: dryrun_cell(("schnet", s))
+           for s in (*sizes.schnet_cells, "ogb_products")}
+    for name in sizes.schnet_cells:
+        log(f"phase 12a: schnet {name} at FULL width, f32, "
+            f"{sizes.schnet_steps} timed train steps")
+        out["12a"][name] = schnet_cell(dev, sizes, name, est[name])
+    ogb = est["ogb_products"]
+    e = 61_859_140
+    log(f"  ogb_products: not run: its rbf [{e}, 300] f32 alone is "
+        f"{e * 300 * 4} B and each [E, 64] f32 activation {e * 64 * 4} "
+        f"B; the dry run's peak {ogb['peak_bytes']!r} B against the "
+        f"card's {total} B: fits={ogb['fits']}")
+    if ogb["fits"] or ogb["peak_bytes"] <= total:
+        raise AssertionError("the dry run says ogb_products fits")
+    out["12a"]["ogb_products"] = {"run": False, **ogb}
+    out["12a seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cells = all_cells()
+    pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
+    try:
+        rows = pool.map(dryrun_cell, cells, chunksize=1)
+    finally:
+        pool.terminate()
+        pool.join()
+    out["12b seconds"] = time.perf_counter() - t0
+    log(f"phase 12b: the meta dry run of {len(cells)} cells at 'single' "
+        f"({sizes.dryrun_workers} worker processes, "
+        f"{out['12b seconds']:.3f} s)")
+    log(f"  {'arch':<14} {'shape':<14} {'model flops':>12} {'counted':>12} "
+        f"{'useful':>8} {'bytes':>12} {'est peak B':>12} {'fits':>5} "
+        f"{'dominant':>8} {'bound ms':>12} {'s':>6}")
+    failed = [r for r in rows if "error" in r]
+    for r in rows:
+        if "error" in r:
+            log(f"  {r['arch']:<14} {r['shape']:<14} FAILED: {r['error']}")
+            continue
+        log(f"  {r['arch']:<14} {r['shape']:<14} {r['model_flops']:>12.4g} "
+            f"{r['flops']:>12.4g} {r['useful_ratio']:>8.3f} "
+            f"{r['bytes']:>12.4g} {r['peak_bytes']:>12.4g} "
+            f"{str(r['fits']):>5} {r['dominant']:>8} {r['bound_ms']:>12.4g} "
+            f"{r['seconds']:>6.1f}")
+    if failed:
+        raise AssertionError(f"{len(failed)} cells did not count: "
+                             f"{[(r['arch'], r['shape']) for r in failed]}")
+    out["12b"] = rows
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -4261,6 +4512,33 @@ def run(dev, sizes: Sizes) -> list[dict]:
     archs["seconds"] = time.perf_counter() - t0
     log(f"phase 11: {archs['seconds']:.3f} s")
     print(json.dumps({"lm_archs": archs}, default=float))
+
+    # 12. SchNet and the cell layer; phase 11's data is gone.  No kernel
+    # lies on SchNet's path: the counters must stay 0.
+    del archs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.splade_head import ops as splade_ops
+
+    counters["splade_head"] = splade_ops
+    counters["flash_attention"] = flash_ops
+    counters["embedding_bag"] = bag_ops
+    for mod in counters.values():
+        mod.launches = 0
+    log(f"phase 12: SchNet at FULL width ({', '.join(sizes.schnet_cells)}) "
+        f"and the meta dry run of every cell")
+    gnn = schnet_phase(dev, sizes)
+    gnn["launches"] = {name: mod.launches for name, mod in counters.items()}
+    log(f"  launches in phase 12 (no kernel on SchNet's path): "
+        f"{gnn['launches']}")
+    if any(gnn["launches"].values()):
+        raise AssertionError(f"phase 12 launched a kernel: "
+                             f"{gnn['launches']}")
+    gnn["seconds"] = time.perf_counter() - t0
+    log(f"phase 12: {gnn['seconds']:.3f} s")
+    print(json.dumps({"schnet": gnn}, default=float))
     return rows
 
 

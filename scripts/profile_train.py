@@ -5,13 +5,16 @@ Profiles one step of ``make_train_step`` (forward, backward and AdamW) at
 the shapes of ``chip_smoke.py``'s phase 7, each after a warm-up step,
 under ``torch.profiler``: the SPLADE encoder (``repro_torch.configs.
 gpusparse.ENCODER``, 32 pairs x 128 tokens, f32), ``qwen2-0.5b`` (``FULL``,
-1 x 4,096 tokens, remat, bf16) and a recsys model (``FULL``, B = 8,192,
-bags of 8), all with seeded weights.  For each it prints the host-clock
+1 x 4,096 tokens, remat, bf16), a recsys model (``FULL``, B = 8,192,
+bags of 8) and SchNet at a GNN_SHAPES cell (``schnet:<shape>``, FULL
+width, the cell layer's seeded step and batch: ``launch.cells.
+build_cell(..., device="cuda")``), all with seeded weights.  For each it prints the host-clock
 time of the step (synchronised), the device time summed over its kernels
 (one stream, so the busy share is their ratio) and the kernels that took
 the most device time.  Run from the root of a checkout with one CUDA card:
 
-    python3 scripts/profile_train.py [--models encoder lm xdeepfm]
+    python3 scripts/profile_train.py [--models encoder lm xdeepfm
+        schnet:full_graph_sm schnet:minibatch_lg schnet:molecule]
 """
 from __future__ import annotations
 
@@ -86,6 +89,15 @@ def main() -> int:
             model = TransformerLM(cfg, device=dev, generator=gen)
             loss_fn = model.loss_fn
             batch = lm_batch_fn(1, 4096, cfg.vocab_size)(0, 0)
+        elif name.startswith("schnet:"):
+            from repro_torch.launch.cells import build_cell
+
+            cell = build_cell("schnet", name.split(":", 1)[1], device=dev)
+            profile(f"{name} train step", lambda c=cell: c.step_fn(*c.args),
+                    dev, args.top)
+            del cell
+            torch.cuda.empty_cache()
+            continue
         else:
             cfg = importlib.import_module(f"repro_torch.configs.{name}").FULL
             model = build_model(cfg, device=dev, seed=0)

@@ -10,14 +10,16 @@ preemption mid-write never corrupts the latest checkpoint.
 A port train state (``{"params": {name: tensor}, "opt_state": {"step",
 "mu", "nu"}}``, ``name`` a ``state_dict`` name) is written as the JAX
 state it stands for: each tree of ``state_dict`` names is nested by its
-dots, with ``blocks.<i>.<leaf>`` restacked into ``blocks/<leaf>``
-[L, ...] (``transformer.params_to_jax``), so the keys are
-``params/blocks/attn/wq``, ``opt_state/step``, ``opt_state/mu/embed``, ...
-and ``repro.checkpoint.load_latest`` opens a port directory.  Loading goes
-the other way (``transformer.params_from_jax``), so the port opens a JAX
-directory.  The one pair serves every family: a recsys model has no
-``blocks``, and its list items (``cin.0.w``) are written under the same
-``/``-joined paths (``cin/0/w``) as JAX's key paths name them.
+dots, with the layers JAX stacks for ``scan`` restacked: an LM's
+``blocks.<i>.<leaf>`` into ``blocks/<leaf>`` [L, ...], SchNet's
+``interactions.<i>.<leaf>`` into ``interactions/<leaf>`` [n_int, ...]
+(``utils.stack_layers``), so the keys are ``params/blocks/attn/wq``,
+``opt_state/step``, ``opt_state/mu/embed``, ... and ``repro.checkpoint.
+load_latest`` opens a port directory.  Loading goes the other way
+(``utils.unstack_layers``), so the port opens a JAX directory.  The one
+pair serves every family: a recsys model stacks nothing, and its list
+items (``cin.0.w``) are written under the same ``/``-joined paths
+(``cin/0/w``) as JAX's key paths name them.
 
 ``save`` copies every leaf to host memory before it returns, so the next
 step may overwrite the live tensors while the writer thread works: on the
@@ -38,9 +40,13 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
 from repro_torch.train.train_loop import state_from_jax, state_to_jax
-from repro_torch.utils import nest, resolve_device
+from repro_torch.utils import (
+    nest, resolve_device, stack_layers, unstack_layers,
+)
+
+# The subtrees JAX stacks [L, ...] for ``scan``: an LM's and SchNet's.
+STACKED = ("blocks", "interactions")
 
 
 def _host_copy(leaf) -> np.ndarray:
@@ -90,7 +96,8 @@ class Checkpointer:
         # overwrites the live tensors in place.
         host = nest({k: _host_copy(v) for k, v in _flatten(state).items()},
                     sep="/")
-        host_state = _flatten(state_to_jax(host, transformer.params_to_jax))
+        host_state = _flatten(state_to_jax(
+            host, lambda tree: stack_layers(tree, STACKED)))
         if self.async_write and not blocking:
             self._ensure_worker()
             self._queue.put((step, host_state))
@@ -162,7 +169,7 @@ class Checkpointer:
         with np.load(os.path.join(d, "arrays_host0.npz")) as z:
             flat = {k: z[k] for k in z.files}
         state = state_from_jax(nest(flat, sep="/"),
-                               transformer.params_from_jax)
+                               lambda tree: unstack_layers(tree, STACKED))
         return _like(template, state)
 
 

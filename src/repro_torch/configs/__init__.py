@@ -5,6 +5,7 @@ from repro_torch.configs.base import (
     MoEConfig,
     RecsysConfig,
     RetrievalArchConfig,
+    SchNetConfig,
     ShapeSpec,
     TransformerConfig,
     get_arch,
@@ -17,6 +18,7 @@ __all__ = [
     "MoEConfig",
     "RecsysConfig",
     "RetrievalArchConfig",
+    "SchNetConfig",
     "ShapeSpec",
     "TransformerConfig",
     "get_arch",

@@ -16,16 +16,16 @@ and sequence parallelism only matter for XLA or for a mesh.  The port keeps
 its parameters in f32: another ``param_dtype`` raises
 ``NotImplementedError``.
 
-``MoEConfig``, ``RecsysConfig``, ``RetrievalArchConfig``, ``ShapeSpec`` and
-``ArchSpec`` copy the JAX dataclasses field for field.  No recsys model
-reads ``dtype`` (they run f32, in JAX and here), so any other value raises
-``NotImplementedError``.
+``MoEConfig``, ``SchNetConfig``, ``RecsysConfig``, ``RetrievalArchConfig``,
+``ShapeSpec`` and ``ArchSpec`` copy the JAX dataclasses field for field.
+No recsys model or SchNet reads ``dtype`` (they run f32, in JAX and here),
+so any other value raises ``NotImplementedError``.
 
 Every architecture the port runs registers an :class:`ArchSpec` (its
 config, shape grid, smoke config and source) when its module under
 ``repro_torch.configs`` is imported; :func:`get_arch` and
-:func:`list_archs` import them all first.  The registry is JAX's less
-``schnet``, whose config waits for its model.
+:func:`list_archs` import them all first.  The registry is JAX's, every
+architecture included.
 """
 from __future__ import annotations
 
@@ -126,6 +126,23 @@ class TransformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SchNetConfig:
+    name: str
+    n_interactions: int = 3
+    d_hidden: int = 64
+    n_rbf: int = 300
+    cutoff: float = 10.0
+    d_in: int = 0  # input node-feature dim (0 = atomic-number embedding)
+    n_out: int = 1
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dtype != "float32":
+            raise NotImplementedError(
+                f"{self.name}: dtype {self.dtype!r}; SchNet runs float32")
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     model: Literal["din", "dien", "autoint", "xdeepfm"]
@@ -215,13 +232,14 @@ class ArchSpec:
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-# The config modules that register an arch (JAX's less ``schnet``).
+# The config modules that register an arch (JAX's).
 ARCH_MODULES = (
     "qwen3_4b",
     "smollm_135m",
     "qwen2_0_5b",
     "mixtral_8x22b",
     "olmoe_1b_7b",
+    "schnet",
     "dien",
     "autoint",
     "din",
@@ -267,6 +285,17 @@ LM_SHAPES = (
               global_batch=128),
     ShapeSpec(name="long_500k", kind="long_decode", seq_len=524288,
               global_batch=1),
+)
+
+GNN_SHAPES = (
+    ShapeSpec(name="full_graph_sm", kind="gnn_full", n_nodes=2708,
+              n_edges=10556, d_feat=1433),
+    ShapeSpec(name="minibatch_lg", kind="gnn_minibatch", n_nodes=232965,
+              n_edges=114615892, batch_nodes=1024, fanout=(15, 10)),
+    ShapeSpec(name="ogb_products", kind="gnn_full", n_nodes=2449029,
+              n_edges=61859140, d_feat=100),
+    ShapeSpec(name="molecule", kind="gnn_batched", n_nodes=30, n_edges=64,
+              global_batch=128),
 )
 
 RECSYS_SHAPES = (

@@ -773,3 +773,66 @@ __all__ = [
     "build_sharded_tiled", "snapshot_paged", "make_serve_step",
     "group_rank_size", "sharded_ell_from_numpy", "sharded_tiled_from_numpy",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input shapes (``launch.cells``): meta tensors, no allocation
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def retrieval_input_specs(
+    num_docs: int,
+    vocab_size: int,
+    batch: int,
+    avg_doc_terms: int,
+    num_shards: int,
+    k_pad: int = 8,
+):
+    """The shard-stacked ELL index ([S, N/S, K] int32 terms, f32 values)
+    and the [B, V] f32 query weights of the serve step, as ``meta``
+    tensors of JAX's shapes and dtypes (``repro.core.distributed.
+    retrieval_input_specs``), and ``docs_per_shard``."""
+    per = cdiv(num_docs, num_shards)
+    k = ceil_to(int(avg_doc_terms * 1.6), k_pad)  # headroom over the mean
+    return dict(
+        index=(_meta((num_shards, per, k), torch.int32),
+               _meta((num_shards, per, k), torch.float32)),
+        qw=_meta((batch, vocab_size), torch.float32),
+        docs_per_shard=per,
+    )
+
+
+def retrieval_tiled_specs(
+    num_docs: int,
+    vocab_size: int,
+    batch: int,
+    avg_doc_terms: int,
+    num_shards: int,
+    chunk_size: int = 512,
+    doc_block: int = 256,
+    term_block: int = 512,
+):
+    """A shard-stacked tiled index's chunk arrays ([S, C, chunk_size]
+    int32 terms and local docs, f32 values; [S, C] int32 chunk metadata)
+    and the [B, V padded] f32 query weights, as ``meta`` tensors of JAX's
+    shapes and dtypes (``repro.core.distributed.retrieval_tiled_specs``),
+    with ``docs_per_shard``, ``n_chunks`` and the geometry."""
+    per = cdiv(num_docs, num_shards)
+    nnz = int(per * avg_doc_terms * 1.1)
+    n_doc_blocks = cdiv(per, doc_block)
+    n_chunks = cdiv(nnz, chunk_size) + n_doc_blocks
+    v_pad = ceil_to(vocab_size, term_block)
+    return dict(
+        chunks=tuple(_meta((num_shards, n_chunks, chunk_size), dt)
+                     for dt in (torch.int32, torch.int32, torch.float32)),
+        meta=(_meta((num_shards, n_chunks), torch.int32),
+              _meta((num_shards, n_chunks), torch.int32)),
+        qw=_meta((batch, v_pad), torch.float32),
+        docs_per_shard=per,
+        n_chunks=n_chunks,
+        geometry=dict(chunk_size=chunk_size, doc_block=doc_block,
+                      term_block=term_block, n_doc_blocks=n_doc_blocks),
+    )

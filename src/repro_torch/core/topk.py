@@ -38,7 +38,7 @@ def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
     key = (torch.arange(n, device=x.device).expand_as(x) if key is None
            else key.reshape(-1, n))
     vals, pos = torch.topk(x, k, dim=-1, sorted=False)
-    if x.shape[0] and k:
+    if x.shape[0] and k and not x.is_meta:  # meta holds no value to tie
         # Rows where more than k entries reach the k-th value: topk picked
         # an arbitrary subset of the tie; take its lowest keys instead.
         kth = vals.min(dim=-1, keepdim=True).values

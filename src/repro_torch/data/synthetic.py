@@ -5,9 +5,10 @@ sigma 34.3; ~49.9 nnz/query, sigma 18.2; log1p-ReLU-shaped weights in
 [0.01, 3.5]; Zipf(1.07) term popularity; queries seeded from a "relevant"
 document plus Zipf expansion terms; and the topical corpus of
 :func:`make_topical_corpus`), drawn from an explicit ``torch.Generator`` on
-the target device and vectorised over documents.  :func:`make_lm_batch`
-and :func:`make_recsys_batch` are the JAX LM and recsys batches, drawn with
-numpy as there.
+the target device and vectorised over documents.  :func:`make_lm_batch`,
+:func:`make_recsys_batch`, :func:`make_graph` and :func:`sample_neighbors`
+are the JAX LM and recsys batches, graphs and sampled subgraphs, drawn with
+numpy as there (numpy arrays: callers move them to a device).
 
 Sampling ``k`` distinct terms with probabilities ``p`` — numpy's
 successive sampling without replacement — is drawn here as Gumbel-top-k:
@@ -298,3 +299,77 @@ def make_recsys_batch(batch: int, n_sparse: int, vocab_sizes,
                                         size=(batch,)).astype(np.int32)
     out["label"] = rng.integers(0, 2, size=(batch,)).astype(np.float32)
     return out
+
+
+def make_graph(
+    n_nodes: int,
+    n_edges: int,
+    d_feat: int,
+    seed: int = 0,
+    spatial: bool = True,
+    cutoff: float = 10.0,
+) -> dict:
+    """A random graph as numpy arrays, the very numbers of ``repro.data.
+    synthetic.make_graph`` for one seed: int32 ``senders`` and
+    ``receivers`` [E] uniform over the nodes, f32 ``node_feat`` [N, F]
+    standard normal and, with ``spatial``, f32 ``distances`` [E] uniform
+    on [0.5, cutoff) (SchNet needs distances)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    dst = rng.integers(0, n_nodes, size=n_edges).astype(np.int32)
+    out = {
+        "senders": src,
+        "receivers": dst,
+        "node_feat": rng.normal(size=(n_nodes, d_feat)).astype(np.float32),
+    }
+    if spatial:
+        out["distances"] = rng.uniform(0.5, cutoff,
+                                       size=n_edges).astype(np.float32)
+    return out
+
+
+def sample_neighbors(
+    csr_indptr: np.ndarray,
+    csr_indices: np.ndarray,
+    seeds: np.ndarray,
+    fanouts,
+    rng: np.random.Generator,
+) -> dict:
+    """Uniform neighbour sampling (GraphSAGE-style) into a block subgraph,
+    the very arrays of ``repro.data.synthetic.sample_neighbors`` for one
+    generator state: for each hop, ``fanout`` draws with replacement from
+    each frontier node's CSR row (a node of no neighbour gets ``fanout``
+    self-loops and draws nothing), the next frontier the distinct sampled
+    senders.  Returns int64 ``node_ids`` (the sorted distinct global ids of
+    every hop) and int32 local ``senders``, ``receivers`` and
+    ``seed_local``.  The global-to-local map is a binary search over
+    ``node_ids`` where JAX builds a dict; the draws keep JAX's order."""
+    layers = [seeds.astype(np.int64)]
+    all_src, all_dst = [], []
+    frontier = seeds.astype(np.int64)
+    for fanout in fanouts:
+        srcs = np.empty(len(frontier) * fanout, dtype=np.int64)
+        dsts = np.repeat(frontier, fanout)
+        for i, node in enumerate(frontier):
+            lo, hi = csr_indptr[node], csr_indptr[node + 1]
+            deg = hi - lo
+            w = i * fanout
+            if deg == 0:
+                srcs[w:w + fanout] = node  # self-loop fill
+            else:
+                sel = rng.integers(0, deg, size=fanout)
+                srcs[w:w + fanout] = csr_indices[lo + sel]
+        all_src.append(srcs)
+        all_dst.append(dsts)
+        frontier = np.unique(srcs)
+        layers.append(frontier)
+    nodes = np.unique(np.concatenate(layers))
+    src = np.concatenate(all_src)
+    dst = np.concatenate(all_dst)
+    return {
+        "node_ids": nodes.astype(np.int64),
+        "senders": np.searchsorted(nodes, src).astype(np.int32),
+        "receivers": np.searchsorted(nodes, dst).astype(np.int32),
+        "seed_local": np.searchsorted(
+            nodes, seeds.astype(np.int64)).astype(np.int32),
+    }

@@ -1,3 +1,4 @@
 """Entry points: ``python -m repro_torch.launch.serve`` (the sharded serve
-driver) and ``python -m repro_torch.launch.train`` (the training
-driver)."""
+driver), ``python -m repro_torch.launch.train`` (the training driver) and
+``python -m repro_torch.launch.dryrun`` (the cells' dry run, over
+``launch.cells`` and ``launch.mesh``)."""

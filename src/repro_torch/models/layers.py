@@ -30,11 +30,18 @@ from repro_torch.configs.base import MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention import flash_attention
 
 
+def _is_meta(device) -> bool:
+    return device is not None and torch.device(device).type == "meta"
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype=torch.float32, scale: Optional[float] = None,
                device=None) -> torch.Tensor:
     """N(0, scale^2) [in_dim, out_dim] from ``gen`` (scale 1/sqrt(in_dim)
-    by default), drawn on the generator's device and moved to ``device``."""
+    by default), drawn on the generator's device and moved to ``device``;
+    on ``meta`` an empty tensor of that shape (nothing drawn anywhere)."""
+    if _is_meta(device):
+        return torch.empty((in_dim, out_dim), dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
     w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device)
     return (w * scale).to(device=device, dtype=dtype)
@@ -277,6 +284,8 @@ def init_moe(gen: torch.Generator, cfg: TransformerConfig, dtype,
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
 
     def normal(shape, scale):
+        if _is_meta(device):
+            return torch.empty(shape, dtype=dtype, device="meta")
         w = torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
         return w.to(device=device, dtype=dtype)
 

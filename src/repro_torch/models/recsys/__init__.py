@@ -32,9 +32,11 @@ __all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
 
 def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0):
     """The model of ``cfg.model`` on ``device``, its weights drawn from a
-    generator on that device seeded with ``seed``."""
+    generator on that device seeded with ``seed`` (on ``meta``: empty
+    tensors of their shapes, nothing drawn)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(
+        device=dev).manual_seed(seed)
     return MODELS[cfg.model](cfg, device=dev, generator=gen)
 
 

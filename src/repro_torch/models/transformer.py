@@ -35,7 +35,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,7 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import nest, resolve_device
+from repro_torch.utils import resolve_device, stack_layers, unstack_layers
 
 EMPTY_SLOT = 2**31 - 1  # position of an empty cache slot: masked by <=
 
@@ -106,9 +105,10 @@ class Backbone(nn.Module):
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """The f32 embedding rows of ``tokens``.  Raises ``ValueError`` on
-        an id outside [0, V) (``jnp.take`` would fill)."""
+        an id outside [0, V) (``jnp.take`` would fill); ``meta`` tokens
+        hold no ids to check."""
         tokens = tokens.to(self.embed.device)
-        if tokens.numel() and (int(tokens.min()) < 0
+        if tokens.numel() and not tokens.is_meta and (int(tokens.min()) < 0
                                or int(tokens.max()) >= self.cfg.vocab_size):
             raise ValueError(
                 f"token ids must lie in [0, {self.cfg.vocab_size})")
@@ -221,38 +221,13 @@ class TransformerLM(Backbone):
         return self.logits(hidden)[:, 0, :], cache
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, f"{prefix}{k}."))
-        else:
-            out[f"{prefix}{k}"] = v
-    return out
-
-
 def params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     """A JAX ``TransformerLM`` params pytree (or a ``SpladeEncoder``'s, with
     its ``mlm_bias``), its leaves as numpy arrays and its ``blocks`` stacked
     [L, ...] for ``scan``, as a ``state_dict`` of :class:`TransformerLM`
     (or of ``SpladeEncoder``): CPU tensors, which ``load_state_dict`` copies
     to the module's device."""
-    state = {}
-    for name, leaf in _flatten(params).items():
-        leaf = np.asarray(leaf)
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(leaf.shape[0]):
-                state[f"blocks.{i}.{rest}"] = torch.from_numpy(leaf[i].copy())
-        else:
-            state[name] = torch.from_numpy(leaf.copy())
-    return state
-
-
-def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.asarray(leaf)
+    return unstack_layers(params, ("blocks",))
 
 
 def params_to_jax(state: dict) -> dict:
@@ -260,16 +235,4 @@ def params_to_jax(state: dict) -> dict:
     numpy arrays) as the JAX params pytree of numpy arrays, nested by the
     dotted names, with ``blocks.<i>.<leaf>`` stacked into
     ``blocks.<leaf>`` [L, ...] in layer order."""
-    flat, blocks = {}, {}
-    for name, leaf in state.items():
-        if name.startswith("blocks."):
-            i, rest = name[len("blocks."):].split(".", 1)
-            blocks.setdefault(rest, {})[int(i)] = _host(leaf)
-        else:
-            flat[name] = _host(leaf)
-    for rest, layers in blocks.items():
-        if sorted(layers) != list(range(len(layers))):
-            raise ValueError(f"blocks.*.{rest}: layers {sorted(layers)}")
-        flat[f"blocks.{rest}"] = np.stack([layers[i]
-                                           for i in range(len(layers))])
-    return nest(flat)
+    return stack_layers(state, ("blocks",))

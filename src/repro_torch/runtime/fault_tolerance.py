@@ -3,8 +3,8 @@
 
 At 1000+ nodes the failure model is: (a) planned preemption (SIGTERM with a
 grace window) -> drain + checkpoint + exit; (b) hard node loss -> restart
-from the latest atomic checkpoint, possibly on fewer hosts (the JAX
-package's ``repro.runtime.elastic``, not ported); (c) stragglers -> detect
+from the latest atomic checkpoint, possibly on fewer hosts
+(``repro_torch.runtime.elastic``); (c) stragglers -> detect
 via per-host step heartbeats and flag/replace.  On the single-host container the multi-host
 paths are exercised through the fault-injection harness in tests.
 """

@@ -1,8 +1,8 @@
 """repro_torch's architecture registry vs repro's, on the CPU.
 
-``list_archs()`` is JAX's less ``schnet`` (its config waits for its model),
-and every registered ``ArchSpec`` equals JAX's field for field: config and
-smoke config (nested ``MoEConfig`` and encoder configs too), shapes,
+``list_archs()`` is JAX's, ``schnet`` included, and every registered
+``ArchSpec`` equals JAX's field for field: config and smoke config (nested
+``MoEConfig``, ``SchNetConfig`` and encoder configs too), shapes,
 skip_shapes, source and notes.  The port's transformer config lacks three
 JAX knobs that nothing in it reads (``scan_layers``, ``attn_unroll``,
 ``seq_parallel``); every registered config leaves them at JAX's defaults.
@@ -22,7 +22,7 @@ from repro_torch.configs import get_arch, list_archs
 from repro_torch.models.transformer import TransformerLM
 
 UNREAD = {"scan_layers", "attn_unroll", "seq_parallel"}
-ARCHS = sorted(set(j_list_archs()) - {"schnet"})
+ARCHS = sorted(j_list_archs())
 
 
 def _same(port, ref, path="") -> None:
@@ -48,10 +48,13 @@ def _same(port, ref, path="") -> None:
 
 
 def test_list_archs_is_jax_less_schnet():
+    # The name is older than the port's SchNet: the registry is now JAX's
+    # whole, schnet included.
     assert list_archs() == ARCHS
-    assert "schnet" in j_list_archs()
-    with pytest.raises(KeyError, match="schnet"):
-        get_arch("schnet")
+    assert "schnet" in list_archs()
+    assert get_arch("schnet").family == "gnn"
+    with pytest.raises(KeyError, match="no-such-arch"):
+        get_arch("no-such-arch")
 
 
 # qwen2-0.5b is the case that test_torch_lm.py held alone before the
@@ -64,6 +67,9 @@ def test_configs_copy_the_jax_ones_field_for_field(arch):
 def test_shape_grids_and_moe_config_copy_jax():
     _same(tbase.LM_SHAPES, jbase.LM_SHAPES, "LM_SHAPES")
     _same(tbase.RECSYS_SHAPES, jbase.RECSYS_SHAPES, "RECSYS_SHAPES")
+    _same(tbase.GNN_SHAPES, jbase.GNN_SHAPES, "GNN_SHAPES")
+    _same(tbase.SchNetConfig(name="s"), jbase.SchNetConfig(name="s"),
+          "SchNetConfig")
     _same(tbase.MoEConfig(num_experts=4, top_k=2),
           jbase.MoEConfig(num_experts=4, top_k=2), "MoEConfig")
 

@@ -51,7 +51,13 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.configs.smollm_135m",
               "repro_torch.configs.olmoe_1b_7b",
               "repro_torch.configs.mixtral_8x22b",
-              "repro_torch.models.layers", "repro_torch.train.grad_compress"):
+              "repro_torch.models.layers", "repro_torch.train.grad_compress",
+              "repro_torch.configs.schnet", "repro_torch.models.schnet",
+              "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+              "repro_torch.launch.mesh", "repro_torch.analysis.probes",
+              "repro_torch.analysis.ops", "repro_torch.analysis.roofline",
+              "repro_torch.analysis.report",
+              "repro_torch.runtime.elastic"):
         assert m in mods
     code = (
         "import importlib, sys\n"

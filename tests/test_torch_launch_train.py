@@ -58,7 +58,7 @@ def test_every_lm_arch_trains_through_the_driver(arch):
 def test_driver_refuses_what_it_cannot_run():
     with pytest.raises(ValueError, match="LM archs"):
         train.main(SMALL + ["--arch", "din", "--steps", "1"])
-    with pytest.raises(KeyError, match="schnet"):
+    with pytest.raises(ValueError, match="LM archs"):
         train.main(SMALL + ["--arch", "schnet", "--steps", "1"])
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

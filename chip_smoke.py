@@ -7,7 +7,8 @@ scheduler, the segment store), sharded serving with its serve driver,
 the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
 WAND/BMW and Seismic CPU baselines), every LM architecture of the
 registry (mixture-of-experts layers, the training driver, data-parallel
-training), and SchNet with the cell layer's dry run, on one NVIDIA H100.
+training), SchNet with the cell layer's dry run, and tensor- and
+expert-parallel serving under the sharding policy, on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -317,6 +318,36 @@ Phases (each raises on failure; the script then exits non-zero):
    term, bound ms), printed as a table; every cell must count.  A
    ``{"schnet": {...}}`` line holds the numbers.
 
+13. Tensor and expert parallelism (``repro_torch.sharding``), with phase
+   12's data freed.  First, which collectives gloo takes CUDA tensors for
+   (each tried on a group of one).  13a: ``qwen3-4b`` at full width and
+   depth, prefill 1 x 4,096 in bf16 under the policy of a 1 x 1 mesh over
+   an NCCL group of one: logits bit for bit the unsharded model's, 36
+   ``flash_attention`` launches.  13b: the single-rank run of the cases
+   below on the card, then two processes on card 0 over gloo with CUDA
+   tensors (spawned without ``CUBLAS_WORKSPACE_CONFIG``), mesh 1 x 2, each
+   holding its shards of the same seeded weights: ``qwen3-4b`` prefill 1 x
+   4,096 and 8 decode steps of 8 sequences from 4,096 seeded cache slots
+   (bf16 within ARCH_BF16_DRIFTS of the single run's own bf16-vs-f32
+   drift, f32 prefill within PREFILL_F32_RTOL; 36 launches a prefill on
+   16 q / 4 kv heads a rank), ``smollm-135m`` in f32 (9 q / 3 kv heads:
+   every head from gathered weights, the cache split by sequence; within
+   TP_SEQ_RTOL), ``olmoe-1b-7b`` prefill 4 x 2,048 under TP inside the
+   experts and under EP (within the bf16 bar; expert ids and drops equal
+   on the ranks, their share off the single run printed; layer 0's
+   experts on 256 seeded tokens in f32: ids and drops the single run's,
+   the output within MOE_CPU_TOL),
+   xDeepFM and AutoInt at serve_p99 (B = 512, H = 1 and 8) with their
+   tables row-sharded (each rank's rows within RECSYS_TOL; one
+   ``embedding_bag`` launch a call on each rank).  For each case: ms a
+   call (two ranks sharing one card, gloo: no measure of TP speed), each
+   rank's peak memory beside the single run's, the launches.  13c: the
+   ``meta`` dry run of every cell at ``"quad_tp"``, the MoE cells also
+   with ``--expert-parallel``, in worker processes; every cell must count.
+   A ``{"tensor_parallel": {...}}`` line holds the numbers; the
+   ``kernels`` line's ``flash_attention`` and ``embedding_bag`` rows gain
+   their launches a call on each rank.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -384,6 +415,16 @@ MOE_CPU_TOL = 1e-5
 # grows to about one drift (1.07 drifts on the first chip run), so phase
 # 5's one-drift bar is printed beside it, not held.
 ARCH_BF16_DRIFTS = 2.0
+# Phase 13b: two ranks against the single run of the same weights.  The
+# sequence-split cache combines the ranks' softmax parts in f32: within
+# TP_SEQ_RTOL of max |logit|.
+TP_SEQ_RTOL = 1e-4
+# Phase 13b's mesh is 1 x TP_RANKS; TP_SEQ_ARCH's kv heads do not divide
+# it, so its cache is split by sequence.  A rank gets TP_TIMEOUT_S.
+TP_RANKS = 2
+TP_ROUNDS = 1  # timed calls a case, after its warm-up
+TP_SEQ_ARCH = "smollm-135m"
+TP_TIMEOUT_S = 900.0
 # The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
 # flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
 TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "splade_head": "HMMA"}
@@ -555,6 +596,19 @@ class Sizes:
     reddit_nodes: int = 232_965
     reddit_edges: int = 114_615_892
     dryrun_workers: int = 8
+    # Tensor and expert parallelism (phase 13), TP_RANKS gloo ranks on card
+    # 0: dense_arch (qwen3-4b) prefill 1 x 4,096 and 8 decode steps of 8
+    # sequences from 4,096 seeded cache slots (bf16 and f32); TP_SEQ_ARCH
+    # the same in f32 (its 3 kv heads: the cache split by sequence);
+    # moe_arch prefill 4 x 2,048 under TP inside the experts and under EP;
+    # xDeepFM and AutoInt at serve_p99 with their tables row-sharded.
+    tp_prefill_len: int = 4096
+    tp_decode_batch: int = 8
+    tp_decode_context: int = 4096
+    tp_decode_steps: int = 8
+    tp_moe_batch: int = 4
+    tp_moe_len: int = 2048
+    tp_recsys_models: tuple = ("xdeepfm", "autoint")
 
 
 def card_line() -> str:
@@ -3974,9 +4028,10 @@ def lm_archs(dev, sizes: Sizes) -> dict:
 
 
 def dryrun_cell(cell: tuple) -> dict:
-    """12b's job, in a worker process: the meta count of one ``"single"``
-    cell (``launch.dryrun.run_cell``, nothing saved) -> the numbers of
-    its table row, or its error.  Touches no card."""
+    """12b's and 13c's job, in a worker process: the meta count of one
+    cell, ``(arch, shape)`` at ``"single"`` or ``(arch, shape, layout,
+    expert_parallel)`` (``launch.dryrun.run_cell``, nothing saved) -> the
+    numbers of its table row, or its error.  Touches no card."""
     if SRC not in sys.path:
         sys.path.insert(0, SRC)
     import torch
@@ -3984,14 +4039,17 @@ def dryrun_cell(cell: tuple) -> dict:
     from repro_torch.launch import dryrun
 
     torch.set_num_threads(1)
-    arch, shape = cell
+    arch, shape, layout, ep = (*cell, "single", False)[:4]
     t0 = time.perf_counter()
     try:
-        art = dryrun.run_cell(arch, shape, save=False, verbose=False)
+        art = dryrun.run_cell(arch, shape, layout, save=False, verbose=False,
+                              expert_parallel=ep)
     except Exception as e:  # listed by the caller, which then fails
         return {"arch": arch, "shape": shape, "error": repr(e)}
     roof = art["roofline"]
-    return {"arch": arch, "shape": shape, "model_flops": art["model_flops"],
+    return {"arch": arch, "shape": shape, "layout": layout, "ep": ep,
+            "coll_bytes": art["collectives"]["total_bytes"],
+            "model_flops": art["model_flops"],
             "flops": art["cost"]["flops"], "bytes": art["cost"]["bytes"],
             "peak_bytes": art["cost"]["peak_bytes"], "fits": art["fits"],
             "compute": roof["compute"], "useful_ratio": roof["useful_ratio"],
@@ -4182,6 +4240,606 @@ def schnet_phase(dev, sizes: Sizes) -> dict:
         raise AssertionError(f"{len(failed)} cells did not count: "
                              f"{[(r['arch'], r['shape']) for r in failed]}")
     out["12b"] = rows
+    return out
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: tensor and expert parallelism
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def seeded_cache(lm, batch: int, ctx: int, steps: int, dev, seed: int):
+    """``lm``'s cache for ``batch`` sequences of ``ctx + steps`` slots whose
+    first ``ctx`` hold seeded K/V (bf16-rounded normals, the same numbers
+    in any compute dtype) at positions 0..ctx-1; under a policy the
+    rank's block of the same whole cache."""
+    import torch
+
+    from repro_torch.sharding import policies as pol
+
+    cfg = lm.cfg
+    cache = lm.init_cache(batch, ctx + steps)
+    s = ctx + steps
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pl = None
+    if lm.policy is not None:
+        pl = lm.policy.placements(pol.lm_cache_dims(
+            lm.policy, batch, s, cfg.n_kv_heads)["k"])
+    for li in range(cfg.n_layers):
+        for name in ("k", "v"):
+            full = torch.zeros((1, batch, s, cfg.n_kv_heads, cfg.head_dim),
+                               dtype=cfg.compute_dtype, device=dev)
+            full[0, :, :ctx] = torch.randn(
+                (batch, ctx, cfg.n_kv_heads, cfg.head_dim), generator=g,
+                device=dev).to(torch.bfloat16).to(cfg.compute_dtype)
+            if pl is not None:
+                full = pol.shard_leaf(full, pl, lm.policy.mesh, lm.coords)
+            cache[name][li].copy_(full[0])
+            del full
+    cache["pos"][:, :ctx] = torch.arange(ctx, dtype=torch.int32, device=dev)
+    return cache
+
+
+def tp_cases(dev, sizes: Sizes, policy_of=None) -> dict:
+    """13b's cases on one rank (``policy_of(cfg, ep)`` -> its policy) or,
+    with ``policy_of`` None, on the whole model: each case's outputs (CPU
+    tensors), ms a call (host clock, synchronised: a warm-up and
+    ``TP_ROUNDS`` calls, the median), peak device memory and the kernels'
+    launches a call.  The same seeds give every rank its shards of the
+    single run's weights."""
+    import contextlib
+    import dataclasses
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import make_lm_batch, make_recsys_batch
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.recsys import build_model
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding import ctx
+
+    card = dev.type == "cuda"  # on the CPU (a rehearsal) no memory stats
+
+    def wait():
+        if card:
+            sync(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if card else None
+
+    def release():
+        if card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed_calls(fn):
+        out = fn()
+        wait()
+        times = []
+        for _ in range(TP_ROUNDS):
+            t0 = time.perf_counter()
+            out = fn()
+            wait()
+            times.append(time.perf_counter() - t0)
+        return out, 1e3 * float(np.median(times))
+
+    def lm_of(cfg, ep=False):
+        release()
+        return TransformerLM(
+            cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0),
+            policy=None if policy_of is None else policy_of(cfg, ep))
+
+    def heads(lm):
+        dh = lm.cfg.head_dim
+        attn = lm.blocks[0].attn
+        return [attn["wq"].shape[1] // dh, attn["wk"].shape[1] // dh]
+
+    def lm_case(cfg) -> dict:
+        """A prefill of 1 x ``tp_prefill_len``, then ``tp_decode_steps``
+        decode steps of ``tp_decode_batch`` sequences from the seeded
+        cache."""
+        lm = lm_of(cfg)
+        tokens, dtoks = (torch.from_numpy(make_lm_batch(
+            b, s, cfg.vocab_size, seed=seed)["tokens"]).to(dev)
+            for b, s, seed in ((1, sizes.tp_prefill_len, 0),
+                               (sizes.tp_decode_batch,
+                                sizes.tp_decode_steps, 2)))
+        flash_ops.launches = 0
+        logits, ms = timed_calls(lambda: lm.prefill(tokens))
+        case = {"prefill": logits.cpu(), "prefill_ms": ms,
+                "flash_per_prefill": flash_ops.launches
+                / (TP_ROUNDS + 1), "heads": heads(lm)}
+        cache = seeded_cache(lm, sizes.tp_decode_batch,
+                             sizes.tp_decode_context, sizes.tp_decode_steps,
+                             dev, seed=3)
+        steps, times = [], []
+        for i in range(sizes.tp_decode_steps):
+            wait()
+            t0 = time.perf_counter()
+            dl, cache = lm.decode_step(cache, dtoks[:, i],
+                                       sizes.tp_decode_context + i)
+            wait()
+            times.append(time.perf_counter() - t0)
+            steps.append(dl.cpu())
+        case.update(decode=torch.stack(steps), cache_seq=lm.cache_seq,
+                    decode_ms=1e3 * float(np.median(times[1:])),
+                    peak=peak())
+        return case
+
+    out = {}
+    with torch.inference_mode():
+        # qwen3-4b in bf16 and f32; smollm-135m in f32 (split heads, the
+        # cache split by sequence)
+        cfg = arch_config(sizes, sizes.dense_arch)
+        for dt in ("bfloat16", "float32"):
+            out[f"{cfg.name} {dt}"] = lm_case(dataclasses.replace(cfg,
+                                                                  dtype=dt))
+        cfg = arch_config(sizes, TP_SEQ_ARCH)
+        out[f"{cfg.name} float32"] = lm_case(dataclasses.replace(
+            cfg, dtype="float32"))
+
+        # olmoe-1b-7b: prefill under TP inside the experts, then EP
+        cfg = arch_config(sizes, sizes.moe_arch)
+        tokens = torch.from_numpy(make_lm_batch(
+            sizes.tp_moe_batch, sizes.tp_moe_len, cfg.vocab_size,
+            seed=0)["tokens"]).to(dev)
+        runs = (("bfloat16", False), ("float32", False)) if policy_of is None \
+            else (("bfloat16", False), ("bfloat16", True))
+        for dt, ep in runs:
+            lm = lm_of(dataclasses.replace(cfg, dtype=dt), ep)
+            flash_ops.launches = 0
+            lm.routes = []
+            logits, ms = timed_calls(lambda: lm.prefill(tokens))
+            last = lm.routes[-cfg.n_layers:]  # the last call's layers
+            ids = torch.stack([r[0] for r in last]).cpu()
+            kept = torch.stack([r[1] for r in last]).cpu()
+            lm.routes = None
+            # layer 0's experts in f32 on the same seeded tokens
+            x = torch.randn((1, sizes.moe_cpu_len, cfg.d_model),
+                            generator=torch.Generator(device=dev).manual_seed(
+                                4), device=dev)
+            layer_routes = []
+            p = lm.layer(0, torch.float32)["moe"]
+            with (contextlib.nullcontext() if lm.policy is None
+                  else ctx.axes(lm.policy.mesh, lm.policy.dp, lm.policy.tp)):
+                y, _ = L.moe_block(p, x, lm.cfg, lm.tp, layer_routes)
+            out[f"{cfg.name} {dt}{' ep' if ep else ''}"] = {
+                "prefill": logits.cpu(), "prefill_ms": ms, "ids": ids,
+                "kept": kept, "heads": heads(lm), "layer0": y.cpu(),
+                "layer0_ids": layer_routes[0][0].cpu(),
+                "layer0_kept": layer_routes[0][1].cpu(),
+                "experts": list(lm.blocks[0].moe["w_gate"].shape),
+                "flash_per_prefill": flash_ops.launches
+                / (TP_ROUNDS + 1), "peak": peak()}
+            del lm
+
+        # xDeepFM and AutoInt at serve_p99, tables row-sharded; a batch
+        # is split over every rank
+        n, r = ((1, 0) if policy_of is None
+                else (dist.get_world_size(), dist.get_rank()))
+        for name in sizes.tp_recsys_models:
+            cfg = getattr(importlib.import_module(
+                f"repro_torch.configs.{name}"), sizes.recsys_config)
+            release()
+            model = build_model(cfg, device=dev, seed=0,
+                                policy=None if policy_of is None
+                                else policy_of(cfg, False))
+            for hot in sizes.hots:
+                batch = to_device(make_recsys_batch(
+                    sizes.serve_batch, cfg.n_sparse, cfg.vocab_sizes,
+                    cfg.seq_len, cfg.item_vocab, multi_hot=hot, seed=0), dev)
+                b = sizes.serve_batch // n
+                mine = {k: v[r * b:(r + 1) * b] for k, v in batch.items()}
+                bag_ops.launches = 0
+                logits, ms = timed_calls(lambda: model(mine))
+                out[f"{cfg.name} H={hot}"] = {
+                    "logits": logits.cpu(), "ms": ms,
+                    "rows": [r * b, (r + 1) * b],
+                    "bag_per_call": bag_ops.launches / (TP_ROUNDS + 1),
+                    "sharded": sorted(model.first), "peak": peak()}
+            del model
+    release()
+    return out
+
+
+def tp_rank(rank: int, world: int, port: int, path: str, dev_type: str,
+            sizes: Sizes) -> None:
+    """13b's rank ``rank`` of ``world`` on card 0 over gloo (a spawned
+    process): its cases under the (1, world) mesh, written to ``path``."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding.policies import make_policy
+
+    dev = torch.device(dev_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        collectives = gloo_cuda_collectives(dev)
+        mesh = make_debug_mesh(1, world, device_type=dev.type)
+        t0 = time.perf_counter()
+        out = tp_cases(dev, sizes, lambda cfg, ep: make_policy(
+            mesh, expert_parallel=ep))
+        out["seconds"] = time.perf_counter() - t0
+        out["gloo_cuda"] = collectives
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, path)
+
+
+def gloo_cuda_collectives(dev) -> dict:
+    """Which collectives the gloo group in use (13b's ranks) carries for
+    tensors on ``dev`` under the installed PyTorch: each run across the
+    ranks (rank r holds ``8 r .. 8 r + 7``) and its result checked.  A
+    refusal raises on every rank alike, before any transfer."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+
+    def of(rank, dtype=torch.float32):
+        return torch.arange(8 * rank, 8 * rank + 8, device=dev).to(dtype)
+
+    every = torch.cat([of(q) for q in range(n)])
+    w = 8 // n  # the block a rank gets of an 8-long tensor
+
+    def reduced(op, dtype=torch.float32):
+        def run():
+            x = of(r, dtype)
+            dist.all_reduce(x, op=op)
+            return x
+        want = torch.stack([of(q, dtype) for q in range(n)])
+        return run, (want.sum(0) if op == dist.ReduceOp.SUM
+                     else want.amax(0)).to(dtype)
+
+    def listed():
+        parts = [torch.empty(8, device=dev) for _ in range(n)]
+        dist.all_gather(parts, of(r))
+        return torch.cat(parts)
+
+    def into():
+        out = torch.empty(8 * n, device=dev)
+        dist.all_gather_into_tensor(out, of(r))
+        return out
+
+    def scattered():
+        out = torch.empty(w, device=dev)
+        dist.reduce_scatter_tensor(out, of(r))
+        return out
+
+    def to_all():
+        out = torch.empty(8, device=dev)
+        dist.all_to_all_single(out, of(r))
+        return out
+
+    def broadcast():
+        x = of(r)
+        dist.broadcast(x, 0)
+        return x
+
+    tries = {
+        "all_reduce SUM f32": reduced(dist.ReduceOp.SUM),
+        "all_reduce MAX f32": reduced(dist.ReduceOp.MAX),
+        "all_reduce SUM bf16": reduced(dist.ReduceOp.SUM, torch.bfloat16),
+        "all_reduce SUM int32": reduced(dist.ReduceOp.SUM, torch.int32),
+        "broadcast": (broadcast, of(0)),
+        "all_gather (list)": (listed, every),
+        "all_gather_into_tensor": (into, every),
+        "reduce_scatter_tensor": (scattered, sum(
+            of(q)[r * w:(r + 1) * w] for q in range(n))),
+        "all_to_all_single": (to_all, torch.cat(
+            [of(q)[r * w:(r + 1) * w] for q in range(n)])),
+    }
+    out = {}
+    for name, (fn, want) in tries.items():
+        try:
+            got = fn()
+            out[name] = (True if torch.equal(got, want)
+                         else f"wrong values: {got.tolist()}")
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def held_to(name: str, got, want, bar: float) -> float:
+    """max |got - want| against ``bar`` (raises above it)."""
+    err = float((got - want).abs().max())
+    log(f"    {name}: max err {err!r} (bar {bar!r})")
+    if not err <= bar:
+        raise AssertionError(f"{name}: {err!r} > {bar!r}")
+    return err
+
+
+def tp_phase(dev, sizes: Sizes) -> dict:
+    """Phase 13: 13a one NCCL rank (mesh 1 x 1) bit for bit the unsharded
+    qwen3-4b prefill; 13b two gloo ranks on card 0 (mesh 1 x 2) held to
+    the single-rank run of the same weights; 13c the meta dry run of every
+    cell at ``quad_tp`` (the MoE cells with ``--expert-parallel`` too)."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import make_lm_batch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.cells import all_cells
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding.policies import make_policy
+
+    out = {}
+    t0 = time.perf_counter()
+
+    # 13a: the policy's path at model 1 under an NCCL group of one
+    cfg = arch_config(sizes, sizes.dense_arch)
+    tokens = torch.from_numpy(make_lm_batch(
+        1, sizes.tp_prefill_len, cfg.vocab_size, seed=0)["tokens"]).to(dev)
+    with torch.inference_mode():
+        lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(0))
+        want = lm.prefill(tokens)
+        del lm
+        torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1)
+        try:
+            lm = TransformerLM(cfg, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(0), policy=make_policy(
+                    make_debug_mesh(1, 1, device_type=dev.type)))
+            flash_ops.launches = 0
+            got = lm.prefill(tokens)
+            launches = flash_ops.launches
+            del lm
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    same = torch.equal(got, want)
+    log(f"  13a {cfg.name} prefill 1 x {sizes.tp_prefill_len} bf16, mesh "
+        f"1 x 1 under NCCL: logits bit for bit the unsharded model's: "
+        f"{same}; flash_attention launches {launches}")
+    if not same or (dev.type == "cuda" and launches != cfg.n_layers):
+        raise AssertionError("13a: the policy's path at model 1 is not the "
+                             "unsharded model's")
+    out["13a"] = {"bitwise": same, "flash_launches": launches,
+                  "seconds": time.perf_counter() - t0}
+    del got, want
+
+    # 13b: the single-rank references, then two gloo ranks
+    t1 = time.perf_counter()
+    ref = tp_cases(dev, sizes)
+    torch.cuda.empty_cache()
+    out["13b single seconds"] = time.perf_counter() - t1
+    tmp = tempfile.mkdtemp(prefix="tp_phase")
+    world = TP_RANKS
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(world)]
+    # the ranks run without the workspace setting main() makes for
+    # phase 7's deterministic algorithms: it slows small steps
+    saved = os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    t1 = time.perf_counter()
+    try:
+        procs = [ctx.Process(target=tp_rank, args=(
+            r, world, port, paths[r], dev.type, sizes)) for r in range(world)]
+        for p in procs:
+            p.start()
+    finally:
+        if saved is not None:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+    try:
+        for p in procs:
+            p.join(TP_TIMEOUT_S)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * world:
+            raise AssertionError(f"13b: the ranks exited with {codes}")
+        ranks = [torch.load(p_, weights_only=False) for p_ in paths]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["13b ranks seconds"] = time.perf_counter() - t1
+    # the collectives gloo carried for CUDA tensors between the two ranks;
+    # the sharded paths use the all-reduces and the list all_gather
+    out["gloo_cuda"] = ranks[0].pop("gloo_cuda")
+    log(f"  gloo with {dev.type} tensors across {world} ranks (torch "
+        f"{torch.__version__}): {json.dumps(out['gloo_cuda'])}")
+    used = ("all_reduce SUM f32", "all_reduce MAX f32", "all_gather (list)")
+    others = [got.pop("gloo_cuda") for got in ranks[1:]]
+    if any(o != out["gloo_cuda"] for o in others) or any(
+            out["gloo_cuda"][k] is not True for k in used):
+        raise AssertionError("13b: gloo refused or garbled a collective "
+                             "the sharded paths use")
+    label = "two ranks sharing one card, gloo"
+    checks = {}  # each comparison's [max err, bar]
+
+    def held(name, got, want, bar):
+        checks[name] = [held_to(name, got, want, bar), bar]
+
+    rows = {}
+    for key, want in ref.items():
+        got_keys = [k for k in ranks[0] if k.startswith(key)]
+        for gk in got_keys:
+            rows[gk] = row = {"single_ms": {k: v for k, v in want.items()
+                                            if k.endswith("ms")},
+                              "single_peak": want.get("peak")}
+            for r, got in enumerate(ranks):
+                g = got[gk]
+                row[f"rank{r}"] = {k: v for k, v in g.items()
+                                   if not isinstance(v, torch.Tensor)}
+    # qwen3-4b: bf16 within two drifts of the single run's own
+    # bf16-vs-f32 drift; flash_attention 36 launches a prefill on each
+    # rank, on 16 q / 4 kv heads
+    name = arch_config(sizes, sizes.dense_arch).name
+    n_layers = arch_config(sizes, sizes.dense_arch).n_layers
+    w16, w32 = ref[f"{name} bfloat16"], ref[f"{name} float32"]
+    for part in ("prefill", "decode"):
+        drift = float((w16[part] - w32[part]).abs().max())
+        for r, got in enumerate(ranks):
+            g = got[f"{name} bfloat16"]
+            held(f"13b {name} {part} bf16, rank {r} vs the single run "
+                    f"(the single run's bf16-vs-f32 drift {drift!r})",
+                    g[part], w16[part], ARCH_BF16_DRIFTS * drift)
+            if part == "prefill":
+                held(f"13b {name} prefill f32, rank {r}",
+                        got[f"{name} float32"]["prefill"], w32["prefill"],
+                        PREFILL_F32_RTOL * float(w32["prefill"].abs().max()))
+            if g["heads"] != [w16["heads"][0] // world,
+                              w16["heads"][1] // world] or (
+                    dev.type == "cuda" and g["flash_per_prefill"] != n_layers):
+                raise AssertionError(f"13b {name}: rank {r} ran "
+                                     f"{g['flash_per_prefill']} launches a "
+                                     f"prefill on heads {g['heads']}")
+    # smollm-135m: f32, the cache split by sequence: within 1e-4 of max
+    name = arch_config(sizes, TP_SEQ_ARCH).name
+    w = ref[f"{name} float32"]
+    for r, got in enumerate(ranks):
+        g = got[f"{name} float32"]
+        if g["cache_seq"] != ("model",):
+            raise AssertionError(f"13b {name}: cache split {g['cache_seq']}")
+        for part in ("prefill", "decode"):
+            held(f"13b {name} {part} f32, cache by sequence, rank {r}",
+                    g[part], w[part],
+                    TP_SEQ_RTOL * float(w[part].abs().max()))
+    # olmoe-1b-7b: TP inside the experts and EP, within the bf16 bar,
+    # routing the same on both ranks; over the whole bf16 prefill, the
+    # share of (token, slot) entries routed to another expert (or dropped
+    # otherwise) than the single bf16 run within ARCH_BF16_DRIFTS times
+    # the single run's own bf16-vs-f32 share (the witness of how far bf16
+    # rounding alone moves near-tied routes); layer 0's experts on the
+    # same tokens in f32: expert ids and drops equal to the single run's,
+    # the output within MOE_CPU_TOL
+    cfg = arch_config(sizes, sizes.moe_arch)
+    w16, w32 = ref[f"{cfg.name} bfloat16"], ref[f"{cfg.name} float32"]
+    drift = float((w16["prefill"] - w32["prefill"]).abs().max())
+    witness = {k: float((w16[k] != w32[k]).float().mean())
+               for k in ("ids", "kept")}
+    log(f"    13b {cfg.name}: the single run's bf16-vs-f32 share of "
+        f"(token, slot) entries routed to another expert "
+        f"{witness['ids']!r}, dropped otherwise {witness['kept']!r}")
+    out["13b moe witness"] = witness
+    for mode in ("", " ep"):
+        key = f"{cfg.name} bfloat16{mode}"
+        g0 = ranks[0][key]
+        for r, got in enumerate(ranks):
+            g = got[key]
+            held(f"13b {key} prefill, rank {r} (drift {drift!r})",
+                    g["prefill"], w16["prefill"], ARCH_BF16_DRIFTS * drift)
+            if not (torch.equal(g["ids"], g0["ids"])
+                    and torch.equal(g["kept"], g0["kept"])):
+                raise AssertionError(f"13b {key}: the ranks route "
+                                     f"differently")
+            held(f"13b {key} layer 0's experts on {sizes.moe_cpu_len} "
+                    f"seeded tokens in f32, rank {r}", g["layer0"],
+                    w16["layer0"],
+                    MOE_CPU_TOL * float(w16["layer0"].abs().max()))
+            if not (torch.equal(g["layer0_ids"], w16["layer0_ids"])
+                    and torch.equal(g["layer0_kept"], w16["layer0_kept"])):
+                raise AssertionError(f"13b {key}: layer 0's expert ids or "
+                                     f"drops are not the single run's")
+        ids_off = float((g0["ids"] != w16["ids"]).float().mean())
+        kept_off = float((g0["kept"] != w16["kept"]).float().mean())
+        drops = [int((~w16["kept"]).sum()), int((~g0["kept"]).sum())]
+        for k, off in (("ids", ids_off), ("kept", kept_off)):
+            checks[f"13b {key} whole-prefill {k} share off the single "
+                   f"run"] = [off, ARCH_BF16_DRIFTS * witness[k]]
+            if not off <= ARCH_BF16_DRIFTS * witness[k]:
+                raise AssertionError(
+                    f"13b {key}: {off!r} of the whole prefill's {k} differ "
+                    f"from the single run's, above {ARCH_BF16_DRIFTS} x the "
+                    f"single run's bf16-vs-f32 {witness[k]!r}")
+        log(f"    13b {key}: expert ids and drops equal on the {world} "
+            f"ranks, and layer 0's (same tokens, f32) the single run's; "
+            f"over the whole bf16 prefill {ids_off!r} of the (token, slot) "
+            f"entries route to another expert than the single run's and "
+            f"{kept_off!r} change their drop (bars "
+            f"{ARCH_BF16_DRIFTS * witness['ids']!r}, "
+            f"{ARCH_BF16_DRIFTS * witness['kept']!r}); drops single "
+            f"{drops[0]}, sharded {drops[1]}; experts a rank "
+            f"{g0['experts']}")
+        rows[key].update(ids_off=ids_off, kept_off=kept_off, drops=drops)
+    # the recsys models: within RECSYS_TOL, embedding_bag on every rank
+    for name in sizes.tp_recsys_models:
+        for hot in sizes.hots:
+            key = next(k for k in ref if k.endswith(f" H={hot}")
+                       and k.startswith(name))
+            w = ref[key]
+            for r, got in enumerate(ranks):
+                g = got[key]
+                lo, hi = g["rows"]
+                held(f"13b {key}, rank {r} rows {lo}:{hi}", g["logits"],
+                        w["logits"][lo:hi],
+                        RECSYS_TOL * float(w["logits"].abs().max()))
+                if "fields.table" not in g["sharded"] or (
+                        dev.type == "cuda" and g["bag_per_call"] < 1):
+                    raise AssertionError(f"13b {key}: rank {r} launched "
+                                         f"embedding_bag "
+                                         f"{g['bag_per_call']} times a call "
+                                         f"on tables {g['sharded']}")
+    for key, row in rows.items():
+        log(f"  13b {key} ({label}): " + json.dumps(row, default=str))
+    out["13b"] = rows
+    out["13b label"] = label
+    out["13b checks"] = checks
+
+    # 13c: the meta dry run at quad_tp
+    t1 = time.perf_counter()
+    jobs = [(a, s, "quad_tp", False) for a, s in all_cells()]
+    jobs += [(a, s, "quad_tp", True) for a, s in all_cells()
+             if getattr(get_arch(a).config, "moe", None) is not None]
+    pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
+    try:
+        drs = pool.map(dryrun_cell, jobs, chunksize=1)
+    finally:
+        pool.terminate()
+        pool.join()
+    out["13c seconds"] = time.perf_counter() - t1
+    log(f"phase 13c: the meta dry run of {len(jobs)} cells at 'quad_tp' "
+        f"(MoE cells with --expert-parallel as well; "
+        f"{sizes.dryrun_workers} workers, {out['13c seconds']:.3f} s)")
+    log(f"  {'arch':<14} {'shape':<14} {'ep':>3} {'counted':>12} "
+        f"{'coll B':>12} {'est peak B':>12} {'s':>6}")
+    failed = [r for r in drs if "error" in r]
+    for r in drs:
+        if "error" in r:
+            log(f"  {r['arch']:<14} {r['shape']:<14} FAILED: {r['error']}")
+            continue
+        log(f"  {r['arch']:<14} {r['shape']:<14} {str(r['ep'])[0]:>3} "
+            f"{r['flops']:>12.4g} {r['coll_bytes']:>12.4g} "
+            f"{r['peak_bytes']:>12.4g} {r['seconds']:>6.1f}")
+    if failed or len(drs) != len(jobs):
+        raise AssertionError(f"13c: {len(failed)} cells did not count")
+    # the rows are the table above; the line keeps the totals, so that it
+    # stays within the tail of the output a reader gets back
+    out["13c"] = {"cells": len(drs), "counted": len(drs) - len(failed),
+                  "coll_bytes": sum(r["coll_bytes"] for r in drs)}
     return out
 
 
@@ -4539,6 +5197,32 @@ def run(dev, sizes: Sizes) -> list[dict]:
     gnn["seconds"] = time.perf_counter() - t0
     log(f"phase 12: {gnn['seconds']:.3f} s")
     print(json.dumps({"schnet": gnn}, default=float))
+
+    # 13. tensor and expert parallelism; phase 12's data is gone.  The
+    # ranks' launches are counted in their processes (13b's rows).
+    del gnn
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 13: tensor and expert parallelism: 13a one NCCL rank, "
+        f"13b {TP_RANKS} gloo ranks on card 0 ({sizes.dense_arch}, "
+        f"{TP_SEQ_ARCH}, {sizes.moe_arch} TP and EP, "
+        f"{', '.join(sizes.tp_recsys_models)}), 13c the dry run at quad_tp")
+    tp = tp_phase(dev, sizes)
+    tp["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {tp['seconds']:.3f} s")
+    per_rank = {
+        "flash_attention": {
+            k: [v[f"rank{r}"]["flash_per_prefill"]
+                for r in range(TP_RANKS)]
+            for k, v in tp["13b"].items() if "flash_per_prefill" in
+            v["rank0"]},
+        "embedding_bag": {
+            k: [v[f"rank{r}"]["bag_per_call"] for r in range(TP_RANKS)]
+            for k, v in tp["13b"].items() if "bag_per_call" in v["rank0"]}}
+    for row in rows:
+        if row["name"] in per_rank:
+            row["phase13_launches_per_call_per_rank"] = per_rank[row["name"]]
+    print(json.dumps({"tensor_parallel": tp}, default=float))
     return rows
 
 

@@ -50,6 +50,7 @@ from torch.utils.flop_counter import flop_registry
 from repro_torch.configs.base import ArchSpec, ShapeSpec, get_arch
 from repro_torch.launch import cells as cells_mod
 from repro_torch.launch.mesh import production_layout
+from repro_torch.sharding import ctx
 
 NOTES = (
     "flops: torch.utils.flop_counter formulas, matmul-class ops only "
@@ -152,31 +153,46 @@ class Cost:
     flops: float = 0.0
     bytes: float = 0.0
     peak: float = 0.0
+    # the sharded paths' collectives (``sharding.ctx``), by kind: output
+    # bytes and calls
+    all_reduce: float = 0.0
+    all_reduce_n: float = 0.0
+    all_gather: float = 0.0
+    all_gather_n: float = 0.0
+
+    def _map(self, fn, o=None):
+        return Cost(*(fn(getattr(self, f.name),
+                         None if o is None else getattr(o, f.name))
+                      for f in dataclasses.fields(self)))
 
     def __add__(self, o):
-        return Cost(self.flops + o.flops, self.bytes + o.bytes,
-                    self.peak + o.peak)
+        return self._map(lambda a, b: a + b, o)
 
     def __sub__(self, o):
-        return Cost(self.flops - o.flops, self.bytes - o.bytes,
-                    self.peak - o.peak)
+        return self._map(lambda a, b: a - b, o)
 
     def __mul__(self, k: float):
-        return Cost(self.flops * k, self.bytes * k, self.peak * k)
+        return self._map(lambda a, _: a * k)
 
     __rmul__ = __mul__
 
     def as_dict(self) -> dict:
         return {"flops": self.flops, "bytes": self.bytes,
-                "peak_bytes": self.peak}
+                "peak_bytes": self.peak,
+                "collectives": {"all-reduce": [self.all_reduce,
+                                               self.all_reduce_n],
+                                "all-gather": [self.all_gather,
+                                               self.all_gather_n]}}
 
 
 def count(fn: Callable, args: tuple) -> tuple[Cost, collections.Counter]:
     """Run ``fn(*args)`` under :class:`CostMode` -> (its cost, its aten op
-    histogram)."""
-    with CostMode(roots=args) as mode:
+    histogram), with the collectives the sharded paths issue
+    (``sharding.ctx.recording``: nothing moves on ``meta``)."""
+    with CostMode(roots=args) as mode, ctx.recording() as rec:
         fn(*args)
-    return Cost(mode.flops, mode.bytes, mode.peak), mode.ops
+    return Cost(mode.flops, mode.bytes, mode.peak,
+                *rec["all-reduce"], *rec["all-gather"]), mode.ops
 
 
 def count_cell(cell) -> tuple[Cost, collections.Counter]:

@@ -182,16 +182,26 @@ def load_latest(directory: str, template: Any):
     return ck.load(step, template), step
 
 
-def reshard(tree, device):
+def reshard(tree, device, specs=None, mesh=None, coords=None):
     """A host tree (numpy arrays or CPU tensors, nested in dicts, lists or
     tuples) as the same tree of tensors on ``device`` (``"cuda"`` raises
     without a card): the whole tree on this rank, as data parallelism
-    holds it (the counterpart of ``repro.checkpoint.reshard``, which
+    holds it, or with ``specs`` (the same tree of placements, as the
+    sharding rules give them) each leaf's block of the rank at ``coords``
+    on ``mesh`` (the counterpart of ``repro.checkpoint.reshard``, which
     places each leaf on a mesh under its spec; an elastic restart reads
     the same tree whatever the writer's world size)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: reshard(v, dev) for k, v in tree.items()}
+        return {k: reshard(v, dev, None if specs is None else specs[k],
+                           mesh, coords) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(reshard(v, dev) for v in tree)
-    return torch.as_tensor(tree).to(dev)
+        return type(tree)(reshard(v, dev, None if specs is None else s,
+                                  mesh, coords)
+                          for v, s in zip(tree, specs or [None] * len(tree)))
+    leaf = torch.as_tensor(tree)
+    if specs is not None:
+        from repro_torch.sharding.policies import shard_leaf
+
+        leaf = shard_leaf(leaf, specs, mesh, coords).contiguous()
+    return leaf.to(dev)

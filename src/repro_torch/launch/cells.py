@@ -13,14 +13,22 @@ operations, bytes and live memory by running it there.  With
 card (``launch.dryrun --device cuda`` times it); a GNN cell's inputs are
 then :func:`gnn_batch`'s graphs.
 
-Layouts (:mod:`repro_torch.launch.mesh`): ``"single"`` (one H100) and
-``"quad"`` (four, data-parallel).  A cell's inputs are one rank's: the
-batch's leading dim divided by the data-parallel ranks, as JAX shards it
-over its data axes; a single graph (``gnn_full``, ``gnn_minibatch``) is
-stepped whole on every rank (the port shards no graph: JAX splits the
-edges), a one-user retrieval replicated, a document index cut into one
-shard a rank.  ``model_flops`` is the global useful work, JAX's formulas
-copied, on JAX's padded sizes.
+Layouts (:mod:`repro_torch.launch.mesh`): ``"single"`` (one H100),
+``"quad"`` (four, data-parallel) and ``"quad_tp"`` (four as data 2 x
+model 2).  A cell's inputs are one rank's: an LM batch's leading dim
+divided by the data-parallel ranks, a recsys or molecule batch's by every
+rank, as JAX shards them; a single graph (``gnn_full``,
+``gnn_minibatch``) is stepped whole on every rank (the port shards no
+graph yet: JAX splits the edges), a one-user retrieval replicated, a
+document index cut into one shard a rank.  At ``"quad_tp"`` the serving
+cells run under the layout's sharding policy (:func:`cell_policy`: LM
+parameters and KV caches by ``lm_param_specs``/``lm_cache_specs``,
+recsys tables by ``recsys_param_specs`` for serving), so their tensors
+are one rank's shards and their steps the sharded paths; the training
+cells' steps stay the data-parallel ones (training under the policy is
+not ported): their ``meta`` records the bytes of one rank's shards under
+the policy and says so.  ``model_flops`` is the global useful work, JAX's
+formulas copied, on JAX's padded sizes.
 
 On ``meta`` the cells run the plain path, since kernel entries raise
 there (``use_kernel=False``; the ``ell`` step scores through
@@ -36,6 +44,7 @@ field.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -44,7 +53,8 @@ from repro_torch.configs.base import (
     ArchSpec, RecsysConfig, SchNetConfig, ShapeSpec, TransformerConfig,
     get_arch, list_archs,
 )
-from repro_torch.launch.mesh import Layout, production_layout
+from repro_torch.launch.mesh import Layout, make_device_mesh, production_layout
+from repro_torch.sharding import policies as pol
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import (
     init_state, make_ddp_train_step, make_train_step,
@@ -114,6 +124,34 @@ def _generator(device: torch.device, seed: int):
     if device.type == "meta":
         return None  # nothing is drawn on meta
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def cell_policy(spec: ArchSpec, layout: Layout, device):
+    """The sharding policy of ``layout`` (None without a model axis): over
+    its ``AbstractMesh`` on ``meta`` (a step counted as rank 0's), else
+    over the process group's ranks (raises without one of the layout's
+    size); expert parallelism as ``layout.expert_parallel`` says, by
+    default ``default_expert_parallel``."""
+    if layout.tp == 1:
+        return None
+    ep = layout.expert_parallel
+    if ep is None:
+        ep = pol.default_expert_parallel(spec.config, layout.tp)
+    mesh = (layout.abstract_mesh() if device.type == "meta"
+            else make_device_mesh(layout, device.type))
+    return pol.make_policy(mesh, expert_parallel=ep)
+
+
+def _policy_meta(policy, params: dict, specs: Optional[dict]) -> dict:
+    """What ``meta`` records of a cell's policy: the mesh, expert
+    parallelism and one rank's parameter bytes (of whole ``params`` cut
+    by ``specs``, or of ``params`` already cut: ``specs`` None)."""
+    local = sum(4 * (p.numel() if specs is None else math.prod(
+        pol.local_shape(p.shape, specs[n], policy.mesh)))
+        for n, p in params.items())
+    return {"mesh": tuple(policy.mesh.shape),
+            "expert_parallel": policy.expert_parallel,
+            "param_bytes_per_rank": local}
 
 
 def _local(n: int, layout: Layout) -> int:
@@ -191,11 +229,12 @@ def seq_parallel(cfg: TransformerConfig, shape: ShapeSpec,
                  layout: Layout) -> bool:
     """JAX's ``adjusted_lm_cfg`` decision: sequence parallelism for a
     training cell whose per-device remat residuals (n_layers x seq x
-    d_model x 2 B at the minimum microbatch) exceed ACT_BUDGET."""
+    d_model x 2 B at the minimum microbatch) exceed ACT_BUDGET, when the
+    model axis divides the sequence."""
     if shape.kind != "train":
         return False
     resid = cfg.n_layers * shape.seq_len * cfg.d_model * 2
-    return resid > ACT_BUDGET
+    return resid > ACT_BUDGET and shape.seq_len % layout.tp == 0
 
 
 def _lm_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
@@ -203,13 +242,24 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
     from repro_torch.models.transformer import TransformerLM
 
     cfg: TransformerConfig = spec.config
+    policy = cell_policy(spec, layout, device)
+    train = shape.kind == "train"
     model = TransformerLM(cfg, device=device,
-                          generator=_generator(device, seed))
+                          generator=_generator(device, seed),
+                          policy=None if train else policy)
     gen = _generator(device, seed + 1)
     meta = {"kind": shape.kind, "compute": _lm_compute(cfg)}
+    if policy is not None:
+        params = dict(model.named_parameters())
+        meta["policy"] = _policy_meta(
+            policy, params,
+            pol.lm_param_specs(cfg, policy, params) if train else None)
+        if train:
+            meta["step"] = ("data-parallel: training under the policy is "
+                            "not ported")
     flops = _lm_model_flops(cfg, shape)
     kernels = device.type != "meta"
-    if shape.kind == "train":
+    if train:
         mb = (microbatches if microbatches is not None
               else _lm_microbatches(cfg, shape, layout.dp))
         b = shape.global_batch // layout.dp
@@ -235,9 +285,15 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
         return Cell(spec.arch_id, shape.name, layout.name, _no_grad(prefill),
                     (dict(model.named_parameters()), tokens), flops, meta,
                     model)
-    # decode / long_decode: one token per sequence at the cache's end
-    b = _local(shape.global_batch, layout)
-    cache = model.init_cache(b, shape.seq_len)
+    # decode / long_decode: one token per sequence at the cache's end;
+    # under a policy the cache is the rank's block of the global one and
+    # the tokens its rows where the cache splits the batch
+    if policy is None:
+        b = _local(shape.global_batch, layout)
+        cache = model.init_cache(b, shape.seq_len)
+    else:
+        cache = model.init_cache(shape.global_batch, shape.seq_len)
+        b = shape.global_batch // model.cache_data
     tokens = _materialize({"tokens": Input((b,), torch.int32,
                                            ("int", cfg.vocab_size))},
                           device, gen)["tokens"]
@@ -372,7 +428,7 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
     meta = {"kind": "train", "compute": "f32"}
     if device.type == "meta":
         if batched:
-            b = ceil_to(shape.global_batch, n_dev) // layout.dp
+            b = ceil_to(shape.global_batch, n_dev) // layout.cards
             lead, ids = (b, n_nodes), (b, n_edges)
             specs = {"energy": Input((b,), torch.float32)}
         else:
@@ -458,15 +514,25 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
     from repro_torch.models.recsys import build_model
 
     cfg: RecsysConfig = spec.config
-    model = build_model(cfg, device=device, seed=seed)
+    policy = cell_policy(spec, layout, device)
+    train = shape.kind == "recsys_train"
+    model = build_model(cfg, device=device, seed=seed,
+                        policy=None if train else policy)
     gen = _generator(device, seed + 1)
     n_dev = layout.cards
     meta = {"compute": "f32"}
     kernels = device.type != "meta"
+    if policy is not None:
+        params = dict(model.named_parameters())
+        meta["policy"] = _policy_meta(policy, params, pol.recsys_param_specs(
+            policy, params) if train else None)
+        if train:
+            meta["step"] = ("data-parallel: training under the policy is "
+                            "not ported")
 
-    if shape.kind == "recsys_train":
+    if train:
         b = shape.global_batch
-        batch = _materialize(_recsys_batch(cfg, b // layout.dp), device, gen)
+        batch = _materialize(_recsys_batch(cfg, b // n_dev), device, gen)
         return Cell(spec.arch_id, shape.name, layout.name,
                     _train_step(model.loss_fn, layout),
                     _train_args(model, batch),
@@ -475,7 +541,7 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
 
     if shape.kind == "recsys_serve":
         b = ceil_to(shape.global_batch, n_dev)
-        batch = _materialize(_recsys_batch(cfg, b // layout.dp), device, gen)
+        batch = _materialize(_recsys_batch(cfg, b // n_dev), device, gen)
 
         def serve_step(params, batch):
             return model.forward(batch, use_kernel=kernels)
@@ -493,7 +559,7 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
     k = CANDIDATE_K
     user = _materialize(_recsys_batch(cfg, b), device, gen)
     cand = _materialize({"candidate_ids": Input(
-        (c // layout.dp,), torch.int32,
+        (c // n_dev,), torch.int32,
         ("int", cfg.item_vocab or cfg.vocab_sizes[0]))},
         device, gen)["candidate_ids"]
 

@@ -4,6 +4,8 @@ its cost, collective and memory artifacts (``repro.launch.dryrun``).
     PYTHONPATH=src python -m repro_torch.launch.dryrun                # all
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch schnet \\
         --shape full_graph_sm --device cuda
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --layout quad_tp \\
+        --expert-parallel --skip-existing
 
 ``--device meta`` (the default) builds each cell on ``meta`` tensors and
 counts one rank's step (:mod:`repro_torch.analysis.probes`): FLOPs,
@@ -15,12 +17,19 @@ the count says fits, on seeded weights and inputs (``--seed``): its ms
 (CUDA events), ``torch.cuda.max_memory_allocated`` (the counterpart of
 XLA's ``memory_analysis``) and the warm-up's kernels by launch count
 (``torch.profiler``).  One JSON artifact a cell lands in
-``build/dryrun/<arch>__<shape>__<layout>.json`` (``--out``); failures are
-listed at the end and the exit code is 1.
+``build/dryrun/<arch>__<shape>__<layout>.json`` (``--out``; tagged
+``_ep`` with ``--expert-parallel``, which splits every MoE layer's
+experts over the model axis where they divide it, as JAX's flag does;
+``--skip-existing`` skips a cell whose artifact is there); failures are
+listed at the end and the exit code is 1.  ``--layout quad_tp`` counts
+one rank's step under the layout's sharding policy
+(``launch.cells.cell_policy``), the tensor- and expert-parallel
+collectives included.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import traceback
@@ -73,21 +82,32 @@ def measure_on_card(arch: str, shape: str, device, seed: int = 0) -> dict:
     return out
 
 
+def artifact_path(arch: str, shape: str, layout: str,
+                  expert_parallel: bool = False,
+                  out_dir: str = RESULTS_DIR) -> str:
+    tag = "_ep" if expert_parallel else ""
+    return os.path.join(out_dir, f"{arch}__{shape}__{layout}{tag}.json")
+
+
 def run_cell(arch: str, shape: str, layout: str = "single",
              device: str = "meta", seed: int = 0, out_dir: str = RESULTS_DIR,
-             save: bool = True, verbose: bool = True) -> dict:
+             save: bool = True, verbose: bool = True,
+             expert_parallel: bool = False) -> dict:
     spec = get_arch(arch)
     shape_spec = shape_of(spec, shape)
     lay = production_layout(layout)
+    if expert_parallel:
+        lay = dataclasses.replace(lay, expert_parallel=True)
     cell = make_cell(spec, shape_spec, lay)  # meta: model FLOPs, inputs
     cost = probes.spec_cost(spec, shape_spec, lay)
-    coll = ops_mod.collective_bytes(cell)
+    coll = ops_mod.collective_bytes(cell, cost["total"]["collectives"])
     artifact = {
         "arch": arch,
         "shape": shape,
         "layout": layout,
         "mesh_shape": dict(zip(lay.axis_names, lay.mesh_shape)),
         "chips": lay.cards,
+        "expert_parallel": expert_parallel,
         "cost": cost["total"],
         "cost_parts": cost["parts"],
         "trips": cost["trips"],
@@ -113,7 +133,7 @@ def run_cell(arch: str, shape: str, layout: str = "single",
                              f"the card's {HBM_BYTES} B"})
     if save:
         os.makedirs(out_dir, exist_ok=True)
-        path = os.path.join(out_dir, f"{arch}__{shape}__{layout}.json")
+        path = artifact_path(arch, shape, layout, expert_parallel, out_dir)
         with open(path, "w") as f:
             json.dump(artifact, f, indent=1, default=str)
     if verbose:
@@ -134,9 +154,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
-    ap.add_argument("--layout", choices=["single", "quad", "both"],
-                    default="single")
+    ap.add_argument("--layout", choices=["single", "quad", "quad_tp",
+                                         "both"], default="single")
     ap.add_argument("--device", choices=["meta", "cuda"], default="meta")
+    ap.add_argument("--expert-parallel", action="store_true")
+    ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=RESULTS_DIR)
     args = ap.parse_args(argv)
@@ -154,8 +176,13 @@ def main(argv=None) -> None:
     for arch, shape in cells:
         for layout in layouts:
             device = args.device if layout == "single" else "meta"
+            if args.skip_existing and os.path.exists(artifact_path(
+                    arch, shape, layout, args.expert_parallel, args.out)):
+                print(f"[dryrun] skip existing {arch}/{shape}/{layout}")
+                continue
             try:
-                run_cell(arch, shape, layout, device, args.seed, args.out)
+                run_cell(arch, shape, layout, device, args.seed, args.out,
+                         expert_parallel=args.expert_parallel)
             except Exception as e:  # a cell's failure is listed, not fatal
                 failures.append((arch, shape, layout, repr(e)))
                 print(f"[dryrun] FAIL {arch}/{shape}/{layout}: {e}")

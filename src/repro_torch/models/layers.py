@@ -17,9 +17,24 @@ top-k experts (:func:`route`) and runs them through one of two dispatches:
 tokens past it dropped, and :func:`moe_ragged`, dropless.  Its expert
 products are ``torch.bmm``/``matmul`` (``jnp.einsum`` and
 ``lax.ragged_dot`` in JAX, outside any Pallas kernel).
+
+Tensor and expert parallelism (:class:`TensorParallel`, given by the
+sharded LM; ``None`` computes everything here): a rank computes on its
+own shards, and each layer whose output is a partial sum over the model
+axis closes with one f32 SUM all-reduce (``sharding.ctx``).  Attention
+runs on the rank's ``n_heads / tp`` query and ``n_kv_heads / tp`` kv
+heads (the head counts are read from the projections' widths) and the
+row-parallel ``wo``; where the heads do not divide the axis the rank
+computes every head from gathered weights and multiplies its own
+columns of the output by its rows of ``wo``.  The MLP's ``w_gate``/
+``w_up`` are column-parallel and ``w_down`` row-parallel; the experts
+are split on F (TP inside each expert) or on E (expert parallelism).
+Decode reads a KV cache split by heads or by sequence
+(:func:`decode_attention`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -28,6 +43,40 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig, TransformerConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.sharding import ctx
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """A rank's share of an LM's layers on the model axis.
+
+    ``heads``: the q and kv heads are split over the ranks (the kv heads
+    divide the axis); ``wo_rows``: ``wo`` holds this rank's rows of
+    ``H Dh``, so the attention's output is a partial sum; ``ffn``: the
+    MLP's or the experts' output is a partial sum (F split, or the experts
+    split under expert parallelism)."""
+
+    index: int
+    heads: bool
+    wo_rows: bool
+    ffn: bool
+
+
+def psum(y: torch.Tensor) -> torch.Tensor:
+    """The SUM of the ranks' partial ``y`` over the model axis, in f32."""
+    return ctx.all_reduce_sum(y.float()).to(y.dtype)
+
+
+def out_proj(out: torch.Tensor, wo: torch.Tensor,
+             tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``out @ wo`` on this rank: with ``wo``'s rows split, the rank's
+    columns of ``out`` (all of a head-parallel ``out``) times its rows,
+    summed over the ranks."""
+    if tp is None or not tp.wo_rows:
+        return out @ wo
+    if out.shape[-1] != wo.shape[0]:  # every head computed here
+        out = out.narrow(-1, tp.index * wo.shape[0], wo.shape[0])
+    return psum(out @ wo)
 
 
 def _is_meta(device) -> bool:
@@ -94,9 +143,11 @@ def init_attention(gen: torch.Generator, cfg: TransformerConfig, dtype,
 def qkv(params, x: torch.Tensor, cfg: TransformerConfig,
         positions: torch.Tensor):
     """Projections, optional bias and qk-norm, then RoPE:
-    [B, S, H, Dh] each (``repro.models.layers._qkv``)."""
+    [B, S, H, Dh] each (``repro.models.layers._qkv``); H is the heads
+    the projections hold (a rank's share under tensor parallelism)."""
     b, s, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim
+    hq, hkv = params["wq"].shape[-1] // dh, params["wk"].shape[-1] // dh
     q = x @ params["wq"]
     k = x @ params["wk"]
     v = x @ params["wv"]
@@ -193,12 +244,14 @@ def attention_block(
     q_chunk: int = 1024,
     kv_chunk: int = 1024,
     use_kernel: bool = False,
+    tp: Optional[TensorParallel] = None,
 ):
     """Causal self-attention over a full sequence (prefill), with
     ``cfg.sliding_window``: ``(out @ wo, (k, v))``.  ``use_kernel`` runs
     :func:`flash_attention` (the CUDA kernel on a CUDA tensor), which counts
     positions from 0, as the backbone's ``positions = arange(S)`` do;
-    otherwise :func:`chunked_attention` with the given chunks."""
+    otherwise :func:`chunked_attention` with the given chunks.  Under
+    ``tp`` on the rank's heads, the output summed over the ranks."""
     b, s, _ = x.shape
     q, k, v = qkv(params, x, cfg, positions)
     if use_kernel:
@@ -207,8 +260,8 @@ def attention_block(
         out = chunked_attention(q, k, v, positions, positions,
                                 window=cfg.sliding_window, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return out @ params["wo"], (k, v)
+    out = out.reshape(b, s, q.shape[2] * cfg.head_dim).to(x.dtype)
+    return out_proj(out, params["wo"], tp), (k, v)
 
 
 def decode_attention(
@@ -219,34 +272,60 @@ def decode_attention(
     cache_v: torch.Tensor,
     position: int,  # absolute position of the token
     cache_positions: torch.Tensor,  # int32 [S_cache], 2**31 - 1 = empty
+    tp: Optional[TensorParallel] = None,
+    seq=None,  # the mesh axes that split the cache's slots, if any
 ):
     """Single-token decode against a KV cache, a ring buffer when S_cache is
     shorter than the context: the token's k, v and position go to slot
     ``position % S_cache``, then an f32 softmax over the slots holding a
     position <= ``position`` (and within the window).  The cache tensors
     are updated in place (the JAX function returns new arrays: in place
-    saves a copy of the cache a step) and returned as JAX returns them."""
+    saves a copy of the cache a step) and returned as JAX returns them.
+
+    Sharded (``lm_cache_specs``): a cache split by heads holds the rank's
+    kv heads, and the attention is local.  A cache whose slots are split
+    over the ranks of ``seq`` holds slots ``[j S/n, (j+1) S/n)`` on the
+    j-th of n ranks (``cache_positions`` is whole on every rank): the
+    rank owning the token's slot writes its k and v, each rank attends
+    over its own slots, and a MAX all-reduce of the row maxima, then one
+    SUM all-reduce of the rescaled numerators and denominators combine
+    the ranks (a rank with no visible slot adds exp(-inf) = 0)."""
     b = x.shape[0]
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    g = hq // hkv
+    dh = cfg.head_dim
     q, k_new, v_new = qkv(params, x, cfg,
                           torch.tensor([position], device=x.device))
-    slot = position % cache_k.shape[1]
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    hq, hkv = q.shape[2], k_new.shape[2]
+    g = hq // hkv
+    n, j = ctx.group_size(seq or ()), ctx.group_index(seq or ())
+    s_loc = cache_k.shape[1]
+    slot = position % (s_loc * n)
+    if slot // s_loc == j:
+        cache_k[:, slot - j * s_loc] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, slot - j * s_loc] = v_new[:, 0].to(cache_v.dtype)
     cache_positions[slot] = position
+    positions = cache_positions[j * s_loc:(j + 1) * s_loc]
 
     qh = q.reshape(b, hkv, g, dh).float()
     logits = torch.einsum("bhgd,bshd->bhgs", qh,
                           cache_k.float()) / math.sqrt(dh)
-    valid = cache_positions <= position
+    valid = positions <= position
     if cfg.sliding_window is not None:
-        valid &= position - cache_positions < cfg.sliding_window
+        valid &= position - positions < cfg.sliding_window
     logits = torch.where(valid, logits, float("-inf"))
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
+    if n == 1:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
+    else:
+        m = ctx.all_reduce_max(logits.amax(dim=-1), seq)  # [B, Hkv, G]
+        m = torch.where(torch.isfinite(m), m, 0.0)
+        p = torch.exp(logits - m[..., None])  # masked slots: exp(-inf) = 0
+        num = torch.einsum("bhgs,bshd->bhgd", p, cache_v.float())
+        both = ctx.all_reduce_sum(torch.cat([num, p.sum(-1)[..., None]],
+                                            dim=-1), seq)
+        out = both[..., :dh] / both[..., dh:]
     out = out.reshape(b, 1, hq * dh).to(x.dtype)
-    return out @ params["wo"], (cache_k, cache_v, cache_positions)
+    return (out_proj(out, params["wo"], tp),
+            (cache_k, cache_v, cache_positions))
 
 
 def init_mlp(gen: torch.Generator, cfg: TransformerConfig, dtype,
@@ -264,12 +343,16 @@ def init_mlp(gen: torch.Generator, cfg: TransformerConfig, dtype,
     }
 
 
-def mlp_block(params, x: torch.Tensor, cfg: TransformerConfig):
+def mlp_block(params, x: torch.Tensor, cfg: TransformerConfig,
+              tp: Optional[TensorParallel] = None):
+    """The MLP; under ``tp`` on the rank's F columns, summed over the
+    ranks."""
     if cfg.act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return psum(y) if tp is not None and tp.ffn else y
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +440,19 @@ def moe_capacity(tokens_per_group: int, moe: MoEConfig) -> int:
                    * moe.capacity_factor), 1)
 
 
+def _local_experts(params, moe: MoEConfig,
+                   tp: Optional[TensorParallel]) -> tuple[int, int]:
+    """(first, count) of the experts this rank holds: all of them, or its
+    share under expert parallelism (``w_gate`` split on E)."""
+    e_loc = params["w_gate"].shape[0]
+    if e_loc == moe.num_experts:
+        return 0, e_loc
+    return tp.index * e_loc, e_loc
+
+
 def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
-               expert_idx: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+               expert_idx: torch.Tensor, moe: MoEConfig,
+               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """GShard dispatch over groups: ``xg`` [G, g, d], gates and ids
     [G, g, k] -> [G, g, d] in ``xg``'s dtype.
 
@@ -368,9 +462,15 @@ def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
     the kept entries' rows are gathered into an [E, G C, d] buffer (empty
     slots zero), the experts run as three batched products, and each
     token sums its kept slots' outputs times its gates, the gates rounded
-    to the compute dtype first (``gate_vals.astype(dt)`` in JAX)."""
+    to the compute dtype first (``gate_vals.astype(dt)`` in JAX).
+
+    Under ``tp`` (the same routing on every rank: tokens and router are
+    replicated over the model axis) the rank runs its experts' rows (EP)
+    or its F columns of every expert, and the f32 combination is summed
+    over the ranks before the cast."""
     g, tg, d = xg.shape
     e = moe.num_experts
+    lo, e_loc = _local_experts(params, moe, tp)
     c = moe_capacity(tg, moe)
     dev, dt = xg.device, xg.dtype
     pos = capacity_positions(expert_idx, e)
@@ -387,39 +487,52 @@ def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
                      device=dev)
     src[dest] = token.expand_as(slot).reshape(-1)
     x_pad = torch.cat([xg.reshape(g * tg, d), xg.new_zeros(1, d)])
-    expert_in = x_pad[src[:n_slots]].view(e, g * c, d)
+    mine = src[lo * g * c:(lo + e_loc) * g * c]  # this rank's experts
+    expert_in = x_pad[mine].view(e_loc, g * c, d)
     h = F.silu(torch.bmm(expert_in, params["w_gate"])) * torch.bmm(
         expert_in, params["w_up"])
-    expert_out = torch.bmm(h, params["w_down"]).view(n_slots, d)
-    y = expert_out[torch.where(kept, slot, 0)]  # [G, g, k, d]
+    expert_out = torch.bmm(h, params["w_down"]).view(e_loc * g * c, d)
+    if e_loc < e:
+        kept = kept & (expert_idx >= lo) & (expert_idx < lo + e_loc)
+    y = expert_out[torch.where(kept, slot - lo * g * c, 0)]  # [G, g, k, d]
     gates = torch.where(kept, gate_vals.to(dt), 0).float()
-    return torch.sum(y.float() * gates[..., None], dim=2).to(dt)
+    out = torch.sum(y.float() * gates[..., None], dim=2)
+    if tp is not None and tp.ffn:
+        out = ctx.all_reduce_sum(out)
+    return out.to(dt)
 
 
 def moe_ragged(params, xf: torch.Tensor, gate_vals: torch.Tensor,
-               expert_idx: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+               expert_idx: torch.Tensor, moe: MoEConfig,
+               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Dropless dispatch: tokens [T, d], gates and ids [T, k] -> [T, d].
     The (token, slot) entries sorted by expert (stable), each expert's
     contiguous rows through its three products (``lax.ragged_dot``; one
     host sync reads the group sizes), the outputs times the gates in the
-    outputs' dtype, then each token's k rows summed."""
+    outputs' dtype, then each token's k rows summed.  Under ``tp`` the
+    rank's experts (their rows of other experts are 0) or F columns, the
+    sum then summed over the ranks in f32."""
     t, d = xf.shape
     k = expert_idx.shape[-1]
+    lo, e_loc = _local_experts(params, moe, tp)
     flat = expert_idx.reshape(-1)
     sort_idx = torch.sort(flat, stable=True).indices
     xs = xf[sort_idx // k]  # [T k, d] permuted copies
     sizes = torch.bincount(flat, minlength=moe.num_experts).tolist()
-    outs, start = [], 0
-    for i, n in enumerate(sizes):
+    start = sum(sizes[:lo])
+    outs = [xs.new_zeros(start, d)]
+    for i, n in enumerate(sizes[lo:lo + e_loc]):
         rows = xs[start:start + n]
         h = F.silu(rows @ params["w_gate"][i]) * (rows @ params["w_up"][i])
         outs.append(h @ params["w_down"][i])
         start += n
+    outs.append(xs.new_zeros(t * k - start, d))
     ys = torch.cat(outs)
     ys = ys * gate_vals.reshape(-1)[sort_idx][:, None].to(ys.dtype)
     by_entry = torch.empty_like(ys)
     by_entry[sort_idx] = ys
-    return torch.sum(by_entry.view(t, k, d), dim=1)
+    out = torch.sum(by_entry.view(t, k, d), dim=1)
+    return psum(out) if tp is not None and tp.ffn else out
 
 
 # dispatch volume (T x g x k x capacity factor) above which the einsum
@@ -427,34 +540,59 @@ def moe_ragged(params, xf: torch.Tensor, gate_vals: torch.Tensor,
 MOE_SUPER_CHUNK_ELEMS = 4e9
 
 
-def moe_block(params, x: torch.Tensor, cfg: TransformerConfig):
+def moe_block(params, x: torch.Tensor, cfg: TransformerConfig,
+              tp: Optional[TensorParallel] = None,
+              routes: Optional[list] = None, data: int = 1):
     """Top-k mixture of experts over ``x`` [B, S, d] -> (out [B, S, d] in
     x's dtype, aux loss).  The einsum dispatch regroups the B S tokens into
     groups of :func:`moe_group_tokens`; above
     ``MOE_SUPER_CHUNK_ELEMS`` (and when S splits into such groups) it runs
     each super-chunk of g tokens of every row in turn, the same groups, so
-    the same result, with one chunk's buffers live."""
+    the same result, with one chunk's buffers live.  A ``routes`` list
+    gets the layer's expert ids [B S, k] and which (token, slot) entries
+    its capacity kept ([B S, k] bool; all of them for ``"ragged"``).
+
+    ``x`` may be this rank's rows of a batch split over ``data`` ranks
+    (the data axis): the dispatch groups are the whole batch's, as JAX
+    forms them; where one spans the ranks, every rank runs the layer on
+    the whole batch (gathered over the data axis) and keeps its rows."""
     moe = cfg.moe
     b, s, d = x.shape
+    if data > 1 and moe.dispatch != "ragged" and (
+            b * s) % moe_group_tokens(b * s * data, moe):
+        out, aux = moe_block(params, ctx.gather(x, 0, "data"), cfg, tp,
+                             routes)
+        i = ctx.group_index("data")
+        return out[i * b:(i + 1) * b], aux
     xf = x.reshape(b * s, d)
     gate_vals, expert_idx, aux = route(params, xf, moe)
     if moe.dispatch == "ragged":
-        out = moe_ragged(params, xf, gate_vals, expert_idx, moe)
+        if routes is not None:
+            routes.append((expert_idx, torch.ones_like(expert_idx,
+                                                       dtype=torch.bool)))
+        out = moe_ragged(params, xf, gate_vals, expert_idx, moe, tp)
         return out.reshape(b, s, d).to(x.dtype), aux
     t, k = b * s, gate_vals.shape[-1]
-    g_tok = moe_group_tokens(t, moe)
+    g_tok = moe_group_tokens(t * data, moe)
     dispatch_elems = t * g_tok * moe.top_k * moe.capacity_factor
     if (dispatch_elems > MOE_SUPER_CHUNK_ELEMS and s > g_tok
             and s % g_tok == 0):
         gv = gate_vals.reshape(b, s, k)
         ei = expert_idx.reshape(b, s, k)
+        chunks = range(0, s, g_tok)
         out = torch.cat([
             moe_einsum(params, x[:, j:j + g_tok], gv[:, j:j + g_tok],
-                       ei[:, j:j + g_tok], moe)
-            for j in range(0, s, g_tok)], dim=1)
+                       ei[:, j:j + g_tok], moe, tp) for j in chunks], dim=1)
+        groups = [ei[:, j:j + g_tok] for j in chunks]
     else:
         n = t // g_tok
         out = moe_einsum(params, xf.reshape(n, g_tok, d),
                          gate_vals.reshape(n, g_tok, k),
-                         expert_idx.reshape(n, g_tok, k), moe)
+                         expert_idx.reshape(n, g_tok, k), moe, tp)
+        groups = [expert_idx.reshape(n, g_tok, k)]
+    if routes is not None:
+        kept = torch.cat([capacity_positions(ei, moe.num_experts)
+                          < moe_capacity(g_tok, moe) for ei in groups],
+                         dim=1)
+        routes.append((expert_idx, kept.reshape(t, k)))
     return out.reshape(b, s, d).to(x.dtype), aux

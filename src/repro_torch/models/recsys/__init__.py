@@ -27,17 +27,35 @@ MODELS = {"din": DIN, "dien": DIEN, "autoint": AutoInt, "xdeepfm": XDeepFM}
 
 __all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
            "bce_loss", "build_model", "embedding_bag_plain",
-           "params_from_jax", "params_to_jax"]
+           "params_from_jax", "params_to_jax", "shard_params"]
 
 
-def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0):
+def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0,
+                policy=None):
     """The model of ``cfg.model`` on ``device``, its weights drawn from a
     generator on that device seeded with ``seed`` (on ``meta``: empty
-    tensors of their shapes, nothing drawn)."""
+    tensors of their shapes, nothing drawn); under a serving ``policy``
+    this rank's shards of them (``ClickModel.shard``)."""
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(
         device=dev).manual_seed(seed)
-    return MODELS[cfg.model](cfg, device=dev, generator=gen)
+    model = MODELS[cfg.model](cfg, device=dev, generator=gen)
+    return model if policy is None else model.shard(policy)
+
+
+def shard_params(params: dict, policy, coords,
+                 serving: bool = True) -> dict[str, torch.Tensor]:
+    """JAX's recsys params (numpy leaves) as the ``state_dict`` of the
+    rank at mesh ``coords`` under ``recsys_param_specs(policy,
+    serving)``: CPU tensors.  Load it into a model sharded the same way
+    (``build_model(..., policy=policy)``)."""
+    from repro_torch.sharding import policies as pol
+
+    state = params_from_jax(params)
+    specs = pol.recsys_param_specs(policy, state, serving=serving)
+    return {k: v.clone(memory_format=torch.contiguous_format)
+            for k, v in pol.shard_tree(state, specs, policy.mesh,
+                                       coords).items()}
 
 
 def _flatten(tree, prefix: str = "") -> dict:

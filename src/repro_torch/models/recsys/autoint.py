@@ -51,10 +51,13 @@ class AutoInt(ClickModel):
         o = torch.einsum("bhfg,bghd->bfhd", w, v).reshape(b, f, h * da)
         return torch.relu(o + x @ p["w_res"])
 
-    def _interact(self, batch: dict, use_kernel: bool) -> torch.Tensor:
+    def _interact(self, batch: dict, use_kernel: bool,
+                  split: bool = True) -> torch.Tensor:
         cfg = self.cfg
-        x = self.embedding.lookup(self.fields["table"], batch["sparse_ids"],
-                                  use_kernel)
+        with self._axes():
+            x = self.embedding.lookup(self.fields["table"],
+                                      batch["sparse_ids"], use_kernel,
+                                      self.first.get("fields.table"), split)
         for p in self.attn_layers:
             x = self._attn_layer(p, x, cfg.n_attn_heads, cfg.d_attn)
         return x
@@ -69,10 +72,13 @@ class AutoInt(ClickModel):
         """Retrieval scores [B, C]: the mean of the user's attended fields
         dotted with each candidate's field-0 (item) embedding projected by
         the first layer's ``wv``."""
-        u = self._interact(batch, use_kernel).mean(dim=1)  # [B, D']
+        u = self._interact(batch, use_kernel, split=False).mean(dim=1)
         table = self.fields["table"]
-        cand = table[int(self.embedding.offsets[0])
-                     + candidate_ids.to(table.device).long()]  # [C, D]
+        with self._axes():
+            cand = self.rows("fields.table", table,
+                             int(self.embedding.offsets[0])
+                             + candidate_ids.to(table.device).long(),
+                             use_kernel=use_kernel)  # [C, D]
         c = cand @ self.attn_layers[0]["wv"] if len(self.attn_layers) \
             else cand
         return u @ c.T

@@ -84,12 +84,15 @@ class DIEN(ClickModel):
         self.mlp = init_mlp_tower(gen, (mlp_in, *cfg.mlp_dims), 1,
                                   device=dev)
 
-    def _items(self, ids) -> torch.Tensor:
-        return self.item_table[ids.to(self.item_table.device).long()]
+    def _items(self, ids, split: bool = True,
+               use_kernel: bool = True) -> torch.Tensor:
+        return self.rows("item_table", self.item_table, ids, split,
+                         use_kernel)
 
-    def _extract(self, batch: dict) -> torch.Tensor:
+    def _extract(self, batch: dict, split: bool = True,
+                 use_kernel: bool = True) -> torch.Tensor:
         """Interest extraction over the behaviour history -> [B, S, G]."""
-        hist = self._items(batch["hist_ids"])
+        hist = self._items(batch["hist_ids"], split, use_kernel)
         mask = batch["hist_mask"].to(hist.device)
         return run_gru(self.gru1, hist, mask)[1]
 
@@ -103,19 +106,24 @@ class DIEN(ClickModel):
 
     def forward(self, batch: dict, use_kernel: bool = True) -> torch.Tensor:
         """A click batch -> logits [B]."""
-        target = self._items(batch["target_id"])
-        mask = batch["hist_mask"].to(target.device)
-        interest = self._evolve(self._extract(batch), mask, target)
-        ctx = self.embedding.lookup(self.fields["table"],
-                                    batch["sparse_ids"], use_kernel)
+        with self._axes():
+            target = self._items(batch["target_id"], use_kernel=use_kernel)
+            mask = batch["hist_mask"].to(target.device)
+            interest = self._evolve(self._extract(batch, True, use_kernel),
+                                    mask, target)
+            ctx = self.embedding.lookup(self.fields["table"],
+                                        batch["sparse_ids"], use_kernel,
+                                        self.first.get("fields.table"))
         x = torch.cat([interest, target, ctx.reshape(ctx.shape[0], -1)],
                       dim=-1)
         return apply_mlp_tower(self.mlp, x)[:, 0]
 
-    def user_vector(self, batch: dict) -> torch.Tensor:
+    def user_vector(self, batch: dict, split: bool = True,
+                    use_kernel: bool = True) -> torch.Tensor:
         """The target-free user interest [B, G] (uniform attention through
         the AUGRU): the two-tower serving head of retrieval."""
-        states = self._extract(batch)
+        with self._axes():
+            states = self._extract(batch, split, use_kernel)
         mask = batch["hist_mask"].to(states.device)
         attn = mask / torch.clamp_min(mask.sum(dim=-1, keepdim=True), 1.0)
         return run_gru(self.gru2, states, mask, attn=attn)[0]
@@ -123,8 +131,9 @@ class DIEN(ClickModel):
     def score_candidates(self, batch: dict, candidate_ids: torch.Tensor,
                          use_kernel: bool = True) -> torch.Tensor:
         """[B, C] batched-dot retrieval scores (no per-candidate loop).
-        ``use_kernel`` is accepted for a common signature: the user vector
-        reads no field embedding, so nothing here reaches the kernel."""
-        cand = self._items(candidate_ids)  # [C, D]
-        u = self.user_vector(batch)  # [B, G]
+        The user vector reads no field embedding: ``use_kernel`` reaches
+        the kernel only through a row-sharded ``item_table``."""
+        with self._axes():
+            cand = self._items(candidate_ids, use_kernel=use_kernel)
+        u = self.user_vector(batch, False, use_kernel)  # [B, G]
         return u @ (cand @ self.attn_proj).T

@@ -16,9 +16,21 @@ pytree's names (``layers.<i>.w``, ``layers.<i>.b``, ``head.w``,
 ``head.b``).  :class:`ClickModel`, the four models' base, gives them the
 JAX ``loss_fn``: :func:`bce_loss` of ``forward(batch, use_kernel=False)``
 (the kernel has no backward).
+
+Row-sharded tables (``ClickModel.shard``, under ``recsys_param_specs``
+for serving): a table of at least ``REPLICATE_TABLE_BYTES`` whose rows
+divide the model axis keeps rows [first, first + V / tp) on each rank,
+and the batch is split over every axis (``recsys_batch_specs``).  A
+lookup (:func:`sharded_lookup`) gathers the ids of the model axis's ranks
+(an all-gather), looks every one up in the rank's own rows through
+``embedding_bag`` with the ids shifted by ``first`` (an id outside [0,
+V / tp) adds 0: the kernel's rule does the masking), sums the ranks'
+bags (a SUM all-reduce) and keeps its own rows of the batch.  Replicated
+tables take the unsharded path.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional
 
@@ -28,6 +40,29 @@ from torch import nn
 
 from repro_torch.kernels.embedding_bag import embedding_bag
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import ctx
+from repro_torch.sharding import policies as pol
+
+
+def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, first: int,
+                   split: bool, use_kernel: bool = True) -> torch.Tensor:
+    """Bag sums [N, D] of ``ids`` [N, L] (rows of the whole table, -1 =
+    pad) from a table whose rank holds rows [first, first + len(table)):
+    each rank's bags of its own rows, summed over the model axis.
+    ``split``: the ids are this rank's rows of a batch split over the
+    model axis; the ranks' ids are gathered first and the rank keeps its
+    rows of the sum (otherwise every rank holds every id)."""
+    n = ids.shape[0]
+    if split:
+        ids = ctx.gather(ids, 0, "model")
+    local = (ids - first).to(torch.int32)
+    bags = (embedding_bag(local, table) if use_kernel
+            else embedding_bag_plain(table, local))
+    bags = ctx.all_reduce_sum(bags)
+    if split:
+        i = ctx.group_index("model")
+        bags = bags[i * n:(i + 1) * n]
+    return bags
 
 
 def embedding_bag_plain(
@@ -86,10 +121,19 @@ class FieldEmbedding:
         return flat.to(torch.int32).reshape(b * f, h)
 
     def lookup(self, table: torch.Tensor, sparse_ids: torch.Tensor,
-               use_kernel: bool = True) -> torch.Tensor:
+               use_kernel: bool = True, first: Optional[int] = None,
+               split: bool = True) -> torch.Tensor:
         """sparse_ids: int [B, F] or [B, F, H] (multi-hot bags per field,
-        -1 = pad) -> [B, F, D] per-field pooled embeddings."""
+        -1 = pad) -> [B, F, D] per-field pooled embeddings.  ``first``:
+        the table is this rank's rows from ``first`` on
+        (:func:`sharded_lookup`, ``split`` as there)."""
         sparse_ids = sparse_ids.to(table.device)
+        if first is not None:
+            ids = sparse_ids if sparse_ids.dim() == 3 else sparse_ids[..., None]
+            b, f, _ = ids.shape
+            bags = sharded_lookup(table, self.flat_ids(ids), first, split,
+                                  use_kernel)
+            return bags.reshape(b, f, self.embed_dim)
         if sparse_ids.dim() == 2:
             offs = torch.from_numpy(self.offsets).to(table.device)
             return table[(sparse_ids + offs[None, :]).long()]
@@ -139,11 +183,56 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 class ClickModel(nn.Module):
-    """A click model's training loss (the JAX models' ``loss_fn``)."""
+    """A click model's training loss (the JAX models' ``loss_fn``), and
+    its tables' row shards under a serving policy."""
+
+    policy = None
+    first: dict = {}  # a row-sharded table's name -> its first row here
 
     def loss_fn(self, batch: dict):
         """-> (the BCE of the logits against ``batch["label"]``,
         ``{"bce": it}``), through the plain bag sums."""
+        if self.policy is not None:
+            raise NotImplementedError("training under a sharding policy is "
+                                      "not ported: train unsharded")
         loss = bce_loss(self.forward(batch, use_kernel=False),
                         batch["label"])
         return loss, {"bce": loss.detach()}
+
+    def shard(self, policy) -> "ClickModel":
+        """Keep this rank's shards under ``recsys_param_specs(policy,
+        serving=True)`` (``specs``: every parameter's placements); raises
+        without a process group of the mesh's size (``meta``: rank 0)."""
+        coords = pol.rank_coords(policy, next(self.parameters()).device)
+        self.policy, self.first = policy, {}
+        self.specs = pol.recsys_param_specs(
+            policy, dict(self.named_parameters()), serving=True)
+        for name, p in list(self.named_parameters()):
+            pl = self.specs[name]
+            if all(isinstance(x, pol.Replicate) for x in pl):
+                continue
+            block = pol.shard_leaf(p.data, pl, policy.mesh, coords)
+            self.first[name] = int(coords[list(
+                policy.mesh.mesh_dim_names).index(policy.tp)]) * len(block)
+            mod, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(mod) if mod else self
+            owner.register_parameter(leaf, nn.Parameter(block.clone(
+                memory_format=torch.contiguous_format)))
+        return self
+
+    def _axes(self):
+        p = self.policy
+        return (contextlib.nullcontext() if p is None
+                else ctx.axes(p.mesh, p.dp, p.tp))
+
+    def rows(self, name: str, table: torch.Tensor, ids: torch.Tensor,
+             split: bool = True, use_kernel: bool = True) -> torch.Tensor:
+        """``table[ids]`` [*ids.shape, D] of the table ``name``: a gather,
+        or :func:`sharded_lookup` with bags of one id where it is
+        row-sharded."""
+        ids = ids.to(table.device)
+        if name not in self.first:
+            return table[ids.long()]
+        bags = sharded_lookup(table, ids.reshape(-1, 1), self.first[name],
+                              split, use_kernel)
+        return bags.reshape(*ids.shape, table.shape[1])

@@ -64,14 +64,17 @@ class XDeepFM(ClickModel):
         """``batch["sparse_ids"]`` [B, F] or [B, F, H] -> logits [B]."""
         table = self.fields["table"]
         ids = batch["sparse_ids"].to(table.device)
-        x0 = self.embedding.lookup(table, ids, use_kernel)
-        cin_out = self._cin(x0) @ self.w_cin  # [B, 1]
-        deep = apply_mlp_tower(self.mlp, x0.reshape(x0.shape[0], -1))
-        if ids.dim() == 3:
-            ids = ids[:, :, 0]  # the linear term reads a bag's first id
-        offs = torch.from_numpy(self.embedding.offsets).to(ids.device)
-        lin = self.linear["table"][(ids + offs[None, :]).long()].sum(
-            dim=(1, 2))
+        with self._axes():
+            x0 = self.embedding.lookup(table, ids, use_kernel,
+                                       self.first.get("fields.table"))
+            cin_out = self._cin(x0) @ self.w_cin  # [B, 1]
+            deep = apply_mlp_tower(self.mlp, x0.reshape(x0.shape[0], -1))
+            if ids.dim() == 3:
+                ids = ids[:, :, 0]  # the linear term reads a bag's first id
+            offs = torch.from_numpy(self.embedding.offsets).to(ids.device)
+            lin = self.rows("linear.table", self.linear["table"],
+                            ids + offs[None, :],
+                            use_kernel=use_kernel).sum(dim=(1, 2))
         return (cin_out + deep)[:, 0] + lin + self.b_out[0]
 
     def score_candidates(self, batch: dict, candidate_ids: torch.Tensor,
@@ -79,8 +82,13 @@ class XDeepFM(ClickModel):
         """Retrieval scores [B, C]: the user's field sum dotted with each
         candidate's embedding in field 0 (the item field)."""
         table = self.fields["table"]
-        x0 = self.embedding.lookup(table, batch["sparse_ids"], use_kernel)
-        u = x0.sum(dim=1)  # [B, D]
-        cand = table[int(self.embedding.offsets[0])
-                     + candidate_ids.to(table.device).long()]
+        first = self.first.get("fields.table")
+        with self._axes():
+            x0 = self.embedding.lookup(table, batch["sparse_ids"],
+                                       use_kernel, first, split=False)
+            u = x0.sum(dim=1)  # [B, D]
+            cand = self.rows("fields.table", table,
+                             int(self.embedding.offsets[0])
+                             + candidate_ids.to(table.device).long(),
+                             use_kernel=use_kernel)
         return u @ cand.T

@@ -4,8 +4,11 @@
   microbatch count equal those of JAX's ``build_cell``: on one device
   (``make_debug_mesh(1, 1)``, the port's ``"single"``) and on four forced
   host devices in a background subprocess (``make_debug_mesh(4, 1)``,
-  the port's data-parallel ``"quad"``).  The port's cells are built on
-  ``meta``.
+  the port's data-parallel ``"quad"``; and ``make_debug_mesh(2, 2)``,
+  the port's ``"quad_tp"``, where ``seq_parallel`` is JAX's
+  ``adjusted_lm_cfg`` decision too).  The port's cells are built on
+  ``meta``; at ``"quad_tp"`` the serving cells hold one rank's shards
+  and count the tensor-parallel collectives.
 - ``retrieval_input_specs`` / ``retrieval_tiled_specs`` give JAX's shapes
   and dtypes at S = 1, 2, 4.
 - The probes: one matmul counts 2 m n k FLOPs; on smoke configs every
@@ -41,19 +44,29 @@ from repro_torch.core import distributed as tdist
 from repro_torch.launch import cells, dryrun
 from repro_torch.launch.mesh import make_device_mesh as make_device_mesh_port
 from repro_torch.runtime import elastic
+from repro_torch.sharding import policies as pol
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CELLS = j_all_cells()
 
 JAX_QUAD = r"""
 import json, sys
-from repro.launch.cells import all_cells, build_cell
+from repro.configs import get_arch
+from repro.launch.cells import adjusted_lm_cfg, all_cells, build_cell
 from repro.launch.mesh import make_debug_mesh
-mesh = make_debug_mesh(4, 1)
+from repro.sharding import policies as pol
 out = {}
-for a, s in all_cells():
-    c = build_cell(a, s, mesh)
-    out[a + "/" + s] = [c.model_flops, c.meta.get("microbatches")]
+for name, shape in (("quad", (4, 1)), ("quad_tp", (2, 2))):
+    mesh = make_debug_mesh(*shape)
+    policy = pol.make_policy(mesh)
+    for a, s in all_cells():
+        c = build_cell(a, s, mesh)
+        spec = get_arch(a)
+        sh = next(x for x in spec.shapes if x.name == s)
+        sp = (adjusted_lm_cfg(spec.config, sh, policy).seq_parallel
+              if spec.family == "lm" and sh.kind == "train" else None)
+        out[name + ":" + a + "/" + s] = [c.model_flops,
+                                         c.meta.get("microbatches"), sp]
 with open(sys.argv[1], "w") as f:
     json.dump(out, f)
 """
@@ -115,7 +128,86 @@ def test_model_flops_and_microbatches_match_jax_on_one_card(cell, jax_single):
 
 @pytest.mark.parametrize("cell", CELLS, ids="/".join)
 def test_model_flops_and_microbatches_match_jax_on_four_cards(cell, jax_quad):
-    assert _port_numbers(*cell, "quad") == jax_quad()["/".join(cell)]
+    assert _port_numbers(*cell, "quad") == jax_quad()[
+        "quad:" + "/".join(cell)][:2]
+
+
+@pytest.mark.parametrize("cell", CELLS, ids="/".join)
+def test_cells_at_quad_tp_match_jax_on_a_two_by_two_mesh(cell, jax_quad):
+    c = cells.build_cell(*cell, "quad_tp")
+    assert c.layout == "quad_tp"
+    for t in torch.utils._pytree.tree_flatten(c.args)[0]:
+        if isinstance(t, torch.Tensor):
+            assert t.is_meta, cell
+    flops, mb, sp = jax_quad()["quad_tp:" + "/".join(cell)]
+    assert [c.model_flops, c.meta.get("microbatches"),
+            c.meta.get("seq_parallel")] == [flops, mb, sp]
+    spec = get_arch(cell[0])
+    if spec.family in ("lm", "recsys"):
+        policy = c.meta["policy"]
+        assert policy["mesh"] == (2, 2)
+        assert policy["expert_parallel"] == pol.default_expert_parallel(
+            spec.config, 2)
+        if c.meta["kind"] != "train":  # one rank's shards, on meta
+            held = sum(p.numel() * 4 for p in c.model.parameters())
+            assert held == policy["param_bytes_per_rank"]
+
+
+def test_seq_parallel_takes_jaxs_divisibility_clause():
+    """A training shape whose residuals exceed the budget: sequence
+    parallel unless the model axis does not divide the sequence."""
+    from repro.configs import get_arch as j_get_arch
+    from repro.configs.base import ShapeSpec as JShapeSpec
+    from repro.launch.cells import adjusted_lm_cfg
+    from repro.sharding import policies as jpol
+    from jax.sharding import AbstractMesh
+
+    from repro_torch.launch.mesh import Layout
+
+    for seq in (4096, 4098, 4099):
+        for tp in (1, 2, 3, 4):
+            shape = ShapeSpec(name="t", kind="train", seq_len=seq,
+                              global_batch=8)
+            jshape = JShapeSpec(name="t", kind="train", seq_len=seq,
+                                global_batch=8)
+            policy = jpol.make_policy(AbstractMesh((1, tp),
+                                                   ("data", "model")))
+            cfg = get_arch("mixtral-8x22b").config
+            want = adjusted_lm_cfg(j_get_arch("mixtral-8x22b").config,
+                                   jshape, policy).seq_parallel
+            got = cells.seq_parallel(cfg, shape, Layout("t", tp, 1, tp))
+            assert got == want, (seq, tp)
+            if tp > 1 and seq % tp:
+                assert not got  # the clause decides
+    assert cells.seq_parallel(cfg, ShapeSpec(name="t", kind="train",
+                                             seq_len=4098, global_batch=8),
+                              Layout("t", 1, 1, 1))
+
+
+def test_dryrun_counts_tensor_parallel_collectives(tmp_path):
+    """At quad_tp a serving cell's count records the collectives of its
+    sharded step; ``--expert-parallel`` tags the artifact ``_ep`` and
+    ``--skip-existing`` leaves it alone."""
+    args = ["--arch", "olmoe-1b-7b", "--shape", "decode_32k", "--layout",
+            "quad_tp", "--out", str(tmp_path)]
+    dryrun.main(args + ["--expert-parallel"])
+    path = tmp_path / "olmoe-1b-7b__decode_32k__quad_tp_ep.json"
+    art = json.loads(path.read_text())
+    assert art["expert_parallel"] and art["meta"]["policy"][
+        "expert_parallel"]
+    coll = art["collectives"]
+    # all-reduces: 16 layers' attention and experts, plus the embedding;
+    # all-gathers: FSDP's of every layer over the data axis, plus the
+    # head's logits over the model axis
+    assert coll["counts"]["all-reduce"] == 2 * 16 + 1
+    assert coll["counts"]["all-gather"] >= 16 + 1
+    assert coll["total_bytes"] > 0
+    stamp = path.stat().st_mtime_ns
+    dryrun.main(args + ["--expert-parallel", "--skip-existing"])
+    assert path.stat().st_mtime_ns == stamp
+    single = dryrun.run_cell("olmoe-1b-7b", "decode_32k", save=False,
+                             verbose=False)
+    assert single["collectives"]["total_bytes"] == 0
 
 
 def test_lm_cells_record_the_sequence_parallel_decision():

@@ -1157,3 +1157,48 @@ def test_comparison_engines_on_the_card_match_cpu_and_f64(cuda, engine):
     v, i = eng.search(c.queries, k=50)
     fv, fi = scoring.topk_f64(c.queries, c.docs, 50)
     np.testing.assert_allclose(v, fv.cpu().numpy(), rtol=1e-5)
+
+
+def test_policy_at_model_one_is_the_unsharded_lm_bit_for_bit(cuda):
+    """Phase 13a's case at a small width: the sharding policy of a 1 x 1
+    mesh under an NCCL group of one gives the unsharded model's prefill
+    and decode logits bit for bit (bf16, through ``flash_attention``)."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_4b
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding.policies import make_policy
+
+    cfg = dataclasses.replace(qwen3_4b.SMOKE, dtype="bfloat16")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+
+    def run(policy):
+        lm = TransformerLM(cfg, device=cuda, generator=torch.Generator(
+            cuda).manual_seed(0), policy=policy)
+        with torch.inference_mode():
+            flash_ops.launches = 0
+            out = [lm.prefill(tokens)]
+            assert flash_ops.launches == cfg.n_layers
+            cache = lm.init_cache(2, 8)
+            for i in range(3):
+                lg, cache = lm.decode_step(cache, tokens[:, i], i)
+                out.append(lg)
+        return out
+
+    want = run(None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        got = run(make_policy(make_debug_mesh(1, 1)))
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

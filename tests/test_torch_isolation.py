@@ -57,7 +57,8 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.launch.mesh", "repro_torch.analysis.probes",
               "repro_torch.analysis.ops", "repro_torch.analysis.roofline",
               "repro_torch.analysis.report",
-              "repro_torch.runtime.elastic"):
+              "repro_torch.runtime.elastic", "repro_torch.sharding",
+              "repro_torch.sharding.ctx", "repro_torch.sharding.policies"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -7,8 +7,9 @@ scheduler, the segment store), sharded serving with its serve driver,
 the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
 WAND/BMW and Seismic CPU baselines), every LM architecture of the
 registry (mixture-of-experts layers, the training driver, data-parallel
-training), SchNet with the cell layer's dry run, and tensor- and
-expert-parallel serving under the sharding policy, on one NVIDIA H100.
+training), SchNet with the cell layer's dry run, tensor- and
+expert-parallel serving under the sharding policy, and training under
+it, on one NVIDIA H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -348,6 +349,39 @@ Phases (each raises on failure; the script then exits non-zero):
    ``kernels`` line's ``flash_attention`` and ``embedding_bag`` rows gain
    their launches a call on each rank.
 
+14. Training under the sharding policy (``make_sharded_train_step``), with
+   phase 13's data freed; no kernel lies on the training paths (the
+   counters must stay 0: the main process's over the single runs, each
+   rank's over each of its cases).  First the single-rank run of each case
+   (``make_train_step``; the bf16 cases also in f32), each freed before
+   the next and all before the ranks start; then gloo ranks sharing card
+   0 under deterministic algorithms (a world of four for 14b and one of two
+   for the rest, at once), each holding its shards of the same seeded
+   weights and its share of the same batch, 3 steps a case.  14a:
+   ``qwen3-4b`` at full width, **8 of 36 layers**, bf16, remat, batch **2
+   (of 256)** x 4,096 (a mask of 70 % of the tokens), at mesh (1, 2) with
+   ``seq_parallel`` forced on (TP + SP) and at (2, 1) (FSDP).  14b:
+   ``smollm-135m`` in f32 at full depth, 4 x 1,024, at (2, 2) on four
+   ranks (FSDP x TP; 9 q / 3 kv heads split).  14c: ``olmoe-1b-7b``,
+   **2 of 16 layers**, bf16, 2 x 2,048 at (1, 2), TP inside the experts,
+   then EP.  14d: xDeepFM at FULL width, ``train_batch`` **65,536 ->
+   8,192**, at (1, 2) (training-layout row-sharded tables).  14e: SchNet
+   at FULL width, ``full_graph_sm`` (edges split) and ``molecule``
+   (graphs split), at (1, 2).  Gates, on every rank: the loss and
+   ``grad_norm`` of each step within TRAIN_LOSS_RTOL of the single run's
+   in f32, within ARCH_BF16_DRIFTS of the single run's own bf16-vs-f32
+   drift in bf16; step 1's gradient blocks within TRAIN_GRAD_TOL of each
+   leaf's max |g| (bf16: or twice the leaf's drift); every block another
+   rank holds (parameters and both moments) bit for bit equal there after
+   step 3, the step counter 3; step 2's collectives (``ctx.recording``)
+   those ``analysis.ops.collective_bytes`` counts for the case's cell on
+   ``meta``.  Printed: each rank's peak memory beside the single run's,
+   the ms a step labelled "ranks sharing one card, gloo" (no measure of
+   TP or FSDP speed).  14f: the ``meta`` count of every training cell at
+   ``"quad"`` (13c counted them at ``"quad_tp"``), in worker processes
+   started with the phase.  A ``{"sharded_training": {...}}`` line holds
+   the numbers.
+
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
 it exits non-zero and prints no result.
@@ -425,6 +459,15 @@ TP_RANKS = 2
 TP_ROUNDS = 1  # timed calls a case, after its warm-up
 TP_SEQ_ARCH = "smollm-135m"
 TP_TIMEOUT_S = 900.0
+# Phase 14: a world of ranks gets SHARD_TRAIN_TIMEOUT_S, and so do the meta
+# counts' workers; each case runs SHARD_TRAIN_STEPS steps (step 1 read as
+# its gradient, step 2 counted), 14d on SHARD_RECSYS_MODEL.  The kernels
+# whose launch counters a rank reads (no kernel lies on a training path).
+SHARD_TRAIN_TIMEOUT_S = 900.0
+SHARD_TRAIN_STEPS = 3
+SHARD_RECSYS_MODEL = "xdeepfm"
+KERNELS = ("scatter_score", "ell_gather", "bmp_scan", "splade_head",
+           "flash_attention", "embedding_bag")
 # The SASS instruction each tensor-core kernel must hold: wgmma (HGMMA) for
 # flash_attention's bf16 route, TF32 mma.sync (HMMA) for splade_head.
 TENSOR_CORE_OPS = {"flash_attention": "HGMMA", "splade_head": "HMMA"}
@@ -609,6 +652,23 @@ class Sizes:
     tp_moe_batch: int = 4
     tp_moe_len: int = 2048
     tp_recsys_models: tuple = ("xdeepfm", "autoint")
+    # Training under the sharding policy (phase 14), SHARD_TRAIN_STEPS steps
+    # a case on gloo ranks sharing card 0: 14a dense_arch cut to
+    # shard_lm_layers layers, bf16, LM_SHAPES' train_4k with its batch cut
+    # 256 -> shard_lm_batch, at (1, 2) with seq_parallel forced and at
+    # (2, 1); 14b TP_SEQ_ARCH in f32 at full depth, shard_split_batch x
+    # shard_split_len at (2, 2); 14c moe_arch cut to moe_train_layers,
+    # bf16, shard_moe_batch x moe_train_len at (1, 2) under TP and EP; 14d
+    # SHARD_RECSYS_MODEL at recsys_train_batch; 14e SchNet's full_graph_sm
+    # (edges split) and molecule (graphs split).  The cells' meta counts
+    # and 14f in shard_workers processes.
+    shard_lm_layers: int = 8
+    shard_lm_batch: int = 2
+    shard_lm_len: int = 4096
+    shard_split_batch: int = 4
+    shard_split_len: int = 1024
+    shard_moe_batch: int = 2
+    shard_workers: int = 6
 
 
 def card_line() -> str:
@@ -4059,6 +4119,28 @@ def dryrun_cell(cell: tuple) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def count_cells(pool, jobs: list) -> list:
+    """``dryrun_cell`` of each job in ``pool``, the results in the jobs'
+    order; the LM training cells (each some 25 s of probes, the rest a
+    few) are handed out first, so that none starts last."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import shape_of
+
+    def slow(job):
+        spec = get_arch(job[0])
+        return spec.family == "lm" and shape_of(spec, job[1]).kind == "train"
+
+    ordered = sorted(jobs, key=lambda job: not slow(job))
+    return pool.map_async(dryrun_cell, ordered, chunksize=1), ordered
+
+
+def counted_cells(pending, jobs: list, timeout: float) -> list:
+    """The results of :func:`count_cells`, in the order of ``jobs``."""
+    result, ordered = pending
+    by_job = dict(zip(ordered, result.get(timeout)))
+    return [by_job[job] for job in jobs]
+
+
 def within(name: str, got, want, tol: float) -> float:
     """max |got - want| / max |want|, raising above ``tol`` (both finite,
     of one shape)."""
@@ -4215,7 +4297,7 @@ def schnet_phase(dev, sizes: Sizes) -> dict:
     cells = all_cells()
     pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
     try:
-        rows = pool.map(dryrun_cell, cells, chunksize=1)
+        rows = counted_cells(count_cells(pool, cells), cells, None)
     finally:
         pool.terminate()
         pool.join()
@@ -4816,7 +4898,7 @@ def tp_phase(dev, sizes: Sizes) -> dict:
              if getattr(get_arch(a).config, "moe", None) is not None]
     pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
     try:
-        drs = pool.map(dryrun_cell, jobs, chunksize=1)
+        drs = counted_cells(count_cells(pool, jobs), jobs, None)
     finally:
         pool.terminate()
         pool.join()
@@ -4841,6 +4923,611 @@ def tp_phase(dev, sizes: Sizes) -> dict:
     out["13c"] = {"cells": len(drs), "counted": len(drs) - len(failed),
                   "coll_bytes": sum(r["coll_bytes"] for r in drs)}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: training under the sharding policy
+
+
+def shard_train_cases(sizes: Sizes) -> dict:
+    """Phase 14's cases as plain data (a spawned worker or rank unpickles
+    them before ``src`` is on its path): key -> family, arch, the config's
+    cuts, the train shape, the (data, model) mesh, expert parallelism,
+    sequence parallelism (None: the cell's decision) and the key of the
+    single run it is held to."""
+    lm = {"n_layers": sizes.shard_lm_layers, "dtype": "bfloat16"}
+    lm_shape = {"name": "train_4k", "kind": "train",
+                "seq_len": sizes.shard_lm_len,
+                "global_batch": sizes.shard_lm_batch}
+    moe = {"n_layers": sizes.moe_train_layers, "dtype": "bfloat16"}
+    moe_shape = dict(lm_shape, seq_len=sizes.moe_train_len,
+                     global_batch=sizes.shard_moe_batch)
+    split_shape = dict(lm_shape, seq_len=sizes.shard_split_len,
+                       global_batch=sizes.shard_split_batch)
+    recsys_shape = {"name": "train_batch", "kind": "recsys_train",
+                    "global_batch": sizes.recsys_train_batch}
+
+    def case(family, arch, cut, shape, mesh, ref, ep=False, sp=None):
+        return {"family": family, "arch": arch, "cut": cut, "shape": shape,
+                "mesh": mesh, "ep": ep, "sp": sp, "ref": ref}
+
+    return {
+        "14a tp+sp": case("lm", sizes.dense_arch, lm, lm_shape, (1, 2),
+                          "14a", sp=True),
+        "14a fsdp": case("lm", sizes.dense_arch, lm, lm_shape, (2, 1),
+                         "14a"),
+        "14b fsdp x tp": case("lm", TP_SEQ_ARCH, {"dtype": "float32"},
+                              split_shape, (2, 2), "14b"),
+        "14c tp": case("lm", sizes.moe_arch, moe, moe_shape, (1, 2), "14c"),
+        "14c ep": case("lm", sizes.moe_arch, moe, moe_shape, (1, 2), "14c",
+                       ep=True),
+        "14d": case("recsys", SHARD_RECSYS_MODEL, {}, recsys_shape,
+                    (1, 2), "14d"),
+        "14e graph": case("gnn", "schnet", {}, {"name": "full_graph_sm"},
+                          (1, 2), "14e graph"),
+        "14e molecules": case("gnn", "schnet", {}, {"name": "molecule"},
+                              (1, 2), "14e molecules"),
+    }
+
+
+def shard_train_spec(case: dict, sizes: Sizes):
+    """(the case's ArchSpec with its config cut, its ShapeSpec)."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.cells import shape_of
+
+    spec = get_arch(case["arch"])
+    if case["family"] == "lm":
+        cfg = arch_config(sizes, case["arch"], **case["cut"])
+    elif case["family"] == "recsys":
+        cfg = getattr(importlib.import_module(
+            f"repro_torch.configs.{case['arch']}"), sizes.recsys_config)
+    else:
+        cfg = spec.config
+    spec = dataclasses.replace(spec, config=cfg)
+    shape = (shape_of(spec, case["shape"]["name"]) if case["family"] == "gnn"
+             else ShapeSpec(**case["shape"]))
+    return spec, shape
+
+
+def shard_train_layout(case: dict):
+    from repro_torch.launch.mesh import Layout
+
+    d, m = case["mesh"]
+    return Layout(name=f"mesh_{d}x{m}", cards=d * m, dp=d, tp=m,
+                  expert_parallel=case["ep"])
+
+
+def shard_train_model(case: dict, sizes: Sizes, dev, policy=None,
+                      dtype=None):
+    """(model, loss function, train_plan kwargs, the whole numpy batch,
+    its dims' function) of a case, the weights seeded (seed 0: the
+    sharded init draws every whole leaf and cuts it, so every rank holds
+    the single run's weights), ``dtype`` overriding the LM's compute."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_lm_batch, make_recsys_batch
+    from repro_torch.launch.cells import gnn_batch
+    from repro_torch.models.recsys import build_model
+    from repro_torch.models.schnet import SchNet
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding import policies as pol
+
+    from repro_torch.launch.cells import seq_parallel
+
+    spec, shape = shard_train_spec(case, sizes)
+    cfg = spec.config
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if case["family"] == "lm":
+        sp = case["sp"]
+        if sp is None:  # the cell's decision
+            sp = seq_parallel(cfg, shape, shard_train_layout(case))
+        cfg = dataclasses.replace(cfg, seq_parallel=sp,
+                                  **({"dtype": dtype} if dtype else {}))
+        model = TransformerLM(cfg, device=dev, generator=gen, policy=policy)
+        batch = make_lm_batch(shape.global_batch, shape.seq_len,
+                              cfg.vocab_size, seed=1)
+        # a mask that differs by row: the loss is the global masked mean
+        batch["loss_mask"] = (np.random.default_rng(2).random(
+            batch["loss_mask"].shape) < 0.7).astype(np.float32)
+        return (model, model.loss_fn, {}, batch,
+                lambda p: pol.lm_batch_dims(p))
+    if case["family"] == "recsys":
+        model = build_model(cfg, device=dev, seed=0, policy=policy,
+                            serving=False)
+        batch = make_recsys_batch(shape.global_batch, cfg.n_sparse,
+                                  cfg.vocab_sizes, cfg.seq_len,
+                                  cfg.item_vocab, seed=1)
+        batch["sparse_ids"] = batch["sparse_ids"][:, :, 0]  # the cell's
+        return (model, model.loss_fn, {}, batch,
+                lambda p: pol.recsys_batch_dims(
+                    p, {k: v.ndim for k, v in batch.items()}))
+    batched = shape.kind == "gnn_batched"
+    arrays, _ = gnn_batch(shape, 1, 1 if batched else case["mesh"][0]
+                          * case["mesh"][1], cfg.cutoff)
+    d_in = arrays["node_feat"].shape[-1]
+    model = SchNet(dataclasses.replace(cfg, d_in=d_in), device=dev,
+                   generator=gen, policy=policy)
+    loss_fn = model.batched_energy_loss if batched else model.loss_fn
+    return (model, loss_fn, {"batched": batched}, arrays,
+            lambda p: pol.gnn_batch_dims(p, batched))
+
+
+def run_train_steps(dev, model, batch, grads_fn, update_fn, step_fn,
+                    on_grads, record=None) -> dict:
+    """SHARD_TRAIN_STEPS steps: the first as the gradient (``grads_fn``) then AdamW
+    (``update_fn``), the train step's own two calls, so that step 1's
+    gradient can be read (``out["grads"] = on_grads(grads)``); the rest
+    through ``step_fn``, the second under ``record`` (a context counting
+    its collectives) -> losses, norms, ms a step (host clock,
+    synchronised), the peak device memory and the collectives counted."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.train import adamw_init
+
+    card = dev.type == "cuda"
+    params = dict(model.named_parameters())
+    state = {"params": params, "opt_state": adamw_init(params)}
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    if card:
+        sync(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(SHARD_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        rec = contextlib.nullcontext({})
+        if i == 1 and record is not None:
+            rec = record()
+        with rec as counted:
+            if i == 0:
+                loss, grads = grads_fn(params, batch)
+                metrics = update_fn(grads, state)
+                out["grads"] = on_grads(grads)
+                del grads
+            else:
+                state, metrics = step_fn(state, batch)
+                loss = metrics["loss"]
+            if card:
+                sync(dev)
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        if i == 1:
+            out["collectives"] = {k: list(v) for k, v in counted.items()}
+        out["loss"].append(float(loss))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+    out["peak"] = torch.cuda.max_memory_allocated(dev) if card else None
+    out["state"] = state
+    return out
+
+
+def shard_train_single(dev, sizes: Sizes, case: dict, dtype=None,
+                       f32=None) -> dict:
+    """A case's single-rank run (no policy): ``make_train_step``'s step
+    1 as its gradient and AdamW, then the step itself.  Step 1's gradient
+    is kept on the host (``grads``), with each leaf's max |g|
+    (``scale``) and, given the f32 run's gradient ``f32``, its max |g -
+    f32| (``drift``), counted on the card."""
+    import torch
+
+    from repro_torch.train import AdamWConfig, adamw_update, cosine_schedule
+    from repro_torch.train.train_loop import make_train_step, to_device
+
+    model, loss_fn, _, whole, _ = shard_train_model(case, sizes, dev,
+                                                    dtype=dtype)
+    adamw = AdamWConfig()
+    schedule = cosine_schedule(adamw)
+    batch = to_device(whole, dev)
+
+    def grads_fn(params, b):
+        loss, _ = loss_fn(b)
+        gs = torch.autograd.grad(loss, list(params.values()),
+                                 allow_unused=True)
+        return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                               for (k, p), g in zip(params.items(), gs)}
+
+    def update_fn(grads, state):
+        return adamw_update(grads, state["params"], state["opt_state"],
+                            adamw, schedule)[2]
+
+    def keep(grads):
+        out["scale"], out["drift"], host = {}, {}, {}
+        for k, g in grads.items():
+            g = g.detach().float()
+            out["scale"][k] = float(g.abs().max())
+            if f32 is not None:
+                out["drift"][k] = float((g - f32[k].to(dev)).abs().max())
+            host[k] = g.cpu()
+        return host
+
+    out = {}
+    out.update(run_train_steps(dev, model, batch, grads_fn, update_fn,
+                               make_train_step(loss_fn, adamw), keep))
+    del out["state"], model
+    return out
+
+
+def shard_train_case(dev, sizes: Sizes, case: dict, tmp: str) -> dict:
+    """One case on this rank (see :func:`shard_train_rank`); everything it
+    allocates on the card is freed when it returns.  Step 1's gradient
+    blocks are held, on the card, to the single run's gradient, which the
+    main process saved to ``tmp`` (read back by memory map, each rank its
+    blocks)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding import policies as pol
+    from repro_torch.train import AdamWConfig, adamw_update, cosine_schedule
+    from repro_torch.train.optimizer import sharded_global_norm
+    from repro_torch.train.train_loop import (
+        make_sharded_train_step, sharded_grads,
+    )
+
+    mesh = make_debug_mesh(*case["mesh"], device_type=dev.type)
+    policy = pol.make_policy(mesh, expert_parallel=case["ep"])
+    coords = list(mesh.get_coordinate())
+    model, loss_fn, kw, whole, dims = shard_train_model(case, sizes, dev,
+                                                        policy)
+    plan = model.train_plan(**kw)
+    batch = pol.shard_batch(whole, dims(policy), mesh, coords)
+    adamw = AdamWConfig()
+    schedule = cosine_schedule(adamw)
+
+    def grads_fn(params, b):
+        return sharded_grads(loss_fn, plan, params, b)
+
+    def update_fn(grads, state):
+        with ctx.axes(policy.mesh, policy.dp, policy.tp):
+            return adamw_update(
+                grads, state["params"], state["opt_state"], adamw, schedule,
+                lambda g: sharded_global_norm(g, plan.specs, mesh))[2]
+
+    def off_single(grads):
+        """max |g - the single run's block|, a leaf."""
+        ref = torch.load(shard_train_ref(tmp, case["ref"]), mmap=True,
+                         weights_only=True)
+        return {k: float((g.float() - pol.shard_leaf(
+            ref[k], plan.specs[k], mesh, coords).to(dev)).abs().max())
+            for k, g in grads.items()}
+
+    res = run_train_steps(dev, model, batch, grads_fn, update_fn,
+                          make_sharded_train_step(loss_fn, adamw, plan),
+                          off_single, ctx.recording)
+    state = res.pop("state")
+    every = {a for a, n in pol.axis_sizes(mesh).items() if n > 1}
+    shared = [k for k, pl in plan.specs.items()
+              if set(pol.sharded_axes(pl, mesh)) != every]
+    o = state["opt_state"]
+    res["shared"] = {k: [t.detach().cpu() for t in (
+        state["params"][k], o["mu"][k], o["nu"][k])] for k in shared}
+    res["step"] = int(o["step"])
+    res["blocks"] = {k: [list(mesh.mesh_dim_names).index(a)
+                         for a in pol.sharded_axes(pl, mesh)]
+                     for k, pl in plan.specs.items()}
+    res["coords"] = coords
+    res["params_per_rank"] = sum(p.numel() for p in model.parameters())
+    return res
+
+
+def shard_train_ref(tmp: str, ref: str) -> str:
+    """Where the main process saves the single run ``ref``'s step-1
+    gradient (CPU tensors by leaf name) for the ranks."""
+    return os.path.join(tmp, f"single_{ref.replace(' ', '_')}.pt")
+
+
+def shard_train_rank(rank: int, world: int, port: int, tmp: str,
+                     dev_type: str, sizes: Sizes, keys: list) -> None:
+    """14's rank ``rank`` of ``world`` on card 0 over gloo (a spawned
+    process), under deterministic algorithms: each case of ``keys`` at its
+    mesh -> the steps' numbers, its collectives of step 2, its peak (and
+    what the card held as the case began), how far step 1's gradient
+    blocks are from the single run's, the final blocks of every leaf
+    another rank also holds and the launches of each kernel of KERNELS
+    (counters zeroed as the case begins), written to ``tmp``."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import gc
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(dev_type, 0)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    cases = shard_train_cases(sizes)
+    kernels = {name: importlib.import_module(f"repro_torch.kernels.{name}.ops")
+               for name in KERNELS}
+    out = {}
+    try:
+        for key in keys:
+            held = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+                    else None)
+            for mod in kernels.values():
+                mod.launches = 0
+            out[key] = shard_train_case(dev, sizes, cases[key], tmp)
+            out[key]["held before"] = held
+            out[key]["launches"] = {name: mod.launches
+                                    for name, mod in kernels.items()}
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"w{world}r{rank}.pt"))
+
+
+def train_cell_collectives(job: tuple) -> dict:
+    """14's meta count, in a worker process: the collectives of one step
+    of the cell of a phase-14 case at its mesh (``collective_bytes`` on
+    ``meta``: the forward's, the backward's and the optimizer's), or of a
+    registry training cell at a layout (``(arch, shape, layout)``:
+    12b/13c's ``dryrun_cell``)."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import torch
+
+    from repro_torch.analysis.ops import collective_bytes
+    from repro_torch.launch.cells import make_cell
+
+    torch.set_num_threads(1)
+    key, case, sizes = job
+    t0 = time.perf_counter()
+    try:
+        spec, shape = shard_train_spec(case, sizes)
+        kw = ({"microbatches": 1, "seq_parallel_on": case["sp"]}
+              if case["family"] == "lm" else {})
+        cell = make_cell(spec, shape, shard_train_layout(case), **kw)
+        stats = collective_bytes(cell)
+    except Exception as e:  # listed by the caller, which then fails
+        return {"key": key, "error": repr(e)}
+    return {"key": key, "by_kind": stats.by_kind, "counts": stats.counts,
+            "seconds": time.perf_counter() - t0}
+
+
+def shard_train_phase(dev, sizes: Sizes) -> dict:
+    """Phase 14: training under the sharding policy.  The single-rank runs
+    of every case first (``make_train_step``, freed before the ranks
+    start), then the ranks: 14b's four and two for the rest, at once, each
+    on card 0 over gloo; meanwhile the meta counts of each case's cell and
+    (14f) of every registry training cell at ``"quad"``.  Gates: each
+    rank's loss and ``grad_norm`` of every step within TRAIN_LOSS_RTOL of
+    the single run's in f32, within ARCH_BF16_DRIFTS of the single run's
+    own bf16-vs-f32 drift in bf16; step 1's gradient blocks within
+    TRAIN_GRAD_TOL of each leaf's max |g| (bf16: that or twice the leaf's
+    drift); every block another rank holds bit for bit the same there
+    after the last step, the step counter too; step 2's collectives those
+    the cell's meta count gives."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch.cells import all_cells, shape_of
+    from repro_torch.configs import get_arch
+    from repro_torch.sharding import policies as pol
+
+    out = {}
+    t0 = time.perf_counter()
+    cases = shard_train_cases(sizes)
+    pool = multiprocessing.get_context("spawn").Pool(sizes.shard_workers)
+    counts = pool.map_async(train_cell_collectives,
+                            [(k, c, sizes) for k, c in cases.items()],
+                            chunksize=1)
+    quad = [(a, s, "quad", False) for a, s in all_cells()
+            if shape_of(get_arch(a), s).kind in (
+                "train", "recsys_train", "gnn_full", "gnn_minibatch",
+                "gnn_batched")]
+    cells14f = count_cells(pool, quad)
+    tmp = tempfile.mkdtemp(prefix="shard_train")
+    try:
+        # the single runs, each freed before the next (bf16 cases in f32
+        # too: the drift their bars are counted in); each one's step-1
+        # gradient is saved for the ranks, its max |g| a leaf kept
+        singles, drift = {}, {}
+        det = dev.type == "cuda"
+        if det:
+            torch.use_deterministic_algorithms(True)
+        try:
+            for key, case in cases.items():
+                ref = case["ref"]
+                if ref in singles:
+                    continue
+                t1 = time.perf_counter()
+                bf16 = (case["family"] == "lm"
+                        and case["cut"].get("dtype") == "bfloat16")
+                f32 = None
+                if bf16:
+                    f32 = shard_train_single(dev, sizes, case, "float32")
+                    torch.cuda.empty_cache()
+                w = singles[ref] = shard_train_single(
+                    dev, sizes, case, f32=f32 and f32["grads"])
+                torch.save(w.pop("grads"), shard_train_ref(tmp, ref))
+                torch.cuda.empty_cache()
+                if bf16:
+                    # the scalars' drift: the largest relative difference
+                    # over the steps' losses and norms (one step's may fall
+                    # near 0 by chance); a gradient's: the largest over the
+                    # leaf's elements
+                    drift[ref] = {"relative": max(
+                        abs(a - b) / abs(b) for k in ("loss", "grad_norm")
+                        for a, b in zip(w[k], f32[k])), "grads": w["drift"]}
+                    w["f32"] = {k: f32[k] for k in ("loss", "grad_norm",
+                                                    "ms", "peak")}
+                    del f32
+                log(f"  14 single {ref}: losses {w['loss']}, norms "
+                    f"{w['grad_norm']}, ms {w['ms']}, peak {w['peak']} "
+                    f"({time.perf_counter() - t1:.1f} s)")
+        finally:
+            if det:
+                torch.use_deterministic_algorithms(False)
+        out["singles seconds"] = time.perf_counter() - t0
+
+        # the ranks: a world of four for 14b and one of two for the other
+        # cases, run at once (each its own gloo group)
+        ranks = {}
+        t1 = time.perf_counter()
+        ctx_mp = multiprocessing.get_context("spawn")
+        worlds = {}
+        for world in (4, 2):
+            keys = [k for k, c in cases.items()
+                    if c["mesh"][0] * c["mesh"][1] == world]
+            port = free_port()
+            worlds[world] = (keys, [ctx_mp.Process(
+                target=shard_train_rank, args=(
+                    r, world, port, tmp, dev.type, sizes, keys))
+                for r in range(world)])
+        procs = [p for _, ps in worlds.values() for p in ps]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(SHARD_TRAIN_TIMEOUT_S)
+            codes = [p.exitcode for p in procs]
+            if codes != [0] * len(procs):
+                raise AssertionError(f"14: the ranks exited with {codes}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        out["ranks seconds"] = time.perf_counter() - t1
+        for world, (keys, _) in worlds.items():
+            got = [torch.load(os.path.join(tmp, f"w{world}r{r}.pt"),
+                              weights_only=False) for r in range(world)]
+            for key in keys:
+                ranks[key] = [g[key] for g in got]
+        checks, rows = shard_train_checks(sizes, cases, singles, drift,
+                                          ranks)
+        counted = {r["key"]: r for r in counts.get(SHARD_TRAIN_TIMEOUT_S)}
+        for key, row in rows.items():
+            want = counted[key]
+            if "error" in want:
+                raise AssertionError(f"14 {key}: the meta count failed: "
+                                     f"{want['error']}")
+            got = ranks[key][0]["collectives"]
+            mine = {k: v for k, v in got.items() if v[1]}
+            cell = {k: [want["by_kind"][k], want["counts"][k]]
+                    for k in want["by_kind"]}
+            row["collectives"] = mine
+            row["cell collectives"] = cell
+            if mine != cell:
+                raise AssertionError(f"14 {key}: step 2's collectives {mine}"
+                                     f" are not the cell's {cell}")
+        out["cases"] = rows
+        out["checks"] = checks
+        out["label"] = "ranks sharing one card, gloo"
+        drs = counted_cells(cells14f, quad, SHARD_TRAIN_TIMEOUT_S)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        pool.terminate()
+        pool.join()
+    failed = [r for r in drs if "error" in r]
+    log(f"  14f: the meta count of {len(quad)} training cells at 'quad' "
+        f"(their 'quad_tp' rows are 13c's)")
+    for r in drs:
+        if "error" in r:
+            log(f"  {r['arch']:<14} {r['shape']:<14} FAILED: {r['error']}")
+            continue
+        log(f"  {r['arch']:<14} {r['shape']:<14} quad coll B "
+            f"{r['coll_bytes']:>14.6g} flops {r['flops']:>12.4g} peak B "
+            f"{r['peak_bytes']:>12.4g}")
+    if failed or len(drs) != len(quad):
+        raise AssertionError(f"14f: {len(failed)} cells did not count")
+    out["14f"] = {f"{r['arch']}/{r['shape']}": r["coll_bytes"] for r in drs}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def shard_train_checks(sizes: Sizes, cases: dict, singles: dict,
+                       drift: dict, ranks: dict) -> tuple:
+    """14's gates on the ranks' numbers (see :func:`shard_train_phase`)
+    -> ({check: [max err, bar]}, a row a case)."""
+    import torch
+
+    checks, rows = {}, {}
+    for key, case in cases.items():
+        ref = case["ref"]
+        want = singles[ref]
+        dr = drift.get(ref)
+        res = ranks[key]
+        for r, got in enumerate(res):
+            for k in ("loss", "grad_norm"):
+                for i, (g, w) in enumerate(zip(got[k], want[k])):
+                    bar = TRAIN_LOSS_RTOL * abs(w)
+                    if dr is not None:
+                        bar = max(bar, ARCH_BF16_DRIFTS * dr["relative"]
+                                  * abs(w))
+                    name = f"14 {key} rank {r} step {i + 1} {k}"
+                    checks[name] = [abs(g - w), bar]
+                    if not abs(g - w) <= bar:
+                        raise AssertionError(f"{name}: {g!r} against the "
+                                             f"single run's {w!r} (bar "
+                                             f"{bar!r})")
+            worst = 0.0
+            if set(got["grads"]) != set(want["scale"]):
+                raise AssertionError(f"14 {key} rank {r}: the gradient's "
+                                     f"leaves are not the single run's")
+            for k, scale in want["scale"].items():
+                bar = TRAIN_GRAD_TOL * scale
+                if dr is not None:
+                    bar = max(bar, ARCH_BF16_DRIFTS * dr["grads"][k])
+                err = got["grads"][k]
+                worst = max(worst, err / max(bar, 1e-30))
+                if not err <= bar:
+                    raise AssertionError(f"14 {key} rank {r}: step 1's "
+                                         f"gradient of {k} off by {err!r} "
+                                         f"(bar {bar!r})")
+            checks[f"14 {key} rank {r} step-1 gradients, worst share of "
+                   f"the bar"] = [worst, 1.0]
+            if any(got["launches"].values()):
+                raise AssertionError(f"14 {key} rank {r} launched a kernel: "
+                                     f"{got['launches']}")
+            if got["step"] != SHARD_TRAIN_STEPS:
+                raise AssertionError(f"14 {key} rank {r}: step counter "
+                                     f"{got['step']}")
+        # every block held by several ranks: the same bits on each
+        for k in res[0]["shared"]:
+            dims = res[0]["blocks"][k]
+            held = {}
+            for got in res:
+                held.setdefault(tuple(got["coords"][i] for i in dims),
+                                []).append(got["shared"][k])
+            for same in held.values():
+                for other in same[1:]:
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(same[0], other)):
+                        raise AssertionError(f"14 {key}: {k} (or its "
+                                             f"moments) differs between "
+                                             f"ranks holding one block")
+        rows[key] = {
+            "mesh": list(case["mesh"]), "ep": case["ep"], "sp": case["sp"],
+            "loss": [g["loss"] for g in res],
+            "single loss": want["loss"],
+            "grad_norm": [g["grad_norm"] for g in res],
+            "single grad_norm": want["grad_norm"],
+            "ms": [g["ms"] for g in res], "single ms": want["ms"],
+            "peak": [g["peak"] for g in res], "single peak": want["peak"],
+            "held before": [g["held before"] for g in res],
+            "params per rank": [g["params_per_rank"] for g in res],
+            "launches": [g["launches"] for g in res],
+            "shared leaves": len(res[0]["shared"])}
+        if dr is not None:
+            rows[key]["relative drift"] = dr["relative"]
+            rows[key]["single f32"] = want["f32"]
+        log(f"  14 {key} (ranks sharing one card, gloo): "
+            + json.dumps(rows[key], default=str))
+    return checks, rows
 
 
 def run(dev, sizes: Sizes) -> list[dict]:
@@ -5223,6 +5910,32 @@ def run(dev, sizes: Sizes) -> list[dict]:
         if row["name"] in per_rank:
             row["phase13_launches_per_call_per_rank"] = per_rank[row["name"]]
     print(json.dumps({"tensor_parallel": tp}, default=float))
+
+    # 14. training under the sharding policy; phase 13's data is gone.  No
+    # kernel lies on the training paths (no kernel has a backward): the
+    # counters, zeroed before the single runs, must stay 0 (each rank holds
+    # its own to 0 in shard_train_checks).
+    del tp
+    torch.cuda.empty_cache()
+    for mod in counters.values():
+        mod.launches = 0
+    log(f"phase 14: training under the sharding policy on gloo ranks "
+        f"sharing card 0: 14a {sizes.dense_arch} x {sizes.shard_lm_layers} "
+        f"layers bf16, {sizes.shard_lm_batch} x {sizes.shard_lm_len}, at "
+        f"(1, 2) with seq_parallel and at (2, 1); 14b {TP_SEQ_ARCH} f32, "
+        f"{sizes.shard_split_batch} x {sizes.shard_split_len} at (2, 2); "
+        f"14c {sizes.moe_arch} x {sizes.moe_train_layers} layers bf16 under "
+        f"TP and EP; 14d {SHARD_RECSYS_MODEL} at B = "
+        f"{sizes.recsys_train_batch}; 14e SchNet full_graph_sm and "
+        f"molecule; 14f the training cells at 'quad' on meta")
+    trained = shard_train_phase(dev, sizes)
+    trained["launches"] = {name: mod.launches
+                           for name, mod in counters.items()}
+    if any(trained["launches"].values()):
+        raise AssertionError(f"phase 14 launched a kernel: "
+                             f"{trained['launches']}")
+    log(f"phase 14: {trained['seconds']:.3f} s")
+    print(json.dumps({"sharded_training": trained}, default=float))
     return rows
 
 

@@ -5,21 +5,26 @@
 (``probes.CostMode``) or, on the card, the kernels ``torch.profiler``
 timed.  :func:`collective_bytes` reckons the payload of the collectives
 the port's step issues on one rank, as JAX sums the output bytes of each
-collective in the HLO: on ``"quad"``, a training step's one SUM
-all-reduce of the f32 gradient buffer (``make_ddp_train_step``'s
-``_pmean``, then the loss's), and a serving step's gather of the [S, B,
-k] values and ids (``topk.gather_shards``).  At ``"quad_tp"`` a
-serving cell's step also issues the tensor- and expert-parallel
-collectives of ``sharding.ctx``, which the ``meta`` count records as it
-runs the step (``probes.count``; extrapolated over layers as the FLOPs
-are): per layer the f32 SUM all-reduce of the attention's and of the MLP's
-or experts' [tokens, D] output, the embedding's all-reduce and the
-logits' all-gather over the model axis (of [tokens, V]), the
-decode combine of a sequence-split cache (a MAX and a SUM all-reduce a
-layer), the gathers of split heads' weights, FSDP's all-gather of each
-layer's weights over the data axis, and a row-sharded table's id gather
-and bag all-reduce; :func:`collective_bytes` adds them.  On ``"single"``
-no collective runs: 0.
+collective in the HLO.  A serving step on ``"quad"`` gathers the [S, B,
+k] values and ids (``topk.gather_shards``).  The collectives of
+``sharding.ctx`` the ``meta`` count records as it runs the step
+(``probes.count``; extrapolated over layers and microbatches as the
+FLOPs are), forward and backward, a remat's re-issued forward included.
+At ``"quad_tp"`` a serving step's: per layer the f32 SUM all-reduce of
+the attention's and of the MLP's or experts' [tokens, D] output, the
+embedding's all-reduce and the logits' all-gather over the model axis
+(of [tokens, V]), the decode combine of a sequence-split cache (a MAX
+and a SUM all-reduce a layer), the gathers of split heads' weights,
+FSDP's all-gather of each layer's weights over the data axis, and a
+row-sharded table's id gather and bag all-reduce.  A training step's on
+``"quad"`` and ``"quad_tp"`` (``make_sharded_train_step``): those of the
+forward, the backward's transposes (FSDP's gathers reduce-scatter the
+weights' gradients, a split input's gradient is all-reduced, a
+sequence-parallel exit's all-gathered), the loss's all-reduces, one SUM
+all-reduce of the partial gradients a set of axes, and the clipping
+norm's all-reduces; :func:`collective_bytes` adds them (and counts a
+training cell's step itself when no count is given).  On ``"single"`` no
+collective runs: 0.
 """
 from __future__ import annotations
 
@@ -51,32 +56,29 @@ def op_histogram(counts, top: int = 12) -> list[tuple[str, int]]:
     return rows[:top]
 
 
-def _param_bytes(params: dict) -> int:
-    return sum(p.numel() * 4 for p in params.values())  # f32 gradients
-
-
 def collective_bytes(cell, counted: dict = None) -> CollectiveStats:
     """The bytes one rank's step moves through collectives, by kind; with
     ``counted`` (a count's ``{kind: [bytes, calls]}``) the sharded paths'
-    collectives added."""
+    collectives added.  A training cell with no ``counted`` runs its step
+    once under ``ctx.recording`` (on ``meta``, where it moves nothing)."""
+    if counted is None and cell.meta.get("kind") == "train":
+        from repro_torch.sharding import ctx
+
+        with ctx.recording() as counted:
+            cell.step_fn(*cell.args)
     by_kind, counts = {}, {}
-    for kind, (nbytes, calls) in (counted or {}).items():
+    for name, (nbytes, calls) in (counted or {}).items():
         if calls:
-            by_kind[kind] = int(round(nbytes))
-            counts[kind] = int(round(calls))
-    if cell.layout != "single":
+            by_kind[name] = int(round(nbytes))
+            counts[name] = int(round(calls))
+    kind = cell.meta.get("kind")
+    if cell.layout != "single" and kind in ("retrieval", "retrieval_serve"):
         s = _cards(cell.layout)
-        kind = cell.meta.get("kind")
-        if kind == "train":
-            state = cell.args[0]
-            _add(by_kind, counts, "all-reduce",
-                 _param_bytes(state["params"]) + 4, 2)  # gradients, loss
-        elif kind in ("retrieval", "retrieval_serve"):
-            b = _rows(cell)
-            k = int(cell.meta["topk"])
-            id_bytes = 8 if kind == "retrieval" else 4
-            _add(by_kind, counts, "all-gather",
-                 s * b * k * (4 + id_bytes), 2)  # values, ids
+        b = _rows(cell)
+        k = int(cell.meta["topk"])
+        id_bytes = 8 if kind == "retrieval" else 4
+        _add(by_kind, counts, "all-gather",
+             s * b * k * (4 + id_bytes), 2)  # values, ids
     return CollectiveStats(sum(by_kind.values()), by_kind, counts)
 
 

@@ -159,6 +159,8 @@ class Cost:
     all_reduce_n: float = 0.0
     all_gather: float = 0.0
     all_gather_n: float = 0.0
+    reduce_scatter: float = 0.0
+    reduce_scatter_n: float = 0.0
 
     def _map(self, fn, o=None):
         return Cost(*(fn(getattr(self, f.name),
@@ -182,7 +184,9 @@ class Cost:
                 "collectives": {"all-reduce": [self.all_reduce,
                                                self.all_reduce_n],
                                 "all-gather": [self.all_gather,
-                                               self.all_gather_n]}}
+                                               self.all_gather_n],
+                                "reduce-scatter": [self.reduce_scatter,
+                                                   self.reduce_scatter_n]}}
 
 
 def count(fn: Callable, args: tuple) -> tuple[Cost, collections.Counter]:
@@ -191,8 +195,8 @@ def count(fn: Callable, args: tuple) -> tuple[Cost, collections.Counter]:
     (``sharding.ctx.recording``: nothing moves on ``meta``)."""
     with CostMode(roots=args) as mode, ctx.recording() as rec:
         fn(*args)
-    return Cost(mode.flops, mode.bytes, mode.peak,
-                *rec["all-reduce"], *rec["all-gather"]), mode.ops
+    return Cost(mode.flops, mode.bytes, mode.peak, *rec["all-reduce"],
+                *rec["all-gather"], *rec["reduce-scatter"]), mode.ops
 
 
 def count_cell(cell) -> tuple[Cost, collections.Counter]:

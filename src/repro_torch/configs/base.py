@@ -7,14 +7,20 @@ The LM path reads ``sliding_window``, ``moe`` (a :class:`MoEConfig`:
 mixture-of-experts layers in place of the MLP), the compute ``dtype``
 (``"float32"`` or ``"bfloat16"``; anything else raises ``ValueError``),
 the chunk sizes of the plain attention, ``attn_q_chunk`` and
-``attn_kv_chunk``, and, in training, ``remat`` (each block's activations
-recomputed in the backward, as ``jax.checkpoint`` does).  The SPLADE
-encoder reads none of them, in JAX or here: it runs f32 whatever ``dtype``
-says.  A knob the port does not implement is not a field, so setting it is
-a ``TypeError`` rather than a silent no-op: layer scan, unrolled attention
-and sequence parallelism only matter for XLA or for a mesh.  The port keeps
-its parameters in f32: another ``param_dtype`` raises
-``NotImplementedError``.
+``attn_kv_chunk``, in training ``remat`` (each block's activations
+recomputed in the backward, as ``jax.checkpoint`` does), and, under a
+sharding policy with a model axis, ``seq_parallel`` (Megatron's sequence
+parallelism: the residual stream between blocks split over the model axis
+on the sequence dim, JAX's ``constrain(x, "batch", "tp", None)``; the
+numbers are unchanged).  The SPLADE encoder reads none of them, in JAX or
+here: it runs f32 whatever ``dtype`` says.  A knob the port does not
+implement is not a field, so setting it is a ``TypeError`` rather than a
+silent no-op.  JAX's ``scan_layers`` and ``attn_unroll`` are XLA lowering
+knobs (a ``lax.scan`` over stacked layers, Python-unrolled attention
+chunks for the cost probes): the port's blocks are a Python loop, which
+is ``scan_layers=False``'s semantics, and its chunk loops are Python
+already, so neither is a field.  The port keeps its parameters in f32:
+another ``param_dtype`` raises ``NotImplementedError``.
 
 ``MoEConfig``, ``SchNetConfig``, ``RecsysConfig``, ``RetrievalArchConfig``,
 ``ShapeSpec`` and ``ArchSpec`` copy the JAX dataclasses field for field.
@@ -78,6 +84,9 @@ class TransformerConfig:
     dtype: str = "bfloat16"  # activation/compute dtype of the LM
     param_dtype: str = "float32"
     remat: bool = True  # recompute each LM block in the backward
+    # under a policy with a model axis: the residual stream between blocks
+    # split over the model axis on the sequence dim (training and prefill)
+    seq_parallel: bool = False
     attn_q_chunk: int = 512  # tiles of the plain chunked attention
     attn_kv_chunk: int = 1024
 

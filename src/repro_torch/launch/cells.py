@@ -2,10 +2,10 @@
 FLOPs (``repro.launch.cells``).
 
 Each cell is the contract for one dry-run count: the port's own step
-function (``make_train_step`` / ``make_ddp_train_step`` with the
-microbatch count, a model's serve call, the recsys retrieval step, the
-sharded ``ell`` serve step), its inputs, and metadata (analytic model
-FLOPs, microbatching, notes).  By default the parameters, optimizer state
+function (``make_train_step``, or ``make_sharded_train_step`` under the
+layout's policy, with the microbatch count, a model's serve call, the
+recsys retrieval step, the sharded ``ell`` serve step), its inputs, and
+metadata (analytic model FLOPs, microbatching, notes).  By default the parameters, optimizer state
 and inputs are ``meta`` tensors of the step's shapes: nothing is
 allocated, and :mod:`repro_torch.analysis.probes` counts the step's
 operations, bytes and live memory by running it there.  With
@@ -14,21 +14,24 @@ card (``launch.dryrun --device cuda`` times it); a GNN cell's inputs are
 then :func:`gnn_batch`'s graphs.
 
 Layouts (:mod:`repro_torch.launch.mesh`): ``"single"`` (one H100),
-``"quad"`` (four, data-parallel) and ``"quad_tp"`` (four as data 2 x
+``"quad"`` (four, data 4 x model 1) and ``"quad_tp"`` (four as data 2 x
 model 2).  A cell's inputs are one rank's: an LM batch's leading dim
 divided by the data-parallel ranks, a recsys or molecule batch's by every
-rank, as JAX shards them; a single graph (``gnn_full``,
-``gnn_minibatch``) is stepped whole on every rank (the port shards no
-graph yet: JAX splits the edges), a one-user retrieval replicated, a
-document index cut into one shard a rank.  At ``"quad_tp"`` the serving
-cells run under the layout's sharding policy (:func:`cell_policy`: LM
-parameters and KV caches by ``lm_param_specs``/``lm_cache_specs``,
-recsys tables by ``recsys_param_specs`` for serving), so their tensors
-are one rank's shards and their steps the sharded paths; the training
-cells' steps stay the data-parallel ones (training under the policy is
-not ported): their ``meta`` records the bytes of one rank's shards under
-the policy and says so.  ``model_flops`` is the global useful work, JAX's
-formulas copied, on JAX's padded sizes.
+rank, a single graph's (``gnn_full``, ``gnn_minibatch``) edges by every
+rank with its nodes whole, as JAX shards them; a one-user retrieval
+replicated, a document index cut into one shard a rank.  On more than
+one card every training cell steps under the layout's sharding policy
+(:func:`train_policy`; ``make_sharded_train_step``): LM parameters and
+moments by ``lm_param_specs`` (FSDP over data, TP or EP over model),
+with JAX's ``adjusted_lm_cfg`` decision (:func:`seq_parallel`) put into
+the config's ``seq_parallel``; recsys tables row-sharded by
+``recsys_param_specs`` for training; SchNet replicated, its edges or
+molecules split.  At ``"quad_tp"`` the serving cells run under the
+layout's policy too (:func:`cell_policy`: LM parameters and KV caches by
+``lm_param_specs``/``lm_cache_specs``, recsys tables by
+``recsys_param_specs`` for serving).  Either way a cell's tensors are
+one rank's shards and its step the sharded path.  ``model_flops`` is the
+global useful work, JAX's formulas copied, on JAX's padded sizes.
 
 On ``meta`` the cells run the plain path, since kernel entries raise
 there (``use_kernel=False``; the ``ell`` step scores through
@@ -37,14 +40,12 @@ hand-written kernels included.  Branches that read values (the LM's token range
 check, the top-k's tie repair) are not taken on ``meta``, which holds
 none; the MoE layers dispatch by ``"einsum"``, JAX's default, which reads
 nothing back.  A cell that cannot run on ``meta`` raises with its name.
-The LM training cells record JAX's sequence-parallel decision
-(``adjusted_lm_cfg``) in ``meta`` only: the port's config has no such
-field.
+The LM training cells record the sequence-parallel decision in ``meta``
+as well.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Optional
 
 import torch
@@ -57,7 +58,7 @@ from repro_torch.launch.mesh import Layout, make_device_mesh, production_layout
 from repro_torch.sharding import policies as pol
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_loop import (
-    init_state, make_ddp_train_step, make_train_step,
+    init_state, make_sharded_train_step, make_train_step,
 )
 from repro_torch.utils import cdiv, ceil_to, resolve_device
 
@@ -126,14 +127,12 @@ def _generator(device: torch.device, seed: int):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def cell_policy(spec: ArchSpec, layout: Layout, device):
-    """The sharding policy of ``layout`` (None without a model axis): over
-    its ``AbstractMesh`` on ``meta`` (a step counted as rank 0's), else
-    over the process group's ranks (raises without one of the layout's
-    size); expert parallelism as ``layout.expert_parallel`` says, by
-    default ``default_expert_parallel``."""
-    if layout.tp == 1:
-        return None
+def _policy(spec: ArchSpec, layout: Layout, device):
+    """The layout's sharding policy: over its ``AbstractMesh`` on
+    ``meta`` (a step counted as rank 0's), else over the process group's
+    ranks (raises without one of the layout's size); expert parallelism
+    as ``layout.expert_parallel`` says, by default
+    ``default_expert_parallel``."""
     ep = layout.expert_parallel
     if ep is None:
         ep = pol.default_expert_parallel(spec.config, layout.tp)
@@ -142,16 +141,25 @@ def cell_policy(spec: ArchSpec, layout: Layout, device):
     return pol.make_policy(mesh, expert_parallel=ep)
 
 
-def _policy_meta(policy, params: dict, specs: Optional[dict]) -> dict:
+def cell_policy(spec: ArchSpec, layout: Layout, device):
+    """The policy a serving cell runs under: the layout's (:func:`_policy`)
+    where it has a model axis, else None."""
+    return None if layout.tp == 1 else _policy(spec, layout, device)
+
+
+def train_policy(spec: ArchSpec, layout: Layout, device):
+    """The policy a training cell steps under: the layout's on more than
+    one card (``"quad"`` too: FSDP over its data axis of 4), else None."""
+    return None if layout.cards == 1 else _policy(spec, layout, device)
+
+
+def _policy_meta(policy, model) -> dict:
     """What ``meta`` records of a cell's policy: the mesh, expert
-    parallelism and one rank's parameter bytes (of whole ``params`` cut
-    by ``specs``, or of ``params`` already cut: ``specs`` None)."""
-    local = sum(4 * (p.numel() if specs is None else math.prod(
-        pol.local_shape(p.shape, specs[n], policy.mesh)))
-        for n, p in params.items())
+    parallelism and one rank's parameter bytes (its shards')."""
     return {"mesh": tuple(policy.mesh.shape),
             "expert_parallel": policy.expert_parallel,
-            "param_bytes_per_rank": local}
+            "param_bytes_per_rank": sum(4 * p.numel()
+                                        for p in model.parameters())}
 
 
 def _local(n: int, layout: Layout) -> int:
@@ -160,11 +168,13 @@ def _local(n: int, layout: Layout) -> int:
     return n // layout.dp if n % layout.dp == 0 else n
 
 
-def _train_step(loss_fn, layout: Layout, microbatches: int = 1):
+def _train_step(loss_fn, plan: Optional[pol.TrainPlan],
+                microbatches: int = 1):
+    """``make_train_step``, or under a plan ``make_sharded_train_step``."""
     adamw = AdamWConfig()
-    if layout.dp == 1:
+    if plan is None:
         return make_train_step(loss_fn, adamw, microbatches=microbatches)
-    return make_ddp_train_step(loss_fn, adamw, microbatches=microbatches)
+    return make_sharded_train_step(loss_fn, adamw, plan, microbatches)
 
 
 def _train_args(model, batch: dict) -> tuple:
@@ -238,25 +248,23 @@ def seq_parallel(cfg: TransformerConfig, shape: ShapeSpec,
 
 
 def _lm_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
-             seed: int, microbatches: Optional[int] = None) -> Cell:
+             seed: int, microbatches: Optional[int] = None,
+             seq_parallel_on: Optional[bool] = None) -> Cell:
     from repro_torch.models.transformer import TransformerLM
 
     cfg: TransformerConfig = spec.config
-    policy = cell_policy(spec, layout, device)
     train = shape.kind == "train"
+    if train:
+        sp = (seq_parallel(cfg, shape, layout) if seq_parallel_on is None
+              else seq_parallel_on)
+        cfg = dataclasses.replace(cfg, seq_parallel=sp)
+    policy = (train_policy if train else cell_policy)(spec, layout, device)
     model = TransformerLM(cfg, device=device,
-                          generator=_generator(device, seed),
-                          policy=None if train else policy)
+                          generator=_generator(device, seed), policy=policy)
     gen = _generator(device, seed + 1)
     meta = {"kind": shape.kind, "compute": _lm_compute(cfg)}
     if policy is not None:
-        params = dict(model.named_parameters())
-        meta["policy"] = _policy_meta(
-            policy, params,
-            pol.lm_param_specs(cfg, policy, params) if train else None)
-        if train:
-            meta["step"] = ("data-parallel: training under the policy is "
-                            "not ported")
+        meta["policy"] = _policy_meta(policy, model)
     flops = _lm_model_flops(cfg, shape)
     kernels = device.type != "meta"
     if train:
@@ -268,10 +276,10 @@ def _lm_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
         batch = _materialize({"tokens": tok, "targets": tok,
                               "loss_mask": Input((b, s), torch.float32,
                                                  ("ones",))}, device, gen)
-        meta.update(microbatches=mb,
-                    seq_parallel=seq_parallel(cfg, shape, layout))
+        meta.update(microbatches=mb, seq_parallel=cfg.seq_parallel)
         return Cell(spec.arch_id, shape.name, layout.name,
-                    _train_step(model.loss_fn, layout, mb),
+                    _train_step(model.loss_fn, policy and model.train_plan(),
+                                mb),
                     _train_args(model, batch), flops, meta, model)
     if shape.kind == "prefill":
         b = _local(shape.global_batch, layout)
@@ -340,7 +348,9 @@ def gnn_sizes(shape: ShapeSpec) -> tuple[int, int, int]:
 
 def gnn_batch(shape: ShapeSpec, seed: int, n_dev: int = 1,
               cutoff: float = 10.0) -> tuple[dict, dict]:
-    """One rank's seeded numpy batch of a GNN cell, and what was sampled.
+    """The seeded numpy batch of a GNN cell, and what was sampled: a
+    single graph whole (its edges padded to split over ``n_dev`` ranks;
+    the cell cuts each rank's share), one rank's molecules.
 
     ``gnn_full``: :func:`make_graph`'s graph, a standard normal target a
     node and half the nodes in the loss.  ``gnn_minibatch``: a CSR of the
@@ -413,7 +423,8 @@ def gnn_batch(shape: ShapeSpec, seed: int, n_dev: int = 1,
 def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
               seed: int) -> Cell:
     """On ``meta`` the batch's shapes alone; on a device :func:`gnn_batch`
-    seeded with ``seed + 1`` (the weights take ``seed``)."""
+    seeded with ``seed + 1`` (the weights take ``seed``), a single graph's
+    edges cut to the rank's share."""
     from repro_torch.models.schnet import SchNet
     from repro_torch.train.train_loop import to_device
 
@@ -424,15 +435,19 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
         (shape.n_nodes, shape.n_edges, MOLECULE_D_IN) if batched
         else gnn_sizes(shape))
     cfg = dataclasses.replace(base, d_in=d_feat)
-    model = SchNet(cfg, device=device, generator=_generator(device, seed))
+    policy = train_policy(spec, layout, device)
+    model = SchNet(cfg, device=device, generator=_generator(device, seed),
+                   policy=policy)
     meta = {"kind": "train", "compute": "f32"}
+    if policy is not None:
+        meta["policy"] = _policy_meta(policy, model)
     if device.type == "meta":
         if batched:
             b = ceil_to(shape.global_batch, n_dev) // layout.cards
             lead, ids = (b, n_nodes), (b, n_edges)
             specs = {"energy": Input((b,), torch.float32)}
         else:
-            lead, ids = (n_nodes,), (ceil_to(n_edges, n_dev),)
+            lead, ids = (n_nodes,), (ceil_to(n_edges, n_dev) // n_dev,)
             specs = {"targets": Input((n_nodes,), torch.float32),
                      "node_mask": Input((n_nodes,), torch.float32)}
         specs.update(node_feat=Input((*lead, d_feat), torch.float32),
@@ -442,21 +457,24 @@ def _gnn_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
         batch = _materialize(specs, device, None)
     else:
         arrays, info = gnn_batch(shape, seed + 1, n_dev, cfg.cutoff)
+        if policy is not None and not batched:
+            arrays = pol.shard_batch(arrays, pol.gnn_batch_dims(policy),
+                                     policy.mesh,
+                                     pol.rank_coords(policy, device))
         batch = to_device(arrays, device)
         meta.update(info)
+    plan = policy and model.train_plan(batched)
     if batched:
         bsz = ceil_to(shape.global_batch, n_dev)
         meta["batched"] = True
         return Cell(spec.arch_id, shape.name, layout.name,
-                    _train_step(model.batched_energy_loss, layout),
+                    _train_step(model.batched_energy_loss, plan),
                     _train_args(model, batch),
                     _gnn_model_flops(cfg, bsz * n_nodes, bsz * n_edges,
                                      d_feat), meta, model)
     meta.update(edges_padded=ceil_to(n_edges, n_dev), nodes=n_nodes)
-    if layout.dp > 1:
-        meta["replicated"] = "every rank steps the whole graph"
     return Cell(spec.arch_id, shape.name, layout.name,
-                _train_step(model.loss_fn, layout), _train_args(model, batch),
+                _train_step(model.loss_fn, plan), _train_args(model, batch),
                 _gnn_model_flops(cfg, n_nodes, n_edges, d_feat), meta, model)
 
 
@@ -514,27 +532,22 @@ def _recsys_cell(spec: ArchSpec, shape: ShapeSpec, layout: Layout, device,
     from repro_torch.models.recsys import build_model
 
     cfg: RecsysConfig = spec.config
-    policy = cell_policy(spec, layout, device)
     train = shape.kind == "recsys_train"
-    model = build_model(cfg, device=device, seed=seed,
-                        policy=None if train else policy)
+    policy = (train_policy if train else cell_policy)(spec, layout, device)
+    model = build_model(cfg, device=device, seed=seed, policy=policy,
+                        serving=not train)
     gen = _generator(device, seed + 1)
     n_dev = layout.cards
     meta = {"compute": "f32"}
     kernels = device.type != "meta"
     if policy is not None:
-        params = dict(model.named_parameters())
-        meta["policy"] = _policy_meta(policy, params, pol.recsys_param_specs(
-            policy, params) if train else None)
-        if train:
-            meta["step"] = ("data-parallel: training under the policy is "
-                            "not ported")
+        meta["policy"] = _policy_meta(policy, model)
 
     if train:
         b = shape.global_batch
         batch = _materialize(_recsys_batch(cfg, b // n_dev), device, gen)
         return Cell(spec.arch_id, shape.name, layout.name,
-                    _train_step(model.loss_fn, layout),
+                    _train_step(model.loss_fn, policy and model.train_plan()),
                     _train_args(model, batch),
                     _recsys_model_flops(cfg, b, True),
                     dict(meta, kind="train"), model)
@@ -663,7 +676,8 @@ def shape_of(spec: ArchSpec, shape_name: str) -> ShapeSpec:
 def make_cell(spec: ArchSpec, shape: ShapeSpec, layout="single",
               device="meta", seed: int = 0, **kw) -> Cell:
     """The cell of ``spec`` (its config possibly cut, as the probes cut
-    it) at ``shape``; ``kw`` passes ``microbatches`` to an LM train cell."""
+    it) at ``shape``; ``kw`` passes ``microbatches`` and
+    ``seq_parallel_on`` (JAX's decision forced) to an LM train cell."""
     lay = production_layout(layout) if isinstance(layout, str) else layout
     dev = resolve_device(device)
     try:

@@ -31,6 +31,20 @@ columns of the output by its rows of ``wo``.  The MLP's ``w_gate``/
 are split on F (TP inside each expert) or on E (expert parallelism).
 Decode reads a KV cache split by heads or by sequence
 (:func:`decode_attention`).
+
+In training the same layers run under autograd, and ``sharding.ctx``
+gives each collective the backward its use needs: a replicated input
+entering a rank's heads, F columns or experts passes
+``ctx.enter_split`` (its gradient SUMmed over the model axis), and the
+closing all-reduce's backward is the identity.  Under sequence
+parallelism (``TensorParallel.seq``) a layer's input is this rank's
+block of the sequence: the entry gathers it over the model axis
+(``ctx.gather``; a reduce-scatter backward) and the exit reduce-scatters
+the partial sums onto the rank's block (an all-gather backward), where
+the all-reduce was (:func:`tp_entry`, :func:`tp_exit`).  The MoE layer's
+load-balancing loss is JAX's over the whole batch: with the tokens split
+over the ranks (data, or the sequence), the routing statistics are
+SUMmed before their product (:func:`route`).
 """
 from __future__ import annotations
 
@@ -54,17 +68,42 @@ class TensorParallel:
     divide the axis); ``wo_rows``: ``wo`` holds this rank's rows of
     ``H Dh``, so the attention's output is a partial sum; ``ffn``: the
     MLP's or the experts' output is a partial sum (F split, or the experts
-    split under expert parallelism)."""
+    split under expert parallelism); ``seq``: sequence parallelism, the
+    layers' inputs and outputs are this rank's block of the sequence."""
 
     index: int
     heads: bool
     wo_rows: bool
     ffn: bool
+    seq: bool = False
 
 
 def psum(y: torch.Tensor) -> torch.Tensor:
     """The SUM of the ranks' partial ``y`` over the model axis, in f32."""
     return ctx.all_reduce_sum(y.float()).to(y.dtype)
+
+
+def tp_entry(x: torch.Tensor, tp: Optional[TensorParallel],
+             split: bool) -> torch.Tensor:
+    """A layer's input [B, S, D] entering its part on the model axis
+    (``split``: the rank computes its own heads, columns or experts):
+    the whole sequence gathered from the ranks' blocks under sequence
+    parallelism, else the replicated input marked as entering a split
+    computation (``x`` itself, with a summed gradient)."""
+    if tp is None or not split:
+        return x
+    if tp.seq:
+        return ctx.gather(x, 1, "model")
+    return ctx.enter_split(x)
+
+
+def tp_exit(y: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The ranks' partial ``y`` [B, S, D] summed in f32 over the model
+    axis: whole, or this rank's block of the sequence under sequence
+    parallelism."""
+    if tp.seq:
+        return ctx.reduce_scatter(y, 1, "model")
+    return psum(y)
 
 
 def out_proj(out: torch.Tensor, wo: torch.Tensor,
@@ -76,7 +115,7 @@ def out_proj(out: torch.Tensor, wo: torch.Tensor,
         return out @ wo
     if out.shape[-1] != wo.shape[0]:  # every head computed here
         out = out.narrow(-1, tp.index * wo.shape[0], wo.shape[0])
-    return psum(out @ wo)
+    return tp_exit(out @ wo, tp)
 
 
 def _is_meta(device) -> bool:
@@ -251,7 +290,10 @@ def attention_block(
     :func:`flash_attention` (the CUDA kernel on a CUDA tensor), which counts
     positions from 0, as the backbone's ``positions = arange(S)`` do;
     otherwise :func:`chunked_attention` with the given chunks.  Under
-    ``tp`` on the rank's heads, the output summed over the ranks."""
+    ``tp`` on the rank's heads, the output summed over the ranks (under
+    sequence parallelism ``x`` and the output are the rank's block of
+    the sequence, ``positions`` the whole sequence's)."""
+    x = tp_entry(x, tp, tp is not None and tp.wo_rows)
     b, s, _ = x.shape
     q, k, v = qkv(params, x, cfg, positions)
     if use_kernel:
@@ -347,12 +389,14 @@ def mlp_block(params, x: torch.Tensor, cfg: TransformerConfig,
               tp: Optional[TensorParallel] = None):
     """The MLP; under ``tp`` on the rank's F columns, summed over the
     ranks."""
+    split = tp is not None and tp.ffn
+    x = tp_entry(x, tp, split)
     if cfg.act == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     else:  # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ params["w_up"], approximate="tanh")
     y = h @ params["w_down"]
-    return psum(y) if tp is not None and tp.ffn else y
+    return tp_exit(y, tp) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -388,21 +432,30 @@ def _counts(idx: torch.Tensor, n: int) -> torch.Tensor:
         0, idx, torch.ones_like(idx))
 
 
-def route(params, xf: torch.Tensor, moe: MoEConfig):
+def route(params, xf: torch.Tensor, moe: MoEConfig, which=None):
     """The router over tokens ``xf`` [T, d] -> (gates [T, k] f32, expert ids
     [T, k] int64, aux loss): f32 logits ``xf @ router`` (the router in
     whatever dtype the layer was cast to, promoted to f32, as in JAX), a
     softmax, the top k with ties to the lower expert (a stable descending
     sort: ``lax.top_k``'s order), the gates renormalised to sum 1, and
-    Switch's load-balancing loss ``E * sum_e f_e p_e * aux_loss_weight``."""
+    Switch's load-balancing loss ``E * sum_e f_e p_e * aux_loss_weight``.
+    ``which``: the mesh axes splitting the batch's tokens (``ctx``'s
+    names); ``f_e`` and ``p_e`` are then the whole batch's, their sums
+    all-reduced before the product (it is not linear)."""
     e, k = moe.num_experts, moe.top_k
     t = xf.shape[0]
     probs = torch.softmax(xf.float() @ params["router"].float(), dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, expert_idx = top.values[:, :k], top.indices[:, :k]
     gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
-    me = torch.mean(probs, dim=0)
-    ce = _counts(expert_idx.reshape(-1), e).float() / t / k
+    counts = _counts(expert_idx.reshape(-1), e).float()
+    if which is None or ctx.group_size(which) == 1:
+        me = torch.mean(probs, dim=0)
+        ce = counts / t / k
+    else:
+        t = t * ctx.group_size(which)
+        me = ctx.all_reduce_sum(torch.sum(probs, dim=0), which) / t
+        ce = ctx.all_reduce_sum(counts, which) / t / k
     aux = e * torch.sum(me * ce) * moe.aux_loss_weight
     return gate_vals, expert_idx, aux
 
@@ -452,7 +505,8 @@ def _local_experts(params, moe: MoEConfig,
 
 def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
                expert_idx: torch.Tensor, moe: MoEConfig,
-               tp: Optional[TensorParallel] = None) -> torch.Tensor:
+               tp: Optional[TensorParallel] = None,
+               reduce: bool = True) -> torch.Tensor:
     """GShard dispatch over groups: ``xg`` [G, g, d], gates and ids
     [G, g, k] -> [G, g, d] in ``xg``'s dtype.
 
@@ -467,7 +521,8 @@ def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
     Under ``tp`` (the same routing on every rank: tokens and router are
     replicated over the model axis) the rank runs its experts' rows (EP)
     or its F columns of every expert, and the f32 combination is summed
-    over the ranks before the cast."""
+    over the ranks before the cast (``reduce=False``: the rank's f32
+    partial, for the caller to sum)."""
     g, tg, d = xg.shape
     e = moe.num_experts
     lo, e_loc = _local_experts(params, moe, tp)
@@ -497,6 +552,8 @@ def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
     y = expert_out[torch.where(kept, slot - lo * g * c, 0)]  # [G, g, k, d]
     gates = torch.where(kept, gate_vals.to(dt), 0).float()
     out = torch.sum(y.float() * gates[..., None], dim=2)
+    if not reduce:
+        return out
     if tp is not None and tp.ffn:
         out = ctx.all_reduce_sum(out)
     return out.to(dt)
@@ -504,14 +561,16 @@ def moe_einsum(params, xg: torch.Tensor, gate_vals: torch.Tensor,
 
 def moe_ragged(params, xf: torch.Tensor, gate_vals: torch.Tensor,
                expert_idx: torch.Tensor, moe: MoEConfig,
-               tp: Optional[TensorParallel] = None) -> torch.Tensor:
+               tp: Optional[TensorParallel] = None,
+               reduce: bool = True) -> torch.Tensor:
     """Dropless dispatch: tokens [T, d], gates and ids [T, k] -> [T, d].
     The (token, slot) entries sorted by expert (stable), each expert's
     contiguous rows through its three products (``lax.ragged_dot``; one
     host sync reads the group sizes), the outputs times the gates in the
     outputs' dtype, then each token's k rows summed.  Under ``tp`` the
     rank's experts (their rows of other experts are 0) or F columns, the
-    sum then summed over the ranks in f32."""
+    sum then summed over the ranks in f32 (``reduce=False``: the rank's
+    partial)."""
     t, d = xf.shape
     k = expert_idx.shape[-1]
     lo, e_loc = _local_experts(params, moe, tp)
@@ -532,7 +591,7 @@ def moe_ragged(params, xf: torch.Tensor, gate_vals: torch.Tensor,
     by_entry = torch.empty_like(ys)
     by_entry[sort_idx] = ys
     out = torch.sum(by_entry.view(t, k, d), dim=1)
-    return psum(out) if tp is not None and tp.ffn else out
+    return psum(out) if reduce and tp is not None and tp.ffn else out
 
 
 # dispatch volume (T x g x k x capacity factor) above which the einsum
@@ -542,7 +601,8 @@ MOE_SUPER_CHUNK_ELEMS = 4e9
 
 def moe_block(params, x: torch.Tensor, cfg: TransformerConfig,
               tp: Optional[TensorParallel] = None,
-              routes: Optional[list] = None, data: int = 1):
+              routes: Optional[list] = None, data: int = 1,
+              whole_aux: bool = False):
     """Top-k mixture of experts over ``x`` [B, S, d] -> (out [B, S, d] in
     x's dtype, aux loss).  The einsum dispatch regroups the B S tokens into
     groups of :func:`moe_group_tokens`; above
@@ -553,46 +613,73 @@ def moe_block(params, x: torch.Tensor, cfg: TransformerConfig,
     its capacity kept ([B S, k] bool; all of them for ``"ragged"``).
 
     ``x`` may be this rank's rows of a batch split over ``data`` ranks
-    (the data axis): the dispatch groups are the whole batch's, as JAX
-    forms them; where one spans the ranks, every rank runs the layer on
-    the whole batch (gathered over the data axis) and keeps its rows."""
+    (the data axis) and, under sequence parallelism, its block of the
+    sequence: the dispatch groups are the whole batch's, as JAX forms
+    them.  The rank routes its own tokens; where a group spans the data
+    ranks (or under sequence parallelism) their gates, ids and rows are
+    gathered for the dispatch and the rank keeps its own rows of the
+    output.  ``whole_aux`` (the loss function's forward, which reads the
+    aux loss): its statistics are the whole batch's (:func:`route`), else
+    the rank's tokens'."""
     moe = cfg.moe
     b, s, d = x.shape
-    if data > 1 and moe.dispatch != "ragged" and (
-            b * s) % moe_group_tokens(b * s * data, moe):
-        out, aux = moe_block(params, ctx.gather(x, 0, "data"), cfg, tp,
-                             routes)
-        i = ctx.group_index("data")
-        return out[i * b:(i + 1) * b], aux
-    xf = x.reshape(b * s, d)
-    gate_vals, expert_idx, aux = route(params, xf, moe)
+    seq = tp is not None and tp.seq
+    t_rank = b * s * (ctx.group_size("model") if seq else 1)
+    span = bool(data > 1 and moe.dispatch != "ragged"
+                and t_rank % moe_group_tokens(t_rank * data, moe))
+    which = None
+    if whole_aux and (data > 1 or seq):
+        which = ("all" if data > 1 and seq
+                 else "data" if data > 1 else "model")
+    gate_vals, expert_idx, aux = route(params, x.reshape(b * s, d), moe,
+                                       which)
+    k = gate_vals.shape[-1]
+    xs, gv, ei = x, gate_vals.reshape(b, s, k), expert_idx.reshape(b, s, k)
+    if seq:  # the sequence's blocks of every rank of the model axis
+        xs, gv, ei = (ctx.gather(t, 1, "model") for t in (xs, gv, ei))
+    if span:  # every data rank's rows
+        xs, gv, ei = (ctx.gather(t, 0, "data") for t in (xs, gv, ei))
+    if tp is not None and tp.ffn and not seq:
+        xs, gv = ctx.enter_split(xs), ctx.enter_split(gv)
+    reduce = not (seq or span)
+    bb, ss = xs.shape[:2]
+    t = bb * ss
+    xf, gate_vals, expert_idx = (xs.reshape(t, d), gv.reshape(t, k),
+                                 ei.reshape(t, k))
     if moe.dispatch == "ragged":
         if routes is not None:
             routes.append((expert_idx, torch.ones_like(expert_idx,
                                                        dtype=torch.bool)))
-        out = moe_ragged(params, xf, gate_vals, expert_idx, moe, tp)
-        return out.reshape(b, s, d).to(x.dtype), aux
-    t, k = b * s, gate_vals.shape[-1]
-    g_tok = moe_group_tokens(t * data, moe)
-    dispatch_elems = t * g_tok * moe.top_k * moe.capacity_factor
-    if (dispatch_elems > MOE_SUPER_CHUNK_ELEMS and s > g_tok
-            and s % g_tok == 0):
-        gv = gate_vals.reshape(b, s, k)
-        ei = expert_idx.reshape(b, s, k)
-        chunks = range(0, s, g_tok)
-        out = torch.cat([
-            moe_einsum(params, x[:, j:j + g_tok], gv[:, j:j + g_tok],
-                       ei[:, j:j + g_tok], moe, tp) for j in chunks], dim=1)
-        groups = [ei[:, j:j + g_tok] for j in chunks]
+        out = moe_ragged(params, xf, gate_vals, expert_idx, moe, tp, reduce)
     else:
-        n = t // g_tok
-        out = moe_einsum(params, xf.reshape(n, g_tok, d),
-                         gate_vals.reshape(n, g_tok, k),
-                         expert_idx.reshape(n, g_tok, k), moe, tp)
-        groups = [expert_idx.reshape(n, g_tok, k)]
-    if routes is not None:
-        kept = torch.cat([capacity_positions(ei, moe.num_experts)
-                          < moe_capacity(g_tok, moe) for ei in groups],
-                         dim=1)
-        routes.append((expert_idx, kept.reshape(t, k)))
-    return out.reshape(b, s, d).to(x.dtype), aux
+        g_tok = moe_group_tokens(t * (1 if span else data), moe)
+        dispatch_elems = t * g_tok * moe.top_k * moe.capacity_factor
+        if (dispatch_elems > MOE_SUPER_CHUNK_ELEMS and ss > g_tok
+                and ss % g_tok == 0):
+            chunks = range(0, ss, g_tok)
+            out = torch.cat([
+                moe_einsum(params, xs[:, j:j + g_tok], gv[:, j:j + g_tok],
+                           ei[:, j:j + g_tok], moe, tp, reduce)
+                for j in chunks], dim=1)
+            groups = [ei[:, j:j + g_tok] for j in chunks]
+        else:
+            n = t // g_tok
+            out = moe_einsum(params, xf.reshape(n, g_tok, d),
+                             gate_vals.reshape(n, g_tok, k),
+                             expert_idx.reshape(n, g_tok, k), moe, tp,
+                             reduce)
+            groups = [expert_idx.reshape(n, g_tok, k)]
+        if routes is not None:
+            kept = torch.cat([capacity_positions(g, moe.num_experts)
+                              < moe_capacity(g_tok, moe) for g in groups],
+                             dim=1)
+            routes.append((expert_idx, kept.reshape(t, k)))
+    out = out.reshape(bb, ss, d)
+    if span:
+        i = ctx.group_index("data")
+        out = out[i * b:(i + 1) * b]
+    if seq:
+        out = ctx.reduce_scatter(out.float(), 1, "model")
+    elif span and tp is not None and tp.ffn:
+        out = ctx.all_reduce_sum(out.float())
+    return out.to(x.dtype), aux

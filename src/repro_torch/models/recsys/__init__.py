@@ -18,7 +18,7 @@ from repro_torch.models.recsys.autoint import AutoInt
 from repro_torch.models.recsys.dien import DIEN
 from repro_torch.models.recsys.din import DIN
 from repro_torch.models.recsys.embeddings import (
-    FieldEmbedding, bce_loss, embedding_bag_plain,
+    FieldEmbedding, bce_loss, bce_terms, embedding_bag_plain,
 )
 from repro_torch.models.recsys.xdeepfm import XDeepFM
 from repro_torch.utils import nest, resolve_device
@@ -26,21 +26,22 @@ from repro_torch.utils import nest, resolve_device
 MODELS = {"din": DIN, "dien": DIEN, "autoint": AutoInt, "xdeepfm": XDeepFM}
 
 __all__ = ["AutoInt", "DIEN", "DIN", "FieldEmbedding", "MODELS", "XDeepFM",
-           "bce_loss", "build_model", "embedding_bag_plain",
+           "bce_loss", "bce_terms", "build_model", "embedding_bag_plain",
            "params_from_jax", "params_to_jax", "shard_params"]
 
 
 def build_model(cfg: RecsysConfig, device="cuda", seed: int = 0,
-                policy=None):
+                policy=None, serving: bool = True):
     """The model of ``cfg.model`` on ``device``, its weights drawn from a
     generator on that device seeded with ``seed`` (on ``meta``: empty
-    tensors of their shapes, nothing drawn); under a serving ``policy``
-    this rank's shards of them (``ClickModel.shard``)."""
+    tensors of their shapes, nothing drawn); under a ``policy`` this
+    rank's shards of them, by the serving or (``serving=False``) the
+    training rule (``ClickModel.shard``)."""
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(
         device=dev).manual_seed(seed)
     model = MODELS[cfg.model](cfg, device=dev, generator=gen)
-    return model if policy is None else model.shard(policy)
+    return model if policy is None else model.shard(policy, serving)
 
 
 def shard_params(params: dict, policy, coords,

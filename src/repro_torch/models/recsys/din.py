@@ -10,7 +10,8 @@ Dice takes its mean and variance over axis 0 of whatever it is given — the
 batch — as the reference does: one row's logits depend on the others in
 its batch, and a batch of one gives p = 0.5 everywhere.  Under a
 sharding policy a forward's batch is split over every rank, and the
-statistics are the whole batch's (SUM all-reduces over the mesh).
+statistics are the whole batch's (SUM all-reduces over the mesh, whose
+backward SUMs the ranks' gradients: each rank uses them on its rows).
 """
 from __future__ import annotations
 
@@ -36,9 +37,9 @@ def dice(x: torch.Tensor, eps: float = 1e-8,
     whole batch's."""
     if split and ctx.group_size("all") > 1:
         n = x.shape[0] * ctx.group_size("all")
-        mu = ctx.all_reduce_sum(x.sum(dim=0, keepdim=True), "all") / n
-        var = ctx.all_reduce_sum(((x - mu) ** 2).sum(dim=0, keepdim=True),
-                                 "all") / n
+        mu = ctx.all_reduce_stat(x.sum(dim=0, keepdim=True), "all") / n
+        var = ctx.all_reduce_stat(((x - mu) ** 2).sum(dim=0, keepdim=True),
+                                  "all") / n
     else:
         mu = x.mean(dim=0, keepdim=True)
         var = x.var(dim=0, keepdim=True, correction=0)

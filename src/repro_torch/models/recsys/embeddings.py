@@ -17,16 +17,23 @@ pytree's names (``layers.<i>.w``, ``layers.<i>.b``, ``head.w``,
 JAX ``loss_fn``: :func:`bce_loss` of ``forward(batch, use_kernel=False)``
 (the kernel has no backward).
 
-Row-sharded tables (``ClickModel.shard``, under ``recsys_param_specs``
-for serving): a table of at least ``REPLICATE_TABLE_BYTES`` whose rows
-divide the model axis keeps rows [first, first + V / tp) on each rank,
-and the batch is split over every axis (``recsys_batch_specs``).  A
-lookup (:func:`sharded_lookup`) gathers the ids of the model axis's ranks
-(an all-gather), looks every one up in the rank's own rows through
+Row-sharded tables (``ClickModel.shard``, under ``recsys_param_specs``):
+for serving a table of at least ``REPLICATE_TABLE_BYTES`` whose rows
+divide the model axis, for training (``serving=False``) every table whose
+rows divide it, keeps rows [first, first + V / tp) on each rank, and the
+batch is split over every axis (``recsys_batch_specs``).  A lookup
+(:func:`sharded_lookup`) gathers the ids of the model axis's ranks (an
+all-gather), looks every one up in the rank's own rows through
 ``embedding_bag`` with the ids shifted by ``first`` (an id outside [0,
 V / tp) adds 0: the kernel's rule does the masking), sums the ranks'
-bags (a SUM all-reduce) and keeps its own rows of the batch.  Replicated
-tables take the unsharded path.
+bags (a SUM all-reduce) and keeps its own rows of the batch; in training
+that sum-then-keep is one reduce-scatter, whose backward gathers the
+ranks' row gradients, so a rank's table block receives the gradient of
+every rank's rows that hit it.  Replicated tables take the unsharded
+path.  ``loss_fn`` under a training policy is the BCE over the whole
+batch (the rank's sum all-reduced over every axis, then divided), and
+``train_plan`` SUMs each leaf's gradient over the axes that do not split
+it (the batch is split over all of them).
 """
 from __future__ import annotations
 
@@ -58,6 +65,8 @@ def sharded_lookup(table: torch.Tensor, ids: torch.Tensor, first: int,
     local = (ids - first).to(torch.int32)
     bags = (embedding_bag(local, table) if use_kernel
             else embedding_bag_plain(table, local))
+    if split and torch.is_grad_enabled() and bags.requires_grad:
+        return ctx.reduce_scatter(bags, 0, "model")
     bags = ctx.all_reduce_sum(bags)
     if split:
         i = ctx.group_index("model")
@@ -171,42 +180,51 @@ def apply_mlp_tower(tower: nn.ModuleDict, x: torch.Tensor,
     return x @ tower["head"]["w"] + tower["head"]["b"]
 
 
-def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy of f32 logits, the stable form
+def bce_terms(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each example's binary cross-entropy of f32 logits, the stable form
     max(x, 0) - x y + log1p(exp(-|x|)) (``torch.maximum``, like
     ``jnp.maximum``, splits its gradient at x = 0)."""
     labels = labels.to(logits.device)
     logits = logits.reshape(labels.shape).float()
-    return torch.mean(
-        torch.maximum(logits, logits.new_zeros(())) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits))))
+    return (torch.maximum(logits, logits.new_zeros(())) - logits * labels
+            + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of f32 logits (:func:`bce_terms`)."""
+    return torch.mean(bce_terms(logits, labels))
 
 
 class ClickModel(nn.Module):
     """A click model's training loss (the JAX models' ``loss_fn``), and
-    its tables' row shards under a serving policy."""
+    its tables' row shards under a serving or training policy."""
 
     policy = None
     first: dict = {}  # a row-sharded table's name -> its first row here
 
     def loss_fn(self, batch: dict):
         """-> (the BCE of the logits against ``batch["label"]``,
-        ``{"bce": it}``), through the plain bag sums."""
-        if self.policy is not None:
-            raise NotImplementedError("training under a sharding policy is "
-                                      "not ported: train unsharded")
-        loss = bce_loss(self.forward(batch, use_kernel=False),
-                        batch["label"])
+        ``{"bce": it}``), through the plain bag sums; under a policy
+        ``batch`` is this rank's rows and the BCE the whole batch's."""
+        logits = self.forward(batch, use_kernel=False)
+        with self._axes():
+            n = ctx.group_size("all")
+            if n == 1:
+                loss = bce_loss(logits, batch["label"])
+            else:
+                terms = bce_terms(logits, batch["label"])
+                loss = (ctx.all_reduce_sum(torch.sum(terms), "all")
+                        / (terms.numel() * n))
         return loss, {"bce": loss.detach()}
 
-    def shard(self, policy) -> "ClickModel":
+    def shard(self, policy, serving: bool = True) -> "ClickModel":
         """Keep this rank's shards under ``recsys_param_specs(policy,
-        serving=True)`` (``specs``: every parameter's placements); raises
+        serving)`` (``specs``: every parameter's placements); raises
         without a process group of the mesh's size (``meta``: rank 0)."""
         coords = pol.rank_coords(policy, next(self.parameters()).device)
         self.policy, self.first = policy, {}
         self.specs = pol.recsys_param_specs(
-            policy, dict(self.named_parameters()), serving=True)
+            policy, dict(self.named_parameters()), serving=serving)
         for name, p in list(self.named_parameters()):
             pl = self.specs[name]
             if all(isinstance(x, pol.Replicate) for x in pl):
@@ -224,6 +242,18 @@ class ClickModel(nn.Module):
         p = self.policy
         return (contextlib.nullcontext() if p is None
                 else ctx.axes(p.mesh, p.dp, p.tp))
+
+    def train_plan(self) -> pol.TrainPlan:
+        """The sharded step's plan: every leaf's gradient SUMmed over the
+        axes that do not split it (the batch is split over all of them;
+        a row-sharded table's block sees every model rank's ids)."""
+        p = self.policy
+        if p is None:
+            raise ValueError("a train plan needs a policy")
+        every = p.dp + (p.tp,)
+        return pol.TrainPlan(p, dict(self.specs), {
+            name: pol.replicated_axes(pl, p.mesh, every)
+            for name, pl in self.specs.items()})
 
     def rows(self, name: str, table: torch.Tensor, ids: torch.Tensor,
              split: bool = True, use_kernel: bool = True) -> torch.Tensor:

@@ -51,12 +51,30 @@ the rank's rows of the batch (``prefill``'s split over the data axis,
 ``decode_step``'s where ``lm_cache_specs`` split it) and return their
 logits, whole over the vocabulary.  A policy
 needs a ``DeviceMesh`` over the initialised process group (its
-``AbstractMesh`` counts on ``meta`` alone, as rank 0); ``loss_fn`` runs
-unsharded only (training under the policy is not ported yet).
+``AbstractMesh`` counts on ``meta`` alone, as rank 0).
+
+``loss_fn`` trains under the policy too, the rank's rows of the batch
+(``lm_batch_dims``) through the same layers under autograd (each
+collective with its backward, ``sharding.ctx``): the loss is JAX's
+global masked mean (the sums of ``ll * mask`` and of ``mask``
+all-reduced over the data axis, then divided), the head's log-softmax
+vocabulary-parallel (a MAX and two SUM all-reduces of [B, S] over the
+model axis instead of gathering [B, S, V] logits), and with remat each
+block re-issues its collectives in the backward, on every rank in the
+same order.  ``cfg.seq_parallel`` splits the residual stream between
+blocks over the model axis on the sequence dim: the embedding
+reduce-scatters onto the rank's block, each layer gathers the sequence
+at its entry and reduce-scatters at its exit, and the final hidden
+states are gathered before ``ln_f``.  :meth:`train_plan` says which
+leaves' gradients are partial sums over which axes (the replicated
+leaves over the data axis; ``q_norm``/``k_norm`` on the rank's heads;
+under sequence parallelism the norms and the router on the rank's
+tokens) for ``train_loop.make_sharded_train_step``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import re
 from typing import Optional
 
@@ -146,6 +164,25 @@ class Backbone(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(self._shard("lm_head", L.dense_init(
                 gen, cfg.d_model, cfg.vocab_size, dtype, device=dev)))
+        if policy is not None and cfg.seq_parallel and policy.tp_size > 1:
+            self._check_seq_parallel()
+
+    def _check_seq_parallel(self) -> None:
+        """Sequence parallelism here needs every layer split over the model
+        axis (a replicated layer's work would be counted once a rank) and
+        the vocabulary split for the embedding and the head."""
+        tp = self.tp
+        head, dim = (("embed", 0) if self.cfg.tie_embeddings
+                     else ("lm_head", 1))
+        split = {"attention (wo rows)": tp.wo_rows, "MLP or experts": tp.ffn,
+                 "embedding's vocabulary": self._sharded("embed", 0,
+                                                         self.policy.tp),
+                 "head's vocabulary": self._sharded(head, dim,
+                                                    self.policy.tp)}
+        missing = [k for k, v in split.items() if not v]
+        if missing:
+            raise ValueError(f"{self.cfg.name}: seq_parallel needs the "
+                             f"model axis to split the {', '.join(missing)}")
 
     def _shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole leaf ``name`` (a copy, so the
@@ -211,12 +248,14 @@ class Backbone(nn.Module):
             return self._gather("embed", self.embed).T
         return self._gather("lm_head", self.lm_head)
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, tokens: torch.Tensor,
+                     seq: bool = False) -> torch.Tensor:
         """The f32 embedding rows of ``tokens``.  Raises ``ValueError`` on
         an id outside [0, V) (``jnp.take`` would fill); ``meta`` tokens
         hold no ids to check.  With the vocabulary split over the model
         axis each rank gathers the ids of its rows (0 for the others) and
-        the ranks' rows are summed."""
+        the ranks' rows are summed (``seq``: reduce-scattered onto this
+        rank's block of the sequence)."""
         tokens = tokens.to(self.embed.device)
         if tokens.numel() and not tokens.is_meta and (int(tokens.min()) < 0
                                or int(tokens.max()) >= self.cfg.vocab_size):
@@ -229,8 +268,11 @@ class Backbone(nn.Module):
         v_loc = table.shape[0]
         local = tokens.long() - ctx.group_index("model") * v_loc
         hit = (local >= 0) & (local < v_loc)
-        rows = table[torch.where(hit, local, 0)]
-        return ctx.all_reduce_sum(torch.where(hit[..., None], rows, 0.0))
+        rows = torch.where(hit[..., None], table[torch.where(hit, local, 0)],
+                           0.0)
+        if seq:
+            return ctx.reduce_scatter(rows, 1, "model")
+        return ctx.all_reduce_sum(rows)
 
 
 class TransformerLM(Backbone):
@@ -247,48 +289,70 @@ class TransformerLM(Backbone):
             return self._gathered(blk.cast(dtype or self.cfg.compute_dtype),
                                   "blocks.")
 
-    def _mlp_half(self, p: dict, x: torch.Tensor, tp, data: int = 1):
+    def _mlp_half(self, p: dict, x: torch.Tensor, tp, data: int = 1,
+                  whole_aux: bool = False):
         """The block's second half -> (x + the MLP's or the experts'
         output, the experts' aux loss: 0.0 for an MLP); ``x`` holds one of
-        ``data`` ranks' rows of the batch."""
+        ``data`` ranks' rows of the batch (``whole_aux``: see
+        :func:`L.moe_block`)."""
         cfg = self.cfg
         pre = L.rms_norm(x, p["ln_mlp"], cfg.norm_eps)
         if cfg.moe:
-            h, aux = L.moe_block(p["moe"], pre, cfg, tp, self.routes, data)
+            h, aux = L.moe_block(p["moe"], pre, cfg, tp, self.routes, data,
+                                 whole_aux)
             return x + h, aux
         return x + L.mlp_block(p["mlp"], pre, cfg, tp), 0.0
 
     def _block(self, i: int, x: torch.Tensor, positions: torch.Tensor,
-               q_chunk: int, kv_chunk: int, use_kernel: bool, tp=None):
+               q_chunk: int, kv_chunk: int, use_kernel: bool, tp=None,
+               whole_aux: bool = False):
+        """Block ``i`` under the policy's axes, which it enters itself:
+        remat recomputes it in the backward, on autograd's thread."""
         cfg = self.cfg
-        p = self.layer(i)
-        h, _ = L.attention_block(
-            p["attn"], L.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
-            positions, q_chunk, kv_chunk, use_kernel, tp)
-        data = 1 if self.policy is None else self.policy.dp_size
-        return self._mlp_half(p, x + h, tp, data)
+        with self._axes():
+            p = self.layer(i)
+            h, _ = L.attention_block(
+                p["attn"], L.rms_norm(x, p["ln_attn"], cfg.norm_eps), cfg,
+                positions, q_chunk, kv_chunk, use_kernel, tp)
+            data = 1 if self.policy is None else self.policy.dp_size
+            return self._mlp_half(p, x + h, tp, data, whole_aux)
 
     def backbone(self, tokens: torch.Tensor, q_chunk: Optional[int] = None,
-                 kv_chunk: Optional[int] = None, use_kernel: bool = True):
+                 kv_chunk: Optional[int] = None, use_kernel: bool = True,
+                 whole_aux: bool = False):
         """[B, S] tokens -> ([B, S, d] final hidden states in
         ``cfg.dtype``, the f32 aux loss summed over the layers).
         ``q_chunk``/``kv_chunk`` (default ``cfg.attn_q_chunk``/
         ``attn_kv_chunk``) tile the plain attention of ``use_kernel=False``.
         With ``cfg.remat``, a forward that records gradients recomputes each
-        block (its parameters' cast included) in the backward."""
+        block (its parameters' cast included) in the backward.  Under
+        ``cfg.seq_parallel`` (and a model axis) the blocks run on this
+        rank's block of the sequence.  ``whole_aux``: the aux loss is the
+        whole batch's under a policy (the loss function's), else each
+        rank's tokens' (serving, which does not read it)."""
         cfg = self.cfg
         q_chunk = q_chunk or cfg.attn_q_chunk
         kv_chunk = kv_chunk or cfg.attn_kv_chunk
         tp = self.tp
-        x = self.embed_tokens(tokens).to(cfg.compute_dtype)
-        positions = torch.arange(x.shape[1], device=x.device)
+        seq = tp is not None and cfg.seq_parallel
+        if seq:
+            if tokens.shape[1] % self.policy.tp_size:
+                raise ValueError(f"seq_parallel: {tokens.shape[1]} tokens "
+                                 f"do not split over {self.policy.tp_size} "
+                                 f"ranks")
+            tp = dataclasses.replace(tp, seq=True)
+        x = self.embed_tokens(tokens, seq).to(cfg.compute_dtype)
+        positions = torch.arange(tokens.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
         aux = x.new_zeros((), dtype=torch.float32)
         for i in range(len(self.blocks)):
-            args = (i, x, positions, q_chunk, kv_chunk, use_kernel, tp)
+            args = (i, x, positions, q_chunk, kv_chunk, use_kernel, tp,
+                    whole_aux)
             x, a = (checkpoint(self._block, *args, use_reentrant=False)
                     if remat else self._block(*args))
             aux = aux + a
+        if seq:
+            x = ctx.gather(x, 1, "model")
         return L.rms_norm(x, self._gather("ln_f", self.ln_f),
                           cfg.norm_eps), aux
 
@@ -300,7 +364,7 @@ class TransformerLM(Backbone):
                      else ("lm_head", 1))
         if self.policy is not None and self._sharded(head, dim,
                                                      self.policy.tp):
-            out = ctx.gather(out, out.dim() - 1, "model")
+            out = ctx.gather_out(out, out.dim() - 1, "model")
         return out
 
     def loss_fn(self, batch: dict):
@@ -308,17 +372,69 @@ class TransformerLM(Backbone):
         log-softmax of the logits at ``targets``, averaged over
         ``loss_mask``, plus the layers' aux loss -> (total, ``{"ce",
         "aux"}``; ``aux`` is 0 without experts).  Runs the plain attention
-        (the kernel has no backward)."""
-        if self.policy is not None:
-            raise NotImplementedError("training under a sharding policy is "
-                                      "not ported: train unsharded")
-        hidden, aux = self.backbone(batch["tokens"], use_kernel=False)
-        logp = F.log_softmax(self.logits(hidden), dim=-1)
-        targets = batch["targets"].to(logp.device).long()
-        ll = logp.gather(-1, targets[..., None])[..., 0]
-        mask = batch["loss_mask"].to(device=logp.device, dtype=torch.float32)
-        loss = -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        (the kernel has no backward).  Under a policy ``batch`` holds this
+        rank's rows; the loss is the whole batch's, the same on every
+        rank."""
+        with self._axes():
+            hidden, aux = self.backbone(batch["tokens"], use_kernel=False,
+                                        whole_aux=True)
+            targets = batch["targets"].to(hidden.device).long()
+            ll = self.log_likelihood(hidden, targets)
+            mask = batch["loss_mask"].to(device=ll.device,
+                                         dtype=torch.float32)
+            num = ctx.all_reduce_sum(torch.sum(ll * mask), "data")
+            den = ctx.all_reduce_sum(torch.sum(mask), "data")
+            loss = -num / torch.clamp(den, min=1.0)
         return loss + aux, {"ce": loss.detach(), "aux": aux.detach()}
+
+    def log_likelihood(self, hidden: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+        """f32 [B, S]: the log-softmax of the logits at ``targets``.  With
+        the head's vocabulary split over the model axis, each rank holds
+        its columns of the logits, and a MAX all-reduce of the row maxima
+        and SUM all-reduces of the exponentials' sums and of the target's
+        logit (on the rank holding it; 0 elsewhere) give log-softmax's
+        ``x_t - m - log sum exp(x - m)`` on every rank."""
+        head, dim = (("embed", 0) if self.cfg.tie_embeddings
+                     else ("lm_head", 1))
+        if (self.policy is None or ctx.group_size("model") == 1
+                or not self._sharded(head, dim, self.policy.tp)):
+            logp = F.log_softmax(self.logits(hidden), dim=-1)
+            return logp.gather(-1, targets[..., None])[..., 0]
+        # the head's columns are the rank's own: the hidden states enter a
+        # split computation (under sequence parallelism the final gather's
+        # backward sums their gradient already)
+        h = hidden if self.cfg.seq_parallel else ctx.enter_split(hidden)
+        logits = (h @ self.head_weight().to(h.dtype)).float()
+        v_loc = logits.shape[-1]
+        m = ctx.all_reduce_max(logits.detach().amax(dim=-1), "model")
+        z = logits - m[..., None]
+        sumexp = ctx.all_reduce_sum(torch.exp(z).sum(dim=-1), "model")
+        local = targets - ctx.group_index("model") * v_loc
+        hit = (local >= 0) & (local < v_loc)
+        zt = z.gather(-1, torch.where(hit, local, 0)[..., None])[..., 0]
+        zt = ctx.all_reduce_sum(torch.where(hit, zt, 0.0), "model")
+        return zt - torch.log(sumexp)
+
+    def train_plan(self) -> pol.TrainPlan:
+        """The sharded step's plan: ``specs`` and, by name, the axes over
+        which this rank's gradient of the leaf is a partial sum."""
+        p = self.policy
+        if p is None:
+            raise ValueError("a train plan needs a policy")
+        tp = self.tp
+        seq = tp is not None and self.cfg.seq_parallel
+        model = {"q_norm": tp is not None and tp.wo_rows}
+        for leaf in ("ln_attn", "ln_mlp", "ln_f", "router"):
+            model[leaf] = seq
+        partial = {}
+        for name, pl in self.specs.items():
+            axes = pol.replicated_axes(pl, p.mesh, p.dp)
+            leaf = name.rsplit(".", 1)[-1]
+            if model.get("q_norm" if leaf == "k_norm" else leaf):
+                axes += (p.tp,)
+            partial[name] = axes
+        return pol.TrainPlan(p, dict(self.specs), partial)
 
     def prefill(self, tokens: torch.Tensor,
                 use_kernel: bool = True) -> torch.Tensor:

@@ -191,6 +191,115 @@ def shard_tree(params: dict, specs: dict, mesh,
     return out
 
 
+def sharded_axes(placements: Sequence, mesh) -> tuple:
+    """The mesh axes (of more than one rank) that split a leaf of these
+    placements: its replicas differ across them and nowhere else."""
+    sizes = tuple(mesh.shape)
+    return tuple(a for a, p, n in zip(mesh.mesh_dim_names, placements, sizes)
+                 if isinstance(p, Shard) and n > 1)
+
+
+def replicated_axes(placements: Sequence, mesh, axes: Sequence) -> tuple:
+    """Those of ``axes`` (of more than one rank) that do not split a leaf
+    of these placements."""
+    split = sharded_axes(placements, mesh)
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in axes if a not in split and sizes[a] > 1)
+
+
+# ---------------------------------------------------------------------------
+# Training: a model's plan, batches in JAX's row order, whole states
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainPlan:
+    """What the sharded train step needs of a model: its policy, every
+    leaf's placements (``specs``, also the optimizer moments': JAX's
+    ``{"step": P(), "mu": pspecs, "nu": pspecs}``) and, by name, the mesh
+    axes over which the leaf's local gradient is a partial sum
+    (``partial``: the step SUMs it there)."""
+
+    policy: ShardingPolicy
+    specs: dict
+    partial: dict
+
+
+def shard_batch(batch: dict, dims: dict, mesh, coords: Sequence[int],
+                microbatches: int = 1) -> dict:
+    """Rank ``coords``' share of a whole batch (numpy arrays or tensors)
+    under its per-dim entries (``lm_batch_dims``, ``recsys_batch_dims``,
+    ``gnn_batch_dims``): each split dim cut as :func:`shard_leaf` cuts a
+    parameter (raising where the ranks do not divide it).  With
+    ``microbatches`` a leading batch dim is split within each of them, in
+    the order the train step reads it: JAX splits the batch into
+    contiguous microbatches and shards each, so the rank holds its block
+    of microbatch 0, then of microbatch 1, ... (its microbatch ``i`` is
+    not the ``i``-th slice of one contiguous block)."""
+    out = {}
+    for k, x in batch.items():
+        pl = to_placements(dims[k], mesh)
+        if microbatches > 1:
+            lead = x.shape[0]
+            if lead % microbatches:
+                raise ValueError(f"{k}: {lead} rows do not split into "
+                                 f"{microbatches} microbatches")
+            x = x.reshape(microbatches, lead // microbatches, *x.shape[1:])
+            pl = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                       for p in pl)
+        part = shard_leaf(x, pl, mesh, coords)
+        if microbatches > 1:
+            part = part.reshape(-1, *part.shape[2:])
+        out[k] = part
+    return out
+
+
+def shard_state(state: dict, specs: dict, mesh,
+                coords: Sequence[int]) -> dict:
+    """Rank ``coords``' shards of a whole train state (``{"params",
+    "opt_state": {"step", "mu", "nu"}}``, flat trees by dotted name:
+    ``train_loop.state_from_jax`` of JAX's numpy state, or a port's):
+    parameters and moments cut by ``specs``, the step replicated."""
+    o = state["opt_state"]
+
+    def cut(tree):
+        return shard_tree(tree, specs, mesh, coords)
+
+    return {"params": cut(state["params"]),
+            "opt_state": {"step": o["step"], "mu": cut(o["mu"]),
+                          "nu": cut(o["nu"])}}
+
+
+def _gather_leaf(x: torch.Tensor, placements: Sequence,
+                 policy: ShardingPolicy) -> torch.Tensor:
+    """The whole tensor from every rank's block under ``placements`` (a
+    collective: every rank of the policy's mesh calls it)."""
+    from repro_torch.sharding import ctx
+
+    mesh = policy.mesh
+    names = tuple(mesh.mesh_dim_names)
+    with torch.no_grad(), ctx.axes(mesh, policy.dp, policy.tp):
+        # the last mesh dim first: a dim split over several axes is
+        # split first-axis-major (shard_leaf's mixed radix)
+        for i in reversed(range(len(names))):
+            if isinstance(placements[i], Shard):
+                x = ctx.gather(x, placements[i].dim, (names[i],))
+    return x.contiguous()
+
+
+def gather_state(state: dict, specs: dict, policy: ShardingPolicy) -> dict:
+    """The inverse of :func:`shard_state` over the ranks: every rank gets
+    the whole state (a collective)."""
+    o = state["opt_state"]
+
+    def whole(tree):
+        return {k: _gather_leaf(v, specs[k], policy)
+                for k, v in tree.items()}
+
+    return {"params": whole(state["params"]),
+            "opt_state": {"step": o["step"], "mu": whole(o["mu"]),
+                          "nu": whole(o["nu"])}}
+
+
 # ---------------------------------------------------------------------------
 # LM transformer
 

@@ -11,6 +11,11 @@ p`` where :func:`decay_mask` says so, then ``p - lr * u``.
 step) and schedules in f64, so it is not used.  :func:`adamw_update`
 writes the new parameters and moments into the given tensors, in place,
 under ``torch.no_grad()``; the JAX function returns new trees.
+
+Over shards (the sharded train step) AdamW runs as it is on each rank's
+blocks, elementwise, with the step counter replicated; only the norm
+that clipping reads is a collective: :func:`sharded_global_norm`, JAX's
+norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -62,10 +67,32 @@ def global_norm(tree: Tree) -> torch.Tensor:
                           for x in tree.values()))
 
 
-def clip_by_global_norm(tree: Tree, max_norm: float):
+def sharded_global_norm(tree: Tree, specs: dict, mesh) -> torch.Tensor:
+    """The global norm of a gradient held in shards (each leaf this rank's
+    block under ``specs[name]``, as on every rank that holds the same
+    block): the leaves' local squares summed by the mesh axes that split
+    them, each such sum all-reduced over those axes, so that every
+    distinct block counts once and a replicated leaf once, then the
+    sums added.  Within the policy's axes (``sharding.ctx``); with
+    nothing split it is :func:`global_norm`, operation for operation."""
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.policies import sharded_axes
+
+    by_axes: dict = {}
+    for name, g in tree.items():
+        by_axes.setdefault(sharded_axes(specs[name], mesh), []).append(g)
+    total = 0
+    for axes in sorted(by_axes):  # the same order on every rank
+        part = sum(torch.sum(torch.square(x.float())) for x in by_axes[axes])
+        total = total + (ctx.all_reduce_sum(part, axes) if axes else part)
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(tree: Tree, max_norm: float,
+                        norm_fn: Callable = global_norm):
     """-> (the leaves scaled by min(1, max_norm / max(norm, 1e-12)), norm);
     the given leaves are left as they are."""
-    norm = global_norm(tree)
+    norm = norm_fn(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {k: g * scale for k, g in tree.items()}, norm
 
@@ -102,18 +129,21 @@ def adamw_init(params: Tree) -> dict:
 
 @torch.no_grad()
 def adamw_update(grads: Tree, params: Tree, state: dict, cfg: AdamWConfig,
-                 schedule: Optional[Callable] = None):
+                 schedule: Optional[Callable] = None,
+                 norm_fn: Callable = global_norm):
     """One AdamW step -> (params, state, ``{"lr", "grad_norm"}``).
     ``params``, ``state["mu"]``, ``state["nu"]`` and ``state["step"]`` are
-    updated in place and returned; ``grads`` is read only."""
+    updated in place and returned; ``grads`` is read only.  ``norm_fn``:
+    the gradient's global norm (:func:`sharded_global_norm` over
+    shards)."""
     schedule = schedule or cosine_schedule(cfg)
     step = state["step"] + 1
     lr = schedule(step)
     grads = {k: g.float() for k, g in grads.items()}
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
     else:
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
 
     b1, b2 = cfg.beta1, cfg.beta2
     bc1 = 1 - torch.pow(b1, step.float())

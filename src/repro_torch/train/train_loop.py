@@ -1,5 +1,5 @@
 """The train step and the host-side ``Trainer`` loop
-(``repro.train.train_loop``), at world size 1.
+(``repro.train.train_loop``).
 
 A train state is ``{"params": {name: Parameter}, "opt_state": {"step",
 "mu", "nu"}}`` where ``params`` are the module's own parameters
@@ -20,6 +20,20 @@ and ``grad_norm``: the loss's own aux metrics are dropped.
 its own rows of the batch, and the gradients and the loss are averaged
 over the ranks (optionally as int8, :mod:`repro_torch.train.grad_compress`)
 before the same AdamW update runs on every rank.
+
+``make_sharded_train_step(loss_fn, adamw, plan, microbatches)`` is JAX's
+``make_train_step`` run on a state laid out by a sharding policy
+(``sharding.policies``; the ``plan`` a model's ``train_plan()``): each
+rank holds its blocks of the parameters and moments and its share of the
+batch (``policies.shard_batch``, in JAX's microbatch order).  The loss is
+the whole batch's on every rank (the model's collectives have their
+backwards, ``sharding.ctx``), each leaf's gradient is SUMmed over the
+axes the plan names (where the rank's is a partial sum: a leaf
+replicated over ranks that saw different rows, edges or tokens), the
+clipping norm is the whole gradient's (``optimizer.sharded_global_norm``)
+and AdamW updates each rank's blocks in place.  It raises without a
+process group of the mesh's size: there is no fallback to an unsharded
+step.
 """
 from __future__ import annotations
 
@@ -29,6 +43,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.sharding import ctx
+from repro_torch.sharding import policies as pol
 from repro_torch.train import optimizer as opt
 from repro_torch.train.grad_compress import (
     all_reduce, compressed_psum, world_size,
@@ -147,6 +163,71 @@ def make_train_step(loss_fn: Callable, adamw: opt.AdamWConfig,
         return ({"params": params, "opt_state": new_opt},
                 {"loss": loss, **ometrics})
 
+    return train_step
+
+
+@torch.no_grad()
+def sum_partials(grads: dict, partial: dict) -> dict:
+    """Each leaf SUMmed over the mesh axes ``partial[name]`` names (within
+    the policy's axes): the leaves of one set of axes packed in a flat f32
+    buffer, one all-reduce a set, the sets in the same order on every
+    rank."""
+    out = dict(grads)
+    by_axes: dict = {}
+    for name in grads:
+        if partial[name]:
+            by_axes.setdefault(tuple(partial[name]), []).append(name)
+    for axes in sorted(by_axes):
+        names = by_axes[axes]
+        flat = ctx.all_reduce_sum(torch.cat([grads[k].float().reshape(-1)
+                                             for k in names]), axes)
+        start = 0
+        for k in names:
+            size = grads[k].numel()
+            out[k] = flat[start:start + size].view(grads[k].shape)
+            start += size
+    return out
+
+
+def sharded_grads(loss_fn: Callable, plan: pol.TrainPlan, params: dict,
+                  batch: dict, microbatches: int = 1):
+    """-> (the whole batch's mean loss, this rank's blocks of the whole
+    gradient): the sharded step's gradient, before AdamW.  Raises without
+    a process group of the mesh's size."""
+    policy = plan.policy
+    device = next(iter(params.values())).device
+    pol.rank_coords(policy, device)  # raises without a matching group
+    with ctx.axes(policy.mesh, policy.dp, policy.tp):
+        loss, _metrics, grads = _accumulate_grads(
+            loss_fn, params, to_device(batch, device), microbatches)
+        return loss, sum_partials(grads, plan.partial)
+
+
+def make_sharded_train_step(loss_fn: Callable, adamw: opt.AdamWConfig,
+                            plan: pol.TrainPlan, microbatches: int = 1):
+    """(state, batch) -> (state, metrics) under ``plan.policy``: the state
+    is this rank's shards (``dict(model.named_parameters())`` of the
+    sharded model, ``adamw_init`` of them), ``batch`` this rank's share in
+    JAX's microbatch order; the state is updated in place.  Raises without
+    a process group of the mesh's size (a ``policies.AbstractMesh``
+    steps ``meta`` tensors alone)."""
+    schedule = opt.cosine_schedule(adamw)
+    policy = plan.policy
+
+    def norm(grads):
+        return opt.sharded_global_norm(grads, plan.specs, policy.mesh)
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        loss, grads = sharded_grads(loss_fn, plan, params, batch,
+                                    microbatches)
+        with ctx.axes(policy.mesh, policy.dp, policy.tp):
+            _, new_opt, ometrics = opt.adamw_update(
+                grads, params, state["opt_state"], adamw, schedule, norm)
+        return ({"params": params, "opt_state": new_opt},
+                {"loss": loss, **ometrics})
+
+    train_step.plan = plan  # which policy and plan a step runs under
     return train_step
 
 

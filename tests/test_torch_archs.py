@@ -21,7 +21,7 @@ from repro_torch.configs import base as tbase
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.models.transformer import TransformerLM
 
-UNREAD = {"scan_layers", "attn_unroll", "seq_parallel"}
+UNREAD = {"scan_layers", "attn_unroll"}  # XLA lowering knobs
 ARCHS = sorted(j_list_archs())
 
 
@@ -107,6 +107,8 @@ def test_unread_knobs_and_unknown_dispatch_are_refused():
     for knob in sorted(UNREAD):
         with pytest.raises(TypeError):
             dataclasses.replace(cfg, **{knob: True})
+    # sequence parallelism is read (under a policy with a model axis)
+    assert dataclasses.replace(cfg, seq_parallel=True).seq_parallel
     with pytest.raises(ValueError, match="dispatch"):
         tbase.MoEConfig(num_experts=4, top_k=2, dispatch="sorted")
     with pytest.raises(NotImplementedError):

@@ -8,7 +8,10 @@
   the port's ``"quad_tp"``, where ``seq_parallel`` is JAX's
   ``adjusted_lm_cfg`` decision too).  The port's cells are built on
   ``meta``; at ``"quad_tp"`` the serving cells hold one rank's shards
-  and count the tensor-parallel collectives.
+  and count the tensor-parallel collectives; on ``"quad"`` and
+  ``"quad_tp"`` every training cell steps under the policy
+  (``make_sharded_train_step``), and its counted collectives include the
+  backward's.
 - ``retrieval_input_specs`` / ``retrieval_tiled_specs`` give JAX's shapes
   and dtypes at S = 1, 2, 4.
 - The probes: one matmul counts 2 m n k FLOPs; on smoke configs every
@@ -151,6 +154,70 @@ def test_cells_at_quad_tp_match_jax_on_a_two_by_two_mesh(cell, jax_quad):
         if c.meta["kind"] != "train":  # one rank's shards, on meta
             held = sum(p.numel() * 4 for p in c.model.parameters())
             assert held == policy["param_bytes_per_rank"]
+
+
+TRAIN_CELLS = [c for c in CELLS
+               if cells.shape_of(get_arch(c[0]), c[1]).kind in (
+                   "train", "recsys_train", "gnn_full", "gnn_minibatch",
+                   "gnn_batched")]
+
+
+@pytest.mark.parametrize("layout,mesh", [("quad_tp", (2, 2)),
+                                         ("quad", (4, 1))])
+def test_training_cells_step_under_the_policy(layout, mesh):
+    """On more than one card every training cell steps
+    ``make_sharded_train_step`` under the layout's policy, on one rank's
+    shards (on ``meta``), its plan naming a placement and a set of
+    partial axes for every parameter; an LM's config carries the
+    sequence-parallel decision."""
+    assert len(TRAIN_CELLS) == 13  # 5 LMs, 4 recsys, 4 SchNet
+    for cell in TRAIN_CELLS:
+        c = cells.build_cell(*cell, layout)
+        plan = c.step_fn.plan
+        assert tuple(plan.policy.mesh.shape) == mesh, cell
+        params = dict(c.model.named_parameters())
+        assert set(plan.specs) == set(plan.partial) == set(params)
+        assert c.meta["policy"]["param_bytes_per_rank"] == sum(
+            4 * p.numel() for p in params.values())
+        assert set(c.args[0]["params"]) == set(params)
+        if get_arch(cell[0]).family == "lm":
+            assert c.model.cfg.seq_parallel == c.meta["seq_parallel"]
+
+
+SMALL_TRAIN = {
+    # a training cell of each family at a size counted in moments
+    "lm": ("qwen3-4b", ShapeSpec(name="t", kind="train", seq_len=32,
+                                 global_batch=4)),
+    "moe": ("olmoe-1b-7b", ShapeSpec(name="t", kind="train", seq_len=32,
+                                     global_batch=4)),
+    "recsys": ("xdeepfm", ShapeSpec(name="r", kind="recsys_train",
+                                    global_batch=32)),
+    "gnn": ("schnet", ShapeSpec(name="g", kind="gnn_full", n_nodes=64,
+                                n_edges=256, d_feat=8)),
+}
+
+
+@pytest.mark.parametrize("family", sorted(SMALL_TRAIN))
+def test_training_collective_bytes_count_the_backward(family):
+    """``collective_bytes`` of a training cell at ``quad_tp`` counts its
+    step's forward and backward on ``meta``: the LM's FSDP gathers
+    reduce-scatter their gradients, a row-sharded table's bag sums
+    reduce-scatter and gather back, SchNet all-reduces its messages and
+    its filter's gradients; at ``"single"`` nothing."""
+    arch, shape = SMALL_TRAIN[family]
+    spec = get_arch(arch)
+    spec = dataclasses.replace(spec, config=(
+        spec.smoke_config if family in ("lm", "moe") else spec.config))
+    coll = ops_mod.collective_bytes(cells.make_cell(spec, shape, "quad_tp"))
+    kinds = {"lm": ("all-reduce", "all-gather", "reduce-scatter"),
+             "moe": ("all-reduce", "all-gather", "reduce-scatter"),
+             "recsys": ("all-reduce", "all-gather", "reduce-scatter"),
+             "gnn": ("all-reduce",)}[family]
+    for kind in kinds:
+        assert coll.by_kind.get(kind, 0) > 0 and coll.counts[kind] > 0, (
+            family, kind, coll.by_kind)
+    single = ops_mod.collective_bytes(cells.make_cell(spec, shape))
+    assert single.total_bytes == 0
 
 
 def test_seq_parallel_takes_jaxs_divisibility_clause():
@@ -442,24 +509,92 @@ GNN_DEVICE_CASES = {
 }
 
 
+GNN_RANK = r"""
+import pickle, sys
+import numpy as np, torch
+import torch.distributed as dist
+from repro_torch.configs import get_arch
+from repro_torch.launch import cells
+shape, layout, port, rank, world = pickle.loads(bytes.fromhex(sys.argv[1]))
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:" + port,
+                        rank=rank, world_size=world)
+try:
+    cell = cells.make_cell(get_arch("schnet"), shape, layout, device="cpu",
+                           seed=3)
+    batch = {k: (v.shape, v.dtype, v.device.type, v.numpy().copy())
+             for k, v in cell.args[1].items()}
+    state, metrics = cell.step_fn(*cell.args)
+    out = (cell.model_flops, batch, float(metrics["loss"]))
+finally:
+    dist.destroy_process_group()
+sys.stdout.write("RESULT" + pickle.dumps(out).hex())
+"""
+
+
+def _device_cells(shape, layout) -> list:
+    """(model FLOPs, {name: (shape, dtype, device, values)}, loss after
+    one step) of the GNN cell on the CPU, one a rank: in this process on
+    one card, else in a gloo world of the layout's ranks."""
+    if layout == "single":
+        cell = cells.make_cell(get_arch("schnet"), shape, layout,
+                               device="cpu", seed=3)
+        batch = {k: (v.shape, v.dtype, v.device.type, v.numpy().copy())
+                 for k, v in cell.args[1].items()}
+        state, metrics = cell.step_fn(*cell.args)
+        return [(cell.model_flops, batch, float(metrics["loss"]))]
+    import pickle
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = str(s_.getsockname()[1])
+    world = 4
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GNN_RANK,
+         pickle.dumps((shape, layout, port, r, world)).hex()], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    out = []
+    for p in procs:
+        log, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err
+        out.append(pickle.loads(bytes.fromhex(log.split("RESULT")[-1])))
+    return out
+
+
 @pytest.mark.parametrize("case", sorted(GNN_DEVICE_CASES))
 def test_gnn_cell_on_a_device_is_the_meta_cell_with_values(case):
     """A GNN cell on a device (here the CPU) holds ``gnn_batch``'s graph in
     the meta cell's shapes and dtypes, pads edges with sender 0 and
-    receiver N, and steps to a finite loss."""
+    receiver N, and steps to a finite loss.  On four cards each of the
+    four gloo ranks holds its share of the graph's edges (the nodes
+    whole), the shares together the whole graph, and the ranks step to
+    one loss."""
     shape, layout = GNN_DEVICE_CASES[case]
     spec = get_arch("schnet")
     meta = cells.make_cell(spec, shape, layout)
-    cell = cells.make_cell(spec, shape, layout, device="cpu", seed=3)
-    assert cell.model_flops == meta.model_flops
-    mb, b = meta.args[1], cell.args[1]
-    assert sorted(mb) == sorted(b)
-    for k in mb:
-        assert (b[k].shape, b[k].dtype, b[k].device.type) == (
-            mb[k].shape, mb[k].dtype, "cpu"), k
+    ranks = _device_cells(shape, layout)
+    mb = meta.args[1]
+    for flops, b, loss in ranks:
+        assert flops == meta.model_flops
+        assert sorted(mb) == sorted(b)
+        for k in mb:
+            assert b[k][:3] == (mb[k].shape, mb[k].dtype, "cpu"), k
+        assert np.isfinite(loss) and loss == ranks[0][2]
     arrays, info = cells.gnn_batch(shape, 4, 4 if layout == "quad" else 1)
+    edges = () if shape.kind == "gnn_batched" else ("senders", "receivers",
+                                                     "distances")
+    # the edges: the ranks' shares in rank order; nodes whole on every
+    # rank; molecules one rank's batch
+    b = {k: np.concatenate([r[1][k][3] for r in ranks]) if k in edges
+         else ranks[0][1][k][3] for k in mb}
     for k, v in arrays.items():
-        np.testing.assert_array_equal(b[k].numpy(), v)
+        np.testing.assert_array_equal(b[k], v)
+        for _, rb, _ in ranks:
+            if k not in edges:
+                np.testing.assert_array_equal(rb[k][3], v)
     if shape.kind != "gnn_batched":
         n_pad = b["node_feat"].shape[0]
         m = info.get("sampled_edges", shape.n_edges)
@@ -469,5 +604,3 @@ def test_gnn_cell_on_a_device_is_the_meta_cell_with_values(case):
     if shape.kind == "gnn_minibatch":
         assert info["seeds"] == 8 and b["node_mask"].sum() == 8
         assert info["sampled_nodes"] <= b["node_feat"].shape[0]
-    state, metrics = cell.step_fn(*cell.args)
-    assert np.isfinite(float(metrics["loss"]))

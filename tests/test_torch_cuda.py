@@ -1202,3 +1202,149 @@ def test_policy_at_model_one_is_the_unsharded_lm_bit_for_bit(cuda):
         dist.destroy_process_group()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _nccl_group_of_one():
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+
+
+@pytest.mark.parametrize("family", ["lm", "schnet"])
+def test_sharded_step_under_an_nccl_group_of_one_is_make_train_step(
+        cuda, family, monkeypatch):
+    """``make_sharded_train_step`` at mesh (1, 1) under an NCCL group of
+    one gives ``make_train_step``'s losses, norms and parameters bit for
+    bit over 3 steps (both under deterministic algorithms): ``qwen3-4b``
+    at SMOKE in bf16 with remat and ``seq_parallel`` set (a no-op on one
+    rank), SchNet's full graph."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import qwen3_4b, schnet as schnet_cfg
+    from repro_torch.data.pipeline import lm_batch_fn
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.schnet import SchNet
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding.policies import make_policy
+    from repro_torch.train import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import (make_sharded_train_step,
+                                              make_train_step)
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    if family == "lm":
+        cfg = dataclasses.replace(qwen3_4b.SMOKE, dtype="bfloat16",
+                                  seq_parallel=True)
+        batch = lm_batch_fn(4, 32, cfg.vocab_size)(0, 0)
+
+        def make(policy):
+            return TransformerLM(cfg, device=cuda, generator=torch.Generator(
+                device=cuda).manual_seed(0), policy=policy), {}
+    else:
+        cfg = dataclasses.replace(schnet_cfg.SMOKE, d_in=8)
+        g = torch.Generator().manual_seed(2)
+        n, e = 50, 200
+        batch = {"node_feat": torch.randn(n, 8, generator=g),
+                 "senders": torch.randint(0, n, (e,), generator=g),
+                 "receivers": torch.randint(0, n + 1, (e,), generator=g),
+                 "distances": 0.5 + 4 * torch.rand(e, generator=g),
+                 "targets": torch.randn(n, generator=g),
+                 "node_mask": (torch.rand(n, generator=g) < 0.5).float()}
+
+        def make(policy):
+            return SchNet(cfg, device=cuda, generator=torch.Generator(
+                device=cuda).manual_seed(0), policy=policy), {
+                    "batched": False}
+
+    def run(policy):
+        model, kw = make(policy)
+        params = dict(model.named_parameters())
+        state = {"params": params, "opt_state": adamw_init(params)}
+        step = (make_train_step(model.loss_fn, AdamWConfig()) if policy is None
+                else make_sharded_train_step(model.loss_fn, AdamWConfig(),
+                                             model.train_plan(**kw)))
+        metrics = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        return metrics, params
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = run(None)
+        _nccl_group_of_one()
+        try:
+            got = run(make_policy(make_debug_mesh(1, 1)))
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert got[0] == want[0]
+    for k, v in want[1].items():
+        assert torch.equal(got[1][k], v), k
+
+
+def test_train_state_cut_into_shards_and_gathered_back(cuda):
+    """``policies.shard_state`` cuts a whole state on the card into each
+    rank's blocks (every coordinate of a (2, 2) mesh: the blocks tile each
+    leaf), and ``gather_state`` under an NCCL group of one, mesh (1, 1),
+    gives the whole state back."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import smollm_135m
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.sharding import policies as pol
+    from repro_torch.train import adamw_init
+
+    lm = TransformerLM(smollm_135m.SMOKE, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(0))
+    params = {k: v.detach() for k, v in lm.named_parameters()}
+    opt = adamw_init(params)
+    for k in params:
+        opt["mu"][k].normal_()
+        opt["nu"][k].uniform_()
+    whole = {"params": params, "opt_state": opt}
+    mesh = pol.AbstractMesh((2, 2))
+    policy = pol.make_policy(mesh)
+    specs = pol.lm_param_specs(smollm_135m.SMOKE, policy, params)
+    # numbered leaves: the distinct blocks of the four ranks hold each
+    # number once
+    numbered = {k: torch.arange(v.numel(), device=cuda,
+                                dtype=torch.float32).view(v.shape)
+                for k, v in params.items()}
+    state = {"params": numbered, "opt_state": {
+        "step": opt["step"], "mu": numbered, "nu": numbered}}
+    parts = {c: pol.shard_state(state, specs, mesh, c)
+             for c in [(0, 0), (0, 1), (1, 0), (1, 1)]}
+    for k, v in numbered.items():
+        axes = [i for i, a in enumerate(mesh.mesh_dim_names)
+                if a in pol.sharded_axes(specs[k], mesh)]
+        blocks = {tuple(c[i] for i in axes): part["params"][k]
+                  for c, part in parts.items()}
+        for block in blocks.values():
+            assert block.device == v.device  # a view on the card
+            assert tuple(block.shape) == pol.local_shape(v.shape, specs[k],
+                                                         mesh)
+        got = torch.sort(torch.cat([b.reshape(-1)
+                                    for b in blocks.values()])).values
+        assert torch.equal(got, v.reshape(-1)), k
+    _nccl_group_of_one()
+    try:
+        one = pol.make_policy(make_debug_mesh(1, 1))
+        ones = pol.lm_param_specs(smollm_135m.SMOKE, one, params)
+        cut = pol.shard_state(whole, ones, one.mesh, [0, 0])
+        back = pol.gather_state(cut, ones, one)
+    finally:
+        dist.destroy_process_group()
+    for k, v in params.items():
+        assert torch.equal(back["params"][k], v)
+        assert torch.equal(back["opt_state"]["mu"][k], opt["mu"][k])
+        assert torch.equal(back["opt_state"]["nu"][k], opt["nu"][k])

@@ -255,8 +255,15 @@ def test_encoder_defaults_to_cuda_and_checks_token_ids():
 ])
 def test_config_has_no_unported_knob(knob, value):
     """A JAX knob the port does not read is no field of the port's config:
-    setting it fails instead of being ignored."""
+    setting it fails instead of being ignored.  ``seq_parallel`` is ported
+    (the LM reads it under a sharding policy): a field with JAX's name and
+    default that takes the value."""
     assert hasattr(jcfg.ENCODER, knob)
+    if knob == "seq_parallel":
+        assert tcfg.ENCODER_SMOKE.seq_parallel == jcfg.ENCODER.seq_parallel
+        assert dataclasses.replace(tcfg.ENCODER_SMOKE, **{knob: value}
+                                   ).seq_parallel == value
+        return
     with pytest.raises(TypeError):
         dataclasses.replace(tcfg.ENCODER_SMOKE, **{knob: value})
 

@@ -42,6 +42,14 @@ Phases (each raises on failure; the script then exits non-zero):
    over partial chunk runs; engines ``tiled-pruned`` (bmp, two-pass) and
    ``tiled-bmp-grouped`` against float64, ``tiled-pruned-approx`` (theta
    0.8) with its ``recall_vs_exact``.
+2c. The bf16 routes at phase 2's sizes: ``scatter_score`` and
+   ``ell_gather`` bitwise their f32 routes on the bf16-rounded inputs,
+   rounded once, within one bf16 ulp of the largest score of their plain
+   versions (BF16_KERNEL_TOL), twice bitwise equal, on sparse and dense
+   query tiles; ``bmp_scan`` on phase 2b's corpus, flat (wide route) and
+   the planner's groups (small route), against its plain version the same
+   way with fetch sets and steps equal, each scored block of a launch's
+   first group bitwise ``scatter_score``'s bf16 route.
 3. The main path at the repo's ``serve_1m`` shape (``repro.configs.
    gpusparse``): 1,000,000 docs generated on the card, V = 30,522, 500
    queries, k = 1000, through ``RetrievalEngine.search`` for engines
@@ -100,7 +108,11 @@ Phases (each raises on failure; the script then exits non-zero):
    nonzero weight of the group, the windows, heaps and weights, each
    moved once; the row's bound) and the same count over every demanded
    line, with the share of chunk lines and postings the skip leaves
-   unread; no library call.
+   unread; no library call.  The bf16 routes of the three at the same
+   shapes, each held to its plain version (one bf16 ulp), timed beside
+   its plain version, the library call in bf16 where PyTorch takes it
+   (bf16 CSR by a bf16 QW^T) and the bound of its bf16 bytes: the
+   ``bf16`` sub-row of each kernel's row.
    For ``splade_head``: its time at phase 3a's shapes (the encoder's own
    hidden states, B = 500, T = 64), the plain version's, one
    ``torch.matmul`` of h [B T, d] by W (the product alone, used nowhere in
@@ -233,7 +245,14 @@ Phases (each raises on failure; the script then exits non-zero):
    ``df-signature``; each held to the single-index ``RetrievalEngine`` of
    the same engine at that geometry (ids tie-aware, values within 1e-6
    relative, tau equal) and to float64 as in phase 3; ms a step beside
-   the engine's ms a search.  9b: ``ell`` and ``tiled-bmp-fused`` under
+   the engine's ms a search.  Each engine's step again with
+   ``compute_dtype=torch.bfloat16``: its ms and kernel ms a step beside
+   the f32 step's (CUDA events around each kernel entry), overlap@1000
+   with float64 >= BF16_OVERLAP_MIN and scores within BF16_RTOL of it; the
+   bf16 ``ell`` and ``tiled`` steps within one bf16 ulp of each other, the
+   exact pruned steps the bf16 ``tiled`` step's bits on the topical
+   corpus; the index cast once (``distributed.cast_bytes``); each
+   kernel's bf16 route launched.  9b: ``ell`` and ``tiled-bmp-fused`` under
    an NCCL process group of one (``tcp://127.0.0.1``) give 9a's bits.
    9c: ``repro_torch.launch.serve.main`` at ``--docs 1000000 --batch 500
    --vocab 30522 --k 1000`` for ``--engine ell``, ``--engine
@@ -241,6 +260,15 @@ Phases (each raises on failure; the script then exits non-zero):
    query, and the full batch's overlap with the float64 top-k (``ell``
    1.0000 as printed, the others at least 0.999).  A ``{"sharded":
    {...}}`` line holds the numbers.
+9d. serve_8m (``src/repro_torch/configs/gpusparse.py:58``: 8,841,823
+   docs, B = 500, k = 1000) on one card, with phase 9's data freed (the
+   counters zeroed before and read after; ``ell_gather`` must be
+   launched): the corpus made on the card, the one-shard ELL index, the
+   corpus freed; the ``ell`` step in f32 and bf16, a warm-up and 5 calls
+   timed with CUDA events (median), ``ell_gather`` alone beside its bound
+   (that dtype's bytes) and HBM share, the f32 step exact against float64
+   on 16 queries as phase 3, the bf16 step's overlap with float64, peak
+   device memory.  A ``{"serve_8m": {...}}`` line holds the numbers.
 
 10. The paper's system comparison, with phase 9's data freed (the
    counters of ``scatter_score``, ``ell_gather`` and the ``segment``
@@ -410,6 +438,19 @@ SCORE_RTOL = 1e-5  # returned f32 scores vs float64
 # A sharded step against the single-index engine (phase 9): the same
 # kernels on the same index arrays, so the same f32 sums.
 STEP_RTOL = 1e-6
+# The bf16 routes (phases 2c, 4, 9a, 9d).  A bf16 score is an f32 sum of
+# exact products rounded once to bf16, so the bf16 route of a kernel is its
+# f32 route on the rounded inputs, rounded once: held bitwise.  Its plain
+# version sums in another order and may round the other way at a tie of
+# the f32 sums: one bf16 ulp of the largest score (BF16_KERNEL_TOL of it).
+# Against float64 of the f32 inputs a bf16 score carries three roundings
+# of at most 2^-8 each (the weight, the value, the score; the products are
+# positive) and the f32 error; its top-k overlaps float64's at
+# BF16_OVERLAP_MIN, the bar of the JAX package's bf16 serving
+# (tests/test_perf_features.py).
+BF16_KERNEL_TOL = 2.0 ** -7
+BF16_RTOL = (1 + 2.0 ** -8) ** 3 - 1 + 1e-5
+BF16_OVERLAP_MIN = 0.95
 # flash_attention in f32: atol = rtol = 2e-5, the JAX package's bar for the
 # kernel (tests/test_kernels.py::test_flash_attention_sweep).  In bf16 the
 # kernel and its plain version both compute in f32 and round once to bf16,
@@ -581,6 +622,10 @@ class Sizes:
     # Sharded serving (phase 9): launch.serve's rounds after its warm-up
     # (--sched drains the queue once, after one micro-batch).
     serve_rounds: int = 1
+    # Phase 9d: serve_8m, the paper's corpus size and the repo's own shape
+    # (src/repro_torch/configs/gpusparse.py:58), on one card: the ell step
+    # in f32 and bf16, a warm-up and 5 rounds each.
+    serve_8m_docs: int = 8_841_823
     # The system comparison (phase 10).  10a is serve_1m; 10b the paper's
     # Table 2 at its own size (benchmarks/table2_systems.py:18, the
     # corpus of benchmarks/common.py: V = 4,096, seed 0); 10c WAND and BMW
@@ -727,24 +772,26 @@ def tiled_args(index):
     )
 
 
-def compare(name: str, got, want, quiet: bool = False) -> float:
-    """max |got - want|; raises unless it is within KERNEL_TOL of
-    max |want| (both finite and of one shape)."""
+def compare(name: str, got, want, quiet: bool = False,
+            tol: float = KERNEL_TOL) -> float:
+    """max |got - want|; raises unless it is within ``tol`` of max |want|
+    (both finite and of one shape)."""
     import torch
 
     sync(got.device)
     if got.shape != want.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                              f"{tuple(want.shape)} or non-finite output")
+    got, want = got.float(), want.float()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     scale = float(want.abs().max()) if want.numel() else 0.0
     rel = err / max(scale, 1e-30)
     if not quiet:
         log(f"  {name}: max_abs_err={err!r} max_abs_plain={scale!r} "
             f"rel={rel!r}")
-    if rel > KERNEL_TOL:
+    if rel > tol:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version (rel {rel} > {KERNEL_TOL})")
+                             f"version (rel {rel} > {tol})")
     return err
 
 
@@ -942,7 +989,7 @@ def check_exact(name: str, vals, ids, oracle, sample, k: int):
 
 
 
-def compare_inf(name: str, got, want) -> float:
+def compare_inf(name: str, got, want, tol: float = KERNEL_TOL) -> float:
     """``compare`` where the plain version may hold infinities: they must
     sit at the same places with the same sign.  Quiet."""
     import torch
@@ -955,7 +1002,7 @@ def compare_inf(name: str, got, want) -> float:
                              f"version's")
     if not bool(fin.any()):
         return 0.0
-    return compare(name, got[fin], want[fin], quiet=True)
+    return compare(name, got[fin], want[fin], quiet=True, tol=tol)
 
 
 def tiled_runs(index):
@@ -995,10 +1042,11 @@ def sweep_launches(index, qw, ub, groups, k_eff, theta=1.0, alive=None,
     return out
 
 
-def check_sweep(name, index, qw, launch, got, groups_to_check, alive=None):
+def check_sweep(name, index, qw, launch, got, groups_to_check, alive=None,
+                tol: float = KERNEL_TOL):
     """Hold ``groups_to_check`` groups of one ``bmp_sweep`` launch against
     the plain version on the same order/ub_sorted/tau0: scores, heap and
-    tau within KERNEL_TOL, fetch sets and steps equal."""
+    tau within ``tol``, fetch sets and steps equal."""
     import torch
 
     from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
@@ -1010,12 +1058,12 @@ def check_sweep(name, index, qw, launch, got, groups_to_check, alive=None):
         want = bmp_sweep_ref(qw[sel[g]], order[g], us[g], tau[g],
                              *tiled_runs(index), alive, **kw)
         tag = f"{name}, group {g} of {sel.shape[0]} x {sel.shape[1]} rows"
-        e = compare(f"{tag} scores", got[0][g], want[0], quiet=True)
-        e = max(e, compare_inf(f"{tag} heap", got[1][g], want[1]))
+        e = compare(f"{tag} scores", got[0][g], want[0], quiet=True, tol=tol)
+        e = max(e, compare_inf(f"{tag} heap", got[1][g], want[1], tol))
         real = tau[g] < PAD_TAU  # pad rows keep PAD_TAU in both
         compare_inf(f"{tag} tau",
                     torch.maximum(tau[g], got[1][g][:, -1])[real],
-                    torch.maximum(tau[g], want[1][:, -1])[real])
+                    torch.maximum(tau[g], want[1][:, -1])[real], tol)
         same = (torch.equal(got[2][g].bool(), want[2])
                 and torch.equal(got[3][g].bool(), want[3])
                 and int(got[4][g, 0]) == want[4])
@@ -1122,6 +1170,115 @@ def check_pruned(dev, sizes: Sizes):
     metrics = approx.evaluate(c.queries, c.qrels, k=sizes.engine_k)
     log(f"  tiled-pruned-approx theta=0.8: {metrics}")
     return err
+
+
+def check_bf16(dev, sizes: Sizes) -> dict:
+    """Phase 2c: the bf16 routes of the three retrieval kernels at phase
+    2's sizes.  ``scatter_score`` and ``ell_gather`` (sparse and dense
+    query tiles, phase 2's geometries): bitwise the f32 route on the
+    bf16-rounded inputs, rounded once (the contract: the same f32 sums);
+    within one bf16 ulp of the plain version; twice bitwise equal.
+    ``bmp_scan`` on phase 2b's topical corpus, flat (the wide route) and
+    the planner's groups (the small route): against the plain version
+    (scores, heap, tau within one bf16 ulp of max |plain|; fetch sets and
+    steps equal), and each scored block of a launch's first group bitwise
+    ``scatter_score``'s bf16 route on that block."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import index as index_mod
+    from repro_torch.core import scoring
+    from repro_torch.data.synthetic import (
+        make_msmarco_like, make_topical_corpus,
+    )
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+    from repro_torch.kernels.ell_gather import ell_gather, ell_gather_ref
+    from repro_torch.kernels.scatter_score import (
+        scatter_score, scatter_score_ref,
+    )
+    from repro_torch.sched import planner
+
+    bf = torch.bfloat16
+    errs = {"scatter_score": 0.0, "ell_gather": 0.0, "bmp_scan": 0.0}
+
+    def held(name, kind, route, f32_route, plain):
+        got = route()
+        if got.dtype != bf:
+            raise AssertionError(f"{name}: {got.dtype} scores, not bf16")
+        if not torch.equal(got, f32_route().to(bf)):
+            raise AssertionError(f"{name}: not the f32 route's sums on the "
+                                 f"rounded inputs, rounded once")
+        if not torch.equal(got, route()):
+            raise AssertionError(f"{name} is not deterministic")
+        errs[kind] = max(errs[kind], compare(name, got, plain(),
+                                             tol=BF16_KERNEL_TOL))
+
+    c = make_msmarco_like(sizes.check_docs, sizes.check_queries,
+                          vocab_size=sizes.vocab, seed=11, device=dev)
+    for i, (tb, db, cs) in enumerate(sizes.geometries):
+        idx = index_mod.build_tiled_index(c.docs, term_block=tb, doc_block=db,
+                                          chunk_size=cs)
+        qw = padded_queries(c.queries, idx)
+        vb = idx.value.to(bf)
+        queries = [("", qw)] + ([("/dense tile", dense_queries(
+            *qw.shape, dev, seed=tb))] if i == 0 else [])
+        for tag, q in queries:
+            qb = q.to(bf)
+            args = dict(tiled_args(idx), value=vb)
+            wide = dict(args, value=vb.float())
+            held(f"scatter_score bf16 T={tb} D={db} C={cs}{tag}",
+                 "scatter_score", lambda: scatter_score(qb, **args),
+                 lambda: scatter_score(qb.float(), **wide),
+                 lambda: scatter_score_ref(qb, **args))
+    ell = index_mod.build_ell_index(c.docs)
+    vb = ell.values.to(bf)
+    qw = c.queries.to_dense()
+    for tag, q in (("", qw), ("/dense tile",
+                              dense_queries(*qw.shape, dev, seed=1))):
+        qb = q.to(bf)
+        held(f"ell_gather bf16{tag}", "ell_gather",
+             lambda: ell_gather(qb, ell.terms, vb),
+             lambda: ell_gather(qb.float(), ell.terms, vb.float()),
+             lambda: ell_gather_ref(qb, ell.terms, vb))
+    del c, ell, vb, qw
+
+    t = make_topical_corpus(sizes.check_docs, sizes.check_queries,
+                            vocab_size=sizes.vocab, seed=12, device=dev)
+    docs, _ = index_mod.reorder_docs(t.docs, "df-signature")
+    b = sizes.check_queries
+    for tb, db, cs, k in sizes.pruned_geometries:
+        idx = index_mod.build_tiled_index(docs, tb, db, cs,
+                                          store_term_block_max=True)
+        idx = dc.replace(idx, value=idx.value.to(bf))
+        qw = scoring._pad_queries_to_term_blocks(t.queries, idx)  # bf16
+        ub = scoring.block_upper_bounds(t.queries, idx)
+        k_eff = min(k, idx.num_docs)
+        plan = planner.plan_micro_batches(
+            ub.cpu().numpy(), idx.block_chunk_count.cpu().numpy())
+        for name, groups, n_check in (
+                ("flat", [np.arange(b)], 1),
+                (f"fused ({plan.num_groups} groups)", plan.groups,
+                 sizes.check_groups)):
+            for launch in sweep_launches(idx, qw, ub, groups, k_eff):
+                got = launch[4]()
+                route = getattr(bmp_ops.last_route, "name", "plain")
+                tag = f"bmp_scan bf16 T={tb} D={db} C={cs} k={k} {name}"
+                errs["bmp_scan"] = max(errs["bmp_scan"], check_sweep(
+                    f"{tag} ({route} route)", idx, qw, launch, got, n_check,
+                    tol=BF16_KERNEL_TOL))
+                sel, bsc = launch[0], got[2][0].bool()
+                args = dict(tiled_args(idx), block_chunk_count=(
+                    idx.block_chunk_count * bsc.to(torch.int32)))
+                cols = bsc.repeat_interleave(db)
+                exact = scatter_score(qw[sel[0]], **args).float()
+                if not torch.equal(got[0][0][:, cols], exact[:, cols]):
+                    raise AssertionError(f"{tag}: a scored block is not "
+                                         f"scatter_score's bf16 bits")
+        log(f"  bmp_scan bf16 T={tb} D={db} C={cs} k={k}: scored blocks "
+            f"bitwise scatter_score's bf16 route")
+    return errs
 
 
 def host_rounds(name, fn, rounds, dev, batch, unit="QPS"):
@@ -1405,7 +1562,8 @@ def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
 def sweep_work(idx, qw, launch, got, k_eff) -> dict:
     """What one ``bmp_sweep`` launch had to do, from its fetch sets and
     inputs.  ``bytes``: each input read once and each output written once
-    -- the distinct chunk lines (12 B a slot) that some group of the launch
+    -- the distinct chunk lines (8 B a slot and the value: 12 B in f32, 10
+    in bf16) that some group of the launch
     demanded in a term block holding a nonzero weight of that group (a line
     of any other term block adds 0 to every score), each read once for the
     whole launch, the query weights read once, the scored windows and the
@@ -1431,8 +1589,8 @@ def sweep_work(idx, qw, launch, got, k_eff) -> dict:
     distinct, distinct_kept = int(csc.any(0).sum()), int(kept.any(0).sum())
     rest = (int(bsc.sum()) * rows * idx.doc_block * 4  # windows written
             + gs * rows * k_eff * 4  # heaps written
-            + gs * rows * qw.shape[1] * 4)  # query weights read
-    line = idx.chunk_size * 12
+            + gs * rows * qw.shape[1] * qw.element_size())  # weights read
+    line = idx.chunk_size * (8 + idx.value.element_size())
     del kept, tbnz
     torch.cuda.empty_cache()
     return dict(bytes=distinct_kept * line + rest,
@@ -1556,6 +1714,40 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
                   f"summed over its launches)", all_ms,
                   {key: sum(w[key] for w in whole) for key in whole[0]},
                   line))
+    # The bf16 route on the same groups: the values and weights in bf16,
+    # the same bounds and plan.
+    import dataclasses as dc
+
+    import torch
+
+    idx_b = dc.replace(idx, value=idx.value.to(torch.bfloat16))
+    qw_b = scoring._pad_queries_to_term_blocks(queries, idx_b)
+    (sample_b,) = sweep_launches(
+        idx_b, qw_b, ub, [g for _, g in entries[: sizes.sample_groups]],
+        k_eff)
+    got_b = sample_b[4]()
+    err_b = check_sweep("bmp_scan bf16 at serve_1m", idx_b, qw_b, sample_b,
+                        got_b, sizes.sample_groups, tol=BF16_KERNEL_TOL)
+    ms_b = event_ms(sample_b[4], sizes.reps, dev)
+    # The plain version on the sample's first group only (a host loop of
+    # ~3,500 steps, ~3 s a group): the time budget of the script.
+    sel_b, order_b, us_b, tau_b, _, kw_b = sample_b
+    plain_b = event_ms(lambda: bmp_sweep_ref(
+        qw_b[sel_b[0]], order_b[0], us_b[0], tau_b[0], *tiled_runs(idx_b),
+        None, **kw_b), 1, dev)
+    launches_b = sweep_launches(idx_b, qw_b, ub, plan.groups, k_eff)
+    all_b = event_ms(lambda: [launch[4]() for launch in launches_b], 1, dev)
+    work_b = sweep_work(idx_b, qw_b, sample_b, got_b, k_eff)
+    bound_b, by_b = sweep_bound(work_b)
+    row["bf16"] = dict(ms=ms_b, plain_ms_first_group=plain_b,
+                       bound_ms=bound_b, bound_by=by_b, library_ms=None,
+                       max_abs_err=err_b, call_ms=all_b)
+    line_b = idx.chunk_size * 10
+    log(work_line(f"bmp_scan bf16 on {gs} groups x {rows} rows of the main "
+                  f"path (plain, its first group: {plain_b!r} ms)", ms_b,
+                  work_b, line_b))
+    log(f"  bmp_scan bf16, every launch of one search call: {all_b!r} ms "
+        f"(f32 {all_ms!r} ms)")
     return row
 
 
@@ -3136,10 +3328,118 @@ def same_step(name: str, got, want) -> dict:
     return res
 
 
+class KernelClock:
+    """While active, CUDA events around every call of the three retrieval
+    kernels' entries (``scatter_score``, ``ell_gather``, ``bmp_sweep``),
+    keyed by (kernel, the query weights' dtype): their ms and the launches
+    they made (each entry's own counter, read around the call)."""
+
+    def __init__(self):
+        from repro_torch.kernels.bmp_scan import ops as bmp_ops
+        from repro_torch.kernels.ell_gather import ops as ell_ops
+        from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+        self.targets = {"scatter_score": (scatter_ops, "scatter_score"),
+                        "ell_gather": (ell_ops, "ell_gather"),
+                        "bmp_scan": (bmp_ops, "bmp_sweep")}
+        self.events, self.launches, self.saved = [], {}, {}
+
+    def __enter__(self):
+        import torch
+
+        for name, (mod, fn) in self.targets.items():
+            orig = self.saved[name] = getattr(mod, fn)
+
+            def timed(qw, *args, _name=name, _mod=mod, _orig=orig, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                n0 = _mod.launches
+                start.record()
+                out = _orig(qw, *args, **kw)
+                end.record()
+                key = (_name, str(qw.dtype).replace("torch.", ""))
+                self.events.append((key, start, end))
+                self.launches[key] = (self.launches.get(key, 0)
+                                      + _mod.launches - n0)
+                return out
+
+            setattr(mod, fn, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn) in self.targets.items():
+            setattr(mod, fn, self.saved[name])
+
+    def ms(self, dev) -> dict:
+        """{"kernel/dtype": ms summed over the calls}."""
+        sync(dev)
+        out = {}
+        for (name, dt), start, end in self.events:
+            key = f"{name}/{dt}"
+            out[key] = out.get(key, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of the numpy array ``x``."""
+    import numpy as np
+
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126)))
+    return 2.0 ** (e - 7)
+
+
+def same_bf16_topk(name: str, got, want) -> dict:
+    """Two bf16 steps' (values, ids) under one contract, summed in other
+    orders: each value within one bf16 ulp of the other's at its rank,
+    and an id in one top-k only where it sits within one ulp of the
+    other's k-th value (a rounding tie at the cut)."""
+    import numpy as np
+
+    gv, gi = (np.asarray(x.cpu()) for x in got[:2])
+    wv, wi = (np.asarray(x.cpu()) for x in want[:2])
+    bad = np.abs(gv - wv) > bf16_ulp(wv)
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} values more than a "
+                             f"bf16 ulp apart")
+    moved = 0
+    for r in range(gv.shape[0]):
+        for v, ids, other, kth in ((gv[r], gi[r], set(wi[r].tolist()),
+                                    wv[r, -1]),
+                                   (wv[r], wi[r], set(gi[r].tolist()),
+                                    gv[r, -1])):
+            out = np.array([i not in other for i in ids.tolist()])
+            moved += int(out.sum())
+            if np.any(v[out] > kth + bf16_ulp(np.float32(kth))):
+                raise AssertionError(f"{name}: row {r} differs above the "
+                                     f"cut")
+    log(f"  {name}: values within one bf16 ulp, {moved} ids at the cut "
+        f"differ")
+    return {"ids_at_cut_differ": moved}
+
+
+def check_bf16_exact(name: str, vals, ids, oracle, sample, k: int) -> dict:
+    """A bf16 step against float64: overlap@k >= BF16_OVERLAP_MIN and each
+    returned score within BF16_RTOL of its float64 score."""
+    import torch
+
+    o = oracle.T
+    o_ids = torch.topk(o, k, dim=1).indices.cpu().numpy()
+    ov = overlap(ids[sample], o_ids, k)
+    got = torch.from_numpy(vals[sample]).double().to(o.device)
+    want = o.gather(1, torch.from_numpy(ids[sample]).to(o.device))
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    log(f"  {name}: overlap@{k} vs f64 = {ov!r}, max rel score err = "
+        f"{rel!r} (bars {BF16_OVERLAP_MIN}, {BF16_RTOL!r})")
+    if ov < BF16_OVERLAP_MIN or rel > BF16_RTOL:
+        raise AssertionError(f"{name}: bf16 step off float64 (overlap {ov}, "
+                             f"rel {rel})")
+    return {"overlap_f64": ov, "max_rel_f64": rel}
+
+
 def serve_sharded(dev, sizes: Sizes) -> dict:
-    """Phase 9: the sharded serve step at world size 1 for each engine
-    (9a), the collective path under an NCCL group of one (9b), and
-    ``repro_torch.launch.serve`` at serve_1m (9c)."""
+    """Phase 9: the sharded serve step at world size 1 for each engine, in
+    f32 and bf16 (9a), the collective path under an NCCL group of one (9b),
+    and ``repro_torch.launch.serve`` at serve_1m (9c)."""
     import socket
 
     import numpy as np
@@ -3147,6 +3447,7 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     import torch.distributed as dist
 
     from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core import distributed as tdist
     from repro_torch.core.distributed import (
         build_sharded_ell, build_sharded_tiled, make_serve_step,
     )
@@ -3157,16 +3458,54 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     from repro_torch.launch import serve as serve_mod
 
     k, b = sizes.k, sizes.queries
+    bf = torch.bfloat16
     # build_sharded_tiled's default geometry
     geo = dict(term_block=512, doc_block=64, chunk_size=128)
     out, keep = {}, {}
+    bf16_launches = {}
 
-    def step_of(name, idx, extra=None):
+    def step_of(name, idx, extra=None, dtype=torch.float32):
         cfg = RetrievalConfig(engine=name, k=k, obs=None, **(extra or {}))
         geometry = getattr(idx, "geometry", None)  # tiled indices only
         return make_serve_step(
             engine=name, cfg=cfg, docs_per_shard=idx.docs_per_shard,
-            geometry=geometry and geometry())
+            geometry=geometry and geometry(), compute_dtype=dtype)
+
+    def clocked(label, step, idx, queries, rounds):
+        """host_rounds of the step with the kernel clock on -> (result, ms
+        a step, {kernel/dtype: kernel ms a step})."""
+        cast0 = tdist.cast_bytes
+        clock = KernelClock()
+        with clock:
+            got, ms = host_rounds(label, lambda: step(idx, queries=queries),
+                                  rounds, dev, b)
+        per = {key: t / (rounds + 1) for key, t in clock.ms(dev).items()}
+        for key, n in clock.launches.items():
+            bf16_launches[key] = bf16_launches.get(key, 0) + n
+        log(f"  {label}: kernel ms a step {per!r}; index cast "
+            f"{tdist.cast_bytes - cast0} B")
+        return got, ms, per
+
+    def both(label, name, idx, queries, rounds, extra=None, first_bf16=True):
+        """The f32 and bf16 steps of one engine -> (f32 result, bf16
+        result, numbers); ``first_bf16``: the index's first bf16 step."""
+        got, ms, kms = clocked(f"{label}: sharded step",
+                               step_of(name, idx, extra), idx, queries,
+                               rounds)
+        cast0 = tdist.cast_bytes
+        got_b, ms_b, kms_b = clocked(f"{label}: bf16 sharded step",
+                                     step_of(name, idx, extra, bf), idx,
+                                     queries, rounds)
+        # The values are cast once for each (index, dtype): 4 B read and
+        # 2 B written a slot on the index's first bf16 step, none after.
+        values = idx.values if name == "ell" else idx.value
+        once = values.numel() * 6 if first_bf16 else 0
+        if tdist.cast_bytes - cast0 != once:
+            raise AssertionError(f"{label}: the index cast "
+                                 f"{tdist.cast_bytes - cast0} B, not {once}")
+        return got, got_b, dict(step_ms=ms, kernel_ms=kms, bf16_step_ms=ms_b,
+                                bf16_kernel_ms=kms_b,
+                                bf16_cast_bytes=tdist.cast_bytes - cast0)
 
     # 9a. the exact engines on phase 3's corpus
     corpus = make_msmarco_like(sizes.docs, b, vocab_size=sizes.vocab,
@@ -3176,28 +3515,33 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     sample = torch.randperm(b, generator=g)[
         :sizes.oracle_queries].sort().values.numpy()
     oracle = oracle_f64(corpus.docs, q, sample)
+    exact_b = {}
     for name in ("ell", "tiled"):
         idx, build_ms = timed(
             f"9a {name}: sharded build, 1 shard",
             lambda: (build_sharded_ell(corpus.docs, 1) if name == "ell"
                      else build_sharded_tiled(corpus.docs, 1)), dev)
-        step = step_of(name, idx)
-        got, ms = host_rounds(f"9a {name}: sharded step", lambda: step(
-            idx, queries=q), sizes.rounds, dev, b)
+        got, got_b, nums = both(f"9a {name}", name, idx, q, sizes.rounds)
         eng = RetrievalEngine(corpus.docs, RetrievalConfig(
             engine=name, k=k, obs=None, **geo), device=dev)
         want, eng_ms = host_rounds(
             f"9a {name}: RetrievalEngine.search at the sharded geometry",
             lambda: eng.search(q, k=k, return_tau=True), sizes.rounds, dev, b)
-        out[f"9a {name}"] = dict(step_ms=ms, search_ms=eng_ms,
-                                 build_ms=build_ms,
+        out[f"9a {name}"] = dict(search_ms=eng_ms, build_ms=build_ms, **nums,
                                  **same_step(f"9a {name}: step vs engine",
                                              got, want))
         check_exact(f"9a {name} step", got[0].cpu().numpy(),
                     got[1].cpu().numpy(), oracle, sample, k)
+        out[f"9a {name}"].update(check_bf16_exact(
+            f"9a {name} bf16 step", got_b[0].cpu().numpy(),
+            got_b[1].cpu().numpy(), oracle, sample, k))
+        exact_b[name] = got_b
         keep[name] = (idx, got)
         del eng, want
         torch.cuda.empty_cache()
+    out["9a bf16 ell vs tiled"] = same_bf16_topk(
+        "9a bf16: ell vs tiled", exact_b["ell"], exact_b["tiled"])
+    del exact_b
 
     # 9a. the pruned engines on phase 3b's topical corpus, reordered as the
     # engines reorder it (sharded serving takes the corpus as given)
@@ -3213,28 +3557,49 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
                           lambda: build_sharded_tiled(docs, 1), dev)
     single = RetrievalEngine(docs, RetrievalConfig(
         engine="tiled-pruned", k=k, obs=None, **geo), device=dev)
+    # Under the bf16 contract the exact pruned steps give the bits of the
+    # bf16 tiled step: held to it.
+    tiled_b, _ = host_rounds("9a pruned: bf16 tiled step on the topical "
+                             "corpus", lambda: step_of("tiled", idx, None, bf)(
+                                 idx, queries=tq), 0, dev, b)
     for name, extra in (("tiled-pruned", {}),
                         ("tiled-pruned", {"traversal": "two-pass"}),
                         ("tiled-pruned-approx", {}),
                         ("tiled-bmp-grouped", {}), ("tiled-bmp-fused", {})):
         label = f"9a {name}{' two-pass' if extra else ''}"
-        step = step_of(name, idx, extra)
-        got, ms = host_rounds(f"{label}: sharded step",
-                              lambda: step(idx, queries=tq), 0, dev, b)
+        got, got_b, nums = both(label, name, idx, tq, 0, extra,
+                                first_bf16=False)
         eng = RetrievalEngine.from_prebuilt(
             docs, RetrievalConfig(engine=name, k=k, obs=None, **geo,
                                   **extra), single._index, device=dev)
         want, eng_ms = host_rounds(
             f"{label}: RetrievalEngine.search at the sharded geometry",
             lambda: eng.search(tq, k=k, return_tau=True), 0, dev, b)
-        out[label] = dict(step_ms=ms, search_ms=eng_ms, **same_step(
+        out[label] = dict(search_ms=eng_ms, **nums, **same_step(
             f"{label}: step vs engine", got, want))
         check_exact(f"{label} step", got[0].cpu().numpy(),
                     got[1].cpu().numpy(), t_oracle, t_sample, k)
+        out[label].update(check_bf16_exact(
+            f"{label} bf16 step", got_b[0].cpu().numpy(),
+            got_b[1].cpu().numpy(), t_oracle, t_sample, k))
+        if name != "tiled-pruned-approx":
+            same = all(torch.equal(a, w) for a, w in zip(got_b, tiled_b))
+            log(f"  {label} bf16: the bf16 tiled step's values, ids and tau "
+                f"bitwise: {same}")
+            if not same:
+                raise AssertionError(f"{label}: the bf16 step is not exact "
+                                     f"under the bf16 contract")
         if name == "tiled-bmp-fused":
             keep[name] = (idx, got)
     out["9a pruned build_ms"] = build_ms
-    del single, eng, want, topical
+    out["9a bf16 launches"] = {f"{n}/{d}": c
+                               for (n, d), c in bf16_launches.items()}
+    log(f"  9a launches by kernel and dtype: {out['9a bf16 launches']}")
+    for name in ("scatter_score", "ell_gather", "bmp_scan"):
+        if bf16_launches.get((name, "bfloat16"), 0) <= 0:
+            raise AssertionError(f"{name}'s bf16 route was not launched "
+                                 f"in 9a")
+    del single, eng, want, topical, tiled_b
     torch.cuda.empty_cache()
 
     # 9b. the collective path on the card: an NCCL group of one
@@ -3278,6 +3643,124 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
             raise AssertionError(f"9c {label}: overlap {res['overlap']}")
         out[f"9c {label}"] = res
         torch.cuda.empty_cache()
+    return out
+
+
+def ell_f64(index, queries, sample):
+    """Float64 scores [N, len(sample)] of the sampled queries over an
+    ``EllIndex``, a bounded slab of docs at a time (the corpus is gone by
+    then, and its CSR in float64 would not fit beside the index)."""
+    import torch
+
+    qw = queries.to_dense(torch.float64)[torch.from_numpy(sample).to(
+        queries.device)]
+    qw = torch.nn.functional.pad(qw, (0, 1))  # the padding id reads 0
+    n, kk = index.terms.shape
+    out = torch.empty((n, qw.shape[0]), dtype=torch.float64,
+                      device=qw.device)
+    step = max(1, (1 << 26) // (qw.shape[0] * kk))
+    for s in range(0, n, step):
+        t = index.terms[s:s + step].long()
+        v = index.values[s:s + step].double()
+        out[s:s + step] = (qw[:, t] * v).sum(-1).T
+    return out[:index.num_docs]
+
+
+def serve_8m(dev, sizes: Sizes) -> dict:
+    """Phase 9d: serve_8m (8,841,823 docs, B = 500, k = 1000) on one card
+    at world size 1: the corpus made on the card, the one-shard ELL index
+    built from it and the corpus freed; the ``ell`` step in f32 and in
+    bf16, each a warm-up and ``rounds`` calls timed with CUDA events
+    (median), ``ell_gather`` alone on the step's inputs beside its bound
+    (that dtype's bytes: every slot's term id, the live values, QW, the
+    scores) and its HBM share (bound over kernel time); the f32 step held
+    to float64 on ``oracle_queries`` queries as phase 3 holds it, the bf16
+    step's overlap with float64; peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.distributed import (
+        build_sharded_ell, make_serve_step,
+    )
+    from repro_torch.data.synthetic import make_msmarco_like
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+
+    n, b, k = sizes.serve_8m_docs, sizes.queries, sizes.k
+    torch.cuda.reset_peak_memory_stats(dev)
+    corpus, gen_ms = timed(f"9d: corpus of {n} docs on the card",
+                           lambda: make_msmarco_like(
+                               n, b, vocab_size=sizes.vocab, seed=0,
+                               device=dev), dev)
+    nnz = int((corpus.docs.term_ids >= 0).sum())
+    log(f"  9d corpus: {nnz / n!r} nnz/doc, K={corpus.docs.max_terms}, "
+        f"{torch.cuda.memory_allocated(dev)} B held")
+    idx, build_ms = timed("9d: build_sharded_ell, 1 shard",
+                          lambda: build_sharded_ell(corpus.docs, 1), dev)
+    q = corpus.queries
+    del corpus
+    torch.cuda.empty_cache()
+    local = idx.shard(0)
+    live = int((local.terms < sizes.vocab).sum())
+    log(f"  9d index: terms {tuple(idx.terms.shape)}, {live} live slots, "
+        f"{torch.cuda.memory_allocated(dev)} B held after the corpus went")
+    g = torch.Generator().manual_seed(5)
+    sample = torch.randperm(b, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle, oracle_ms = timed("9d: float64 scores of the sampled queries",
+                              lambda: ell_f64(local, q, sample), dev)
+    out = dict(docs=n, nnz=nnz, slots=int(idx.terms.numel()),
+               live_slots=live, corpus_ms=gen_ms, build_ms=build_ms,
+               oracle_ms=oracle_ms)
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        cast0 = tdist.cast_bytes
+        step = make_serve_step(engine="ell", k=k,
+                               docs_per_shard=idx.docs_per_shard,
+                               compute_dtype=dtype)
+        got = step(idx, queries=q)  # warm-up (and the one cast)
+        sync(dev)
+        times = []
+        for _ in range(sizes.rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = step(idx, queries=q)
+            end.record()
+            sync(dev)
+            times.append(start.elapsed_time(end))
+        step_ms = float(np.median(times))
+        vals, ids = got[0].cpu().numpy(), got[1].cpu().numpy()
+        if dtype == torch.float32:
+            check_exact("9d ell f32 step", vals, ids, oracle, sample, k)
+            ov = overlap(ids[sample], torch.topk(
+                oracle.T, k, dim=1).indices.cpu().numpy(), k)
+            res = {"overlap_f64": ov}
+        else:
+            res = check_bf16_exact("9d ell bf16 step", vals, ids, oracle,
+                                   sample, k)
+        qw = q.to_dense().to(dtype)
+        vals_in = idx.shard(0, dtype).values
+        kernel_ms = event_ms(lambda: ell_ops.ell_gather(qw, local.terms,
+                                                        vals_in),
+                             sizes.reps, dev)
+        elem = qw.element_size()
+        nbytes = (local.terms.numel() * 4 + live * elem
+                  + b * sizes.vocab * elem + b * idx.docs_per_shard * elem)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[tag] = dict(step_ms=step_ms, step_ms_all=times,
+                        kernel_ms=kernel_ms, bound_ms=bound_ms,
+                        bound_bytes=nbytes, hbm_share=bound_ms / kernel_ms,
+                        cast_bytes=tdist.cast_bytes - cast0, **res)
+        log(f"  9d ell {tag}: {step_ms!r} ms a step (CUDA events, median "
+            f"of {sizes.rounds}: {times!r}); ell_gather {kernel_ms!r} ms, "
+            f"bound {bound_ms!r} ms ({nbytes} B), HBM share "
+            f"{bound_ms / kernel_ms!r}; index cast "
+            f"{tdist.cast_bytes - cast0} B")
+        del got, qw, vals_in
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"  9d peak device memory: {out['peak_bytes']} B")
     return out
 
 
@@ -5530,6 +6013,75 @@ def shard_train_checks(sizes: Sizes, cases: dict, singles: dict,
     return checks, rows
 
 
+def bf16_rows(dev, sizes: Sizes, rows, corpus, tiled, ell, qw_t, qw,
+              flops: float, errs: dict) -> None:
+    """Phase 4 for the bf16 routes of ``scatter_score`` and
+    ``ell_gather`` at serve_1m: each against its plain version, then the
+    kernel, the plain version, the library call in bf16 (cuSPARSE's SpMM of
+    bf16 CSR docs by a bf16 QW^T, where PyTorch takes it) and the bound of
+    the bf16 bytes (the live slots' ids and docs 4 B, their values 2 B, QW
+    and the scores 2 B a weight) or of the f32 operations; added to each
+    kernel's row as its ``bf16`` sub-row."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.core import scoring
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.kernels.ell_gather.ref import ell_gather_ref
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+    from repro_torch.kernels.scatter_score.ref import scatter_score_ref
+
+    bf = torch.bfloat16
+    b = qw.shape[0]
+    tb = dc.replace(tiled, value=tiled.value.to(bf))
+    ell_vb = ell.values.to(bf)
+    qtb, qb = qw_t.to(bf), qw.to(bf)
+    targs = tiled_args(tb)
+    specs = {
+        "scatter_score": (
+            lambda: scatter_ops.scatter_score(qtb, **targs),
+            lambda: scatter_score_ref(qtb, **targs),
+            int((tiled.local_doc >= 0).sum()) * 10 + tiled.num_chunks * 4
+            + tiled.num_doc_blocks * 8 + b * qw_t.shape[1] * 2
+            + b * tiled.padded_docs * 2),
+        "ell_gather": (
+            lambda: ell_ops.ell_gather(qb, ell.terms, ell_vb),
+            lambda: ell_gather_ref(qb, ell.terms, ell_vb),
+            ell.terms.numel() * 4 + int((ell.terms < sizes.vocab).sum()) * 2
+            + b * sizes.vocab * 2 + b * ell.terms.shape[0] * 2),
+    }
+    try:
+        csr = scoring.docs_csr(corpus.docs, bf)
+        rhs = qb.T.contiguous()
+        torch.sparse.mm(csr, rhs)
+        library_ms = event_ms(lambda: torch.sparse.mm(csr, rhs), sizes.reps,
+                              dev)
+        library = f"{library_ms!r} ms"
+    except (RuntimeError, NotImplementedError) as e:
+        library_ms, library = None, f"not taken ({str(e).splitlines()[0]})"
+    csr = rhs = None
+    torch.cuda.empty_cache()
+    log(f"  library in bf16: torch.sparse.mm of bf16 CSR docs by a bf16 "
+        f"QW^T: {library}")
+    for name, (kernel, plain, nbytes) in specs.items():
+        err = compare(f"{name} bf16 at {sizes.docs} docs x {b} queries",
+                      kernel(), plain(), tol=BF16_KERNEL_TOL)
+        kernel_ms = event_ms(kernel, sizes.reps, dev)
+        plain_ms = event_ms(plain, 1, dev)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        sub = dict(ms=kernel_ms, plain_ms=plain_ms,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=library_ms,
+                   max_abs_err=max(err, errs[name]))
+        log(f"  {name} bf16: kernel {kernel_ms!r} ms, plain {plain_ms!r} "
+            f"ms, library {library_ms!r} ms, bound {sub['bound_ms']!r} ms "
+            f"({sub['bound_by']}: {nbytes} B, {flops!r} flop)")
+        next(r for r in rows if r["name"] == name)["bf16"] = sub
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -5569,6 +6121,9 @@ def run(dev, sizes: Sizes) -> list[dict]:
     log(f"phase 2b: bmp_scan vs plain and the pruned engines, "
         f"{sizes.check_docs} topical docs x {sizes.check_queries} queries")
     errs["bmp_scan"] = check_pruned(dev, sizes)
+    log(f"phase 2c: the bf16 routes of scatter_score, ell_gather and "
+        f"bmp_scan vs their f32 routes and plain versions")
+    bf16_errs = check_bf16(dev, sizes)
 
     # 3. main path
     log(f"phase 3: main path, {sizes.docs} docs x {sizes.queries} queries, "
@@ -5727,6 +6282,8 @@ def run(dev, sizes: Sizes) -> list[dict]:
             f"yardstick, the padded index stream: {old_bytes} B, "
             f"{old_bytes / HBM_BYTES_PER_S * 1e3!r} ms")
         rows.append(row)
+    bf16_rows(dev, sizes, rows, corpus, tiled, ell, qw_t, qw, flops,
+              bf16_errs)
     rows.append(bmp_row(dev, sizes, pruned, errs["bmp_scan"]))
     rows.append(head_row(dev, sizes, enc_run, errs["splade_head"]))
     log(f"peak device memory since phase 3b's last case: "
@@ -5822,10 +6379,39 @@ def run(dev, sizes: Sizes) -> list[dict]:
             raise AssertionError(f"{name} was not launched in phase 9")
     sharded["launches"] = sharded_launches
     log(f"phase 9: {time.perf_counter() - t0:.3f} s")
+    # The bf16 routes' launches on the main path: 9a's bf16 steps.
+    for row in rows:
+        if row["name"] in ("scatter_score", "ell_gather", "bmp_scan"):
+            row.setdefault("bf16", {})["launches"] = sharded[
+                "9a bf16 launches"].get(f"{row['name']}/bfloat16", 0)
+    sub = next(r for r in rows if r["name"] == "bmp_scan")["bf16"]
+    sub["max_abs_err"] = max(sub["max_abs_err"], bf16_errs["bmp_scan"])
     print(json.dumps({"sharded": sharded}, default=float))
 
-    # 10. the system comparison; phase 9's data is gone
+    # 9d. serve_8m on one card; phase 9's data is gone
     del sharded
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 9d: serve_8m, {sizes.serve_8m_docs} docs x {sizes.queries} "
+        f"queries, k={sizes.k}, world size 1: the ell step in f32 and bf16")
+    for mod in counters.values():
+        mod.launches = 0
+    big = serve_8m(dev, sizes)
+    big["launches"] = {name: mod.launches for name, mod in counters.items()}
+    log(f"  launches in phase 9d: {big['launches']}")
+    if big["launches"]["ell_gather"] <= 0:
+        raise AssertionError("ell_gather was not launched in phase 9d")
+    big["seconds"] = time.perf_counter() - t0
+    log(f"phase 9d: {big['seconds']:.3f} s")
+    for row in rows:
+        if row["name"] == "ell_gather":
+            row["serve_8m"] = {dt: {key: big[dt][key] for key in (
+                "kernel_ms", "bound_ms", "hbm_share", "step_ms")}
+                for dt in ("float32", "bfloat16")}
+    print(json.dumps({"serve_8m": big}, default=float))
+
+    # 10. the system comparison; phase 9d's data is gone
+    del big
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for mod in counters.values():

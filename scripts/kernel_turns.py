@@ -18,11 +18,13 @@ checkout with one CUDA card:
         python3 scripts/kernel_turns.py --src $s; done
 
 Each run prints the card's name and power limit and, as its last line,
-one JSON object with its times.
+one JSON object with its times and the SHA-256 of each kernel's first
+output (``digests``): equal digests across two trees mean the same bits.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -82,6 +84,14 @@ def main() -> int:
         idx, qw_b, ub, [g for _, g in entries[: sizes.sample_groups]],
         min(sizes.k, idx.num_docs))
     fns["bmp_scan"] = sample[4]
+    digests = {}
+    for name, fn in fns.items():
+        out = fn()
+        h = hashlib.sha256()
+        for t in out if isinstance(out, tuple) else (out,):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+        del out
     rounds = []
     for r in range(args.rounds):
         rounds.append({name: cs.event_ms(fn, sizes.reps, dev)
@@ -89,7 +99,8 @@ def main() -> int:
         cs.log(f"{args.src} round {r}: {rounds[-1]}")
     card = cs.card_line()
     print(card)
-    print(json.dumps({"src": args.src, "card": card, "rounds": rounds}))
+    print(json.dumps({"src": args.src, "card": card, "rounds": rounds,
+                      "digests": digests}))
     return 0
 
 

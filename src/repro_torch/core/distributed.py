@@ -29,13 +29,28 @@ Where the port differs from the JAX module, on purpose:
   deterministic planner the same array and issues the same collectives
   in the same order.  They merge once a step, not once a group or bucket:
   every selection is row by row, so the rows come out the same.
-* ``compute_dtype`` other than float32 raises ``NotImplementedError`` (the
-  scoring kernels are f32); ``block`` and ``unroll`` (XLA compile knobs)
-  are not arguments.
+* ``compute_dtype`` is float32 or bfloat16; any other dtype raises
+  ``NotImplementedError`` (JAX computes in any dtype; no caller uses
+  another).  ``block`` and ``unroll`` (XLA compile knobs) are not
+  arguments.
+* Under bfloat16 every engine follows one contract: the query weights and
+  the index values are rounded to bf16 (to nearest, ties to even), each
+  product is exact in f32, the products are summed in f32, each [B, N]
+  score is rounded to bf16 once, and the top-k runs over those values,
+  lower id first on ties; the step returns them as f32, and tau is taken
+  from them in f32.  That is JAX's ``ell`` step up to the order of the f32
+  sums ("scores accumulate in f32"); JAX's tiled and BMP steps round more
+  often (every product, each chunk's sum, the running scores).  The
+  pruned steps stay exact under it (the wider margin of
+  :data:`repro_torch.kernels.bmp_scan.ref.MARGIN_REL`).  JAX casts the
+  index inside the step on every call; here a shard's values are cast
+  once for each (index, dtype) and kept beside the f32 ones
+  (``cast_bytes`` counts the bytes those casts read and write).
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,7 +61,8 @@ from repro_torch.core import registry, scoring
 from repro_torch.core import topk as topk_mod
 from repro_torch.core.engine import RetrievalConfig
 from repro_torch.core.index import (
-    EllIndex, TiledIndex, build_ell_index, build_tiled_index, shard_docs,
+    EllIndex, TiledIndex, _block_chunk_runs, build_tiled_index,
+    fill_ell_rows, shard_docs,
 )
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.kernels.ell_gather import ops as ell_ops
@@ -54,6 +70,10 @@ from repro_torch.sched import planner as planner_mod
 from repro_torch.utils import cdiv, ceil_to, resolve_device
 
 NEG_INF = float("-inf")
+# Bytes read and written by the casts of index values to a compute dtype,
+# each (index, dtype) cast once (a serve step reads the cached copy).
+cast_bytes = 0
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class _Stacked:
@@ -80,8 +100,21 @@ class _Stacked:
         i = self._row(rank)
         cut = {f.name: getattr(self, f.name)[i:i + 1].to(dev)
                for f in dataclasses.fields(self)
-               if torch.is_tensor(getattr(self, f.name))}
+               if f.init and torch.is_tensor(getattr(self, f.name))}
         return dataclasses.replace(self, **cut, held=rank)
+
+    def _in(self, name: str, dtype) -> torch.Tensor:
+        """Field ``name`` (the index values) in ``dtype``: the field itself
+        for float32, else its cast, made on the first call and kept."""
+        global cast_bytes
+        t = getattr(self, name)
+        if dtype == t.dtype:
+            return t
+        if dtype not in self.casts:
+            self.casts[dtype] = t.to(dtype)
+            cast_bytes += t.numel() * (t.element_size()
+                                       + self.casts[dtype].element_size())
+        return self.casts[dtype]
 
 
 @dataclasses.dataclass
@@ -100,6 +133,9 @@ class ShardedEllIndex(_Stacked):
     doc_block: int = 64
     num_shards: int = 0  # 0: the leading dim
     held: Optional[int] = None
+    # values cast to a compute dtype, by dtype (made once, on first use)
+    casts: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     def __post_init__(self):
         self.num_shards = self.num_shards or int(self.terms.shape[0])
@@ -108,10 +144,12 @@ class ShardedEllIndex(_Stacked):
     def device(self) -> torch.device:
         return self.terms.device
 
-    def shard(self, s: int) -> EllIndex:
+    def shard(self, s: int, dtype=torch.float32) -> EllIndex:
+        """Shard ``s`` as an :class:`EllIndex` whose values are in the
+        compute ``dtype``."""
         i = self._row(s)
-        return EllIndex(self.terms[i], self.values[i], self.docs_per_shard,
-                        self.vocab_size)
+        return EllIndex(self.terms[i], self._in("values", dtype)[i],
+                        self.docs_per_shard, self.vocab_size)
 
 
 def _shard_block_max(shard: SparseBatch, term_block: int,
@@ -203,29 +241,28 @@ def build_sharded_ell(
     doc_block: int = 64,
 ) -> ShardedEllIndex:
     """Equal contiguous doc partitions with a uniform K, built on
-    ``docs``' device: each shard's ELL index (``n_pad=1``), padded with
-    term ``vocab_size`` and value 0 to the widest shard's K."""
+    ``docs``' device: each shard's ELL rows (left-packed term lists),
+    padded with term ``vocab_size`` and value 0 to the widest doc's K.
+    The rows go straight from ``docs`` into the stacked arrays, a bounded
+    number at a time: the corpus and the index are all it holds."""
     _require_sparse_batch(docs)
     per = cdiv(docs.batch, num_shards)
     v = docs.vocab_size
-    shards = [shard_docs(docs, num_shards, s)[0] for s in range(num_shards)]
-    k = 1
-    for s in shards:
-        k = max(k, int(s.nnz_per_row().max()) if s.batch else 1)
-    k = ceil_to(k, k_pad)
+    k = ceil_to(max(int(docs.nnz_per_row().max()) if docs.batch else 1, 1),
+                k_pad)
     terms = torch.full((num_shards, per, k), v, dtype=torch.int32,
                        device=docs.device)
     vals = torch.zeros((num_shards, per, k), dtype=torch.float32,
                        device=docs.device)
-    for si, s in enumerate(shards):
-        ell = build_ell_index(s, k_pad=k_pad, n_pad=1)
-        kk = min(k, ell.max_terms)
-        terms[si, : ell.terms.shape[0], :kk] = ell.terms[:per, :k]
-        vals[si, : ell.values.shape[0], :kk] = ell.values[:per, :k]
+    for si in range(num_shards):
+        start = si * per
+        rows = max(min(per, docs.batch - start), 0)
+        fill_ell_rows(docs.slice_rows(start, rows), terms[si], vals[si])
     block_max = None
     if store_block_max:
-        block_max = _stack([_shard_block_max(s, term_block, doc_block)
-                            for s in shards])
+        block_max = _stack([
+            _shard_block_max(shard_docs(docs, num_shards, s)[0], term_block,
+                             doc_block) for s in range(num_shards)])
     return ShardedEllIndex(terms, vals, per, docs.batch, v,
                            block_max=block_max, term_block=term_block,
                            doc_block=doc_block)
@@ -265,6 +302,9 @@ class ShardedTiledIndex(_Stacked):
     csr_row_cap: int = 0  # most stored nonzeros in any term's row
     num_shards: int = 0  # 0: the leading dim
     held: Optional[int] = None
+    # values cast to a compute dtype, by dtype (made once, on first use)
+    casts: dict = dataclasses.field(default_factory=dict, init=False,
+                                    repr=False, compare=False)
 
     def __post_init__(self):
         self.num_shards = self.num_shards or int(self.local_term.shape[0])
@@ -308,11 +348,12 @@ class ShardedTiledIndex(_Stacked):
         return {"format": self.bounds_format, "stored": stored,
                 "dense": dense, "csr": csr}
 
-    def shard(self, s: int) -> TiledIndex:
+    def shard(self, s: int, dtype=torch.float32) -> TiledIndex:
         """Shard ``s`` as a :class:`TiledIndex` of ``docs_per_shard`` docs
-        (views, no copy).  ``chunk_first``, ``tile_max`` and ``block_max``
-        are None: the sharded layout does not carry them, and the scoring
-        paths with fine bounds read none of them."""
+        (views, no copy), its values in the compute ``dtype``.
+        ``chunk_first``, ``tile_max`` and ``block_max`` are None: the
+        sharded layout does not carry them, and the scoring paths with fine
+        bounds read none of them."""
         i = self._row(s)
 
         def at(t):
@@ -320,7 +361,8 @@ class ShardedTiledIndex(_Stacked):
 
         return TiledIndex(
             local_term=at(self.local_term), local_doc=at(self.local_doc),
-            value=at(self.value), chunk_term_block=at(self.chunk_term_block),
+            value=at(self._in("value", dtype)),
+            chunk_term_block=at(self.chunk_term_block),
             chunk_doc_block=at(self.chunk_doc_block), chunk_first=None,
             tile_max=None, block_max=None, num_docs=self.docs_per_shard,
             vocab_size=self.vocab_size, term_block=self.term_block,
@@ -405,12 +447,13 @@ def build_sharded_tiled(
 
 
 class _Group(NamedTuple):
-    """The process group a step serves over, and this process's place in
-    it (shard ``rank`` is served here)."""
+    """The process group a step serves over, this process's place in it
+    (shard ``rank`` is served here), and the step's compute dtype."""
 
     group: object
     rank: int
     size: int
+    dtype: torch.dtype = torch.float32
 
 
 def group_rank_size(group=None) -> tuple[int, int]:
@@ -503,9 +546,10 @@ def _check_index(index, ctx: _Group, docs_per_shard: int, kind: type,
 
 
 def _query_weights(queries: Optional[SparseBatch], qw, width: int,
-                   dev) -> torch.Tensor:
-    """[B, >= width] f32 query weights on ``dev``: ``qw`` as given, else
-    the queries densified; zero-padded up to ``width``."""
+                   dev, dtype=torch.float32) -> torch.Tensor:
+    """[B, >= width] query weights on ``dev`` in the compute ``dtype``:
+    ``qw`` as given, else the queries densified; zero-padded up to
+    ``width``."""
     if qw is None:
         if queries is None:
             raise ValueError("a serve step needs queries or qw")
@@ -513,7 +557,7 @@ def _query_weights(queries: Optional[SparseBatch], qw, width: int,
     qw = torch.as_tensor(qw, dtype=torch.float32).to(dev)
     if qw.shape[1] < width:
         qw = torch.nn.functional.pad(qw, (0, width - qw.shape[1]))
-    return qw
+    return qw.to(dtype)
 
 
 def _need_queries(queries) -> SparseBatch:
@@ -526,19 +570,21 @@ def _need_queries(queries) -> SparseBatch:
 def _sharded_step(ctx: _Group, k: int, docs_per_shard: int, kind: type,
                   geometry: Optional[dict], local_scores):
     """The uniform step around ``local_scores(local index, queries, qw,
-    tau_init, index) -> [B, docs_per_shard]`` scores of this rank's shard:
-    checks, then local top-k, gather, merge, tau."""
+    tau_init, index) -> [B, docs_per_shard]`` scores of this rank's shard
+    (its values in the step's compute dtype): checks, then local top-k,
+    gather, merge, tau.  The values come back as f32."""
 
     def serve_step(index, queries=None, qw=None, tau_init=None,
                    deleted_mask=None):
         _reject_deleted(deleted_mask)
         _check_index(index, ctx, docs_per_shard, kind, geometry)
-        local = index.shard(ctx.rank)
+        local = index.shard(ctx.rank, ctx.dtype)
         if queries is not None:
             queries = queries.to(index.device)
         scores = local_scores(local, queries, qw, tau_init, index)
         mv, mi = topk_mod.local_then_global_topk(
             scores, ctx.rank * docs_per_shard, k, ctx.group)
+        mv = mv.float()
         return mv, mi, _advance_tau(mv, tau_init, k, index.num_docs)
 
     return serve_step
@@ -579,12 +625,14 @@ def make_serve_step(
     documents already retrieved in the same query stream.  A non-None
     ``deleted_mask`` raises ``NotImplementedError``.  With ``cfg.obs`` set
     each call is a fenced ``serve.shard_step`` span and counts
-    ``serve.shard_steps_total``.
+    ``serve.shard_steps_total``.  ``compute_dtype`` is float32 or
+    bfloat16 (the module doc's contract); any other raises
+    ``NotImplementedError``.
     """
-    if compute_dtype != torch.float32:
+    if compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(
             f"compute_dtype={compute_dtype}: the port's scoring kernels "
-            "are float32 only"
+            "have float32 and bfloat16 routes only"
         )
     if cfg is None:
         cfg = RetrievalConfig(engine=engine or "tiled",
@@ -592,7 +640,7 @@ def make_serve_step(
     engine = engine or cfg.engine
     k = k or cfg.k
     factory = registry.get_serve_factory(engine)
-    ctx = _Group(group, *group_rank_size(group))
+    ctx = _Group(group, *group_rank_size(group), compute_dtype)
     step = factory(ctx, k=k, docs_per_shard=docs_per_shard,
                    geometry=geometry, cfg=cfg,
                    hierarchical_merge=hierarchical_merge)
@@ -617,12 +665,31 @@ def _serve_factory_ell(ctx, *, k, docs_per_shard, geometry, cfg,
                        hierarchical_merge):
     def local_scores(local: EllIndex, queries, qw, tau_init, index):
         qw = _query_weights(queries, qw, local.vocab_size,
-                            local.terms.device)
+                            local.terms.device, local.values.dtype)
         return ell_ops.ell_gather(qw, local.terms,
                                   local.values)[:, :docs_per_shard]
 
     return _sharded_step(ctx, k, docs_per_shard, ShardedEllIndex, geometry,
                          local_scores)
+
+
+def _raw_tiled_shard(arrays, rank: int, docs_per_shard: int,
+                     geometry: dict, width: int, dtype) -> TiledIndex:
+    """Shard ``rank`` of raw shard-stacked ``(local_term, local_doc, value,
+    chunk_term_block, chunk_doc_block)`` arrays as a TiledIndex, its block
+    runs found from the chunks' doc blocks (a padded tail's chunks hold no
+    live slot and join the last run)."""
+    lt, ld, val, ctb, cdb = (torch.as_tensor(a)[rank] for a in arrays)
+    n_db = geometry["n_doc_blocks"]
+    start, count = _block_chunk_runs(torch.cummax(cdb, 0).values, n_db)
+    return TiledIndex(
+        local_term=lt, local_doc=ld, value=val.to(dtype),
+        chunk_term_block=ctb, chunk_doc_block=cdb, chunk_first=None,
+        tile_max=None, block_max=None, num_docs=docs_per_shard,
+        vocab_size=width, term_block=geometry["term_block"],
+        doc_block=geometry["doc_block"], chunk_size=geometry["chunk_size"],
+        block_chunk_start=start, block_chunk_count=count,
+    )
 
 
 @registry.register_serve_factory("tiled")
@@ -631,11 +698,33 @@ def _serve_factory_tiled(ctx, *, k, docs_per_shard, geometry, cfg,
     def local_scores(local: TiledIndex, queries, qw, tau_init, index):
         qw = _query_weights(queries, qw,
                             local.num_term_blocks * local.term_block,
-                            local.local_term.device)
+                            local.local_term.device, local.value.dtype)
         return scoring._score_blocks(qw, local)[:, :docs_per_shard]
 
-    return _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
+    step = _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
                          geometry, local_scores)
+
+    def serve_step(index, queries=None, qw=None, tau_init=None,
+                   deleted_mask=None):
+        if isinstance(index, ShardedTiledIndex):
+            return step(index, queries=queries, qw=qw, tau_init=tau_init,
+                        deleted_mask=deleted_mask)
+        # Raw (lt, ld, val, ctb, cdb) shard-stacked arrays, as JAX's step
+        # takes them: one shard a rank, each of docs_per_shard real docs.
+        _reject_deleted(deleted_mask)
+        if qw is None:
+            raise ValueError("a tiled step over raw arrays needs qw")
+        qw = torch.as_tensor(qw)
+        local = _raw_tiled_shard(index, ctx.rank, docs_per_shard, geometry,
+                                 qw.shape[1], ctx.dtype)
+        scores = local_scores(local, None, qw, tau_init, None)
+        mv, mi = topk_mod.local_then_global_topk(
+            scores, ctx.rank * docs_per_shard, k, ctx.group)
+        mv = mv.float()
+        num_real = int(torch.as_tensor(index[0]).shape[0]) * docs_per_shard
+        return mv, mi, _advance_tau(mv, tau_init, k, num_real)
+
+    return serve_step
 
 
 def _bmp_local(theta: float, k: int):
@@ -729,6 +818,109 @@ def _serve_factory_tiled_bmp_fused(ctx, *, k, docs_per_shard, geometry,
                             stacked=True)
 
 
+# -- the deprecated factories (JAX's historical make_retrieval_serve_step_*) --
+
+
+def _deprecated(old: str, new: str) -> None:
+    warnings.warn(f"{old} is deprecated; use {new}", DeprecationWarning,
+                  stacklevel=3)
+
+
+def make_retrieval_serve_step(group=None, *, k: int, docs_per_shard: int,
+                              hierarchical_merge: bool = True,
+                              compute_dtype=torch.float32):
+    """Deprecated: ``make_serve_step(engine="ell", ...)``.
+
+    Original contract preserved: ``serve_step(index, qw) -> (values,
+    global ids)``."""
+    _deprecated("make_retrieval_serve_step",
+                "make_serve_step(engine='ell', ...)")
+    step = make_serve_step(group, engine="ell", k=k,
+                           docs_per_shard=docs_per_shard,
+                           hierarchical_merge=hierarchical_merge,
+                           compute_dtype=compute_dtype)
+
+    def serve_step(index, qw):
+        mv, mi, _ = step(index, qw=qw)
+        return mv, mi
+
+    return serve_step
+
+
+def make_retrieval_serve_step_tiled(group=None, *, k: int,
+                                    docs_per_shard: int, geometry: dict,
+                                    hierarchical_merge: bool = True,
+                                    compute_dtype=torch.float32):
+    """Deprecated: ``make_serve_step(engine="tiled", ...)``.
+
+    Original contract preserved: ``serve_step(lt, ld, val, ctb, cdb, qw) ->
+    (values, global ids)`` over the raw shard-stacked arrays."""
+    _deprecated("make_retrieval_serve_step_tiled",
+                "make_serve_step(engine='tiled', ...)")
+    step = make_serve_step(group, engine="tiled", k=k,
+                           docs_per_shard=docs_per_shard, geometry=geometry,
+                           hierarchical_merge=hierarchical_merge,
+                           compute_dtype=compute_dtype)
+
+    def serve_step(lt, ld, val, ctb, cdb, qw):
+        mv, mi, _ = step((lt, ld, val, ctb, cdb), qw=qw)
+        return mv, mi
+
+    return serve_step
+
+
+def make_retrieval_serve_step_tiled_pruned(
+    group=None, *, k: int, docs_per_shard: int, geometry: dict,
+    seed_blocks: Optional[int] = None, hierarchical_merge: bool = True,
+    compute_dtype=torch.float32,
+):
+    """Deprecated: ``make_serve_step(engine="tiled-pruned",
+    cfg=RetrievalConfig(traversal="two-pass"), ...)``.
+
+    Original contract preserved: ``serve_step(index, queries, qw) ->
+    (values, global ids)``."""
+    _deprecated("make_retrieval_serve_step_tiled_pruned",
+                "make_serve_step(engine='tiled-pruned', ...)")
+    cfg = RetrievalConfig(engine="tiled-pruned", traversal="two-pass", k=k,
+                          prune_seed_blocks=seed_blocks)
+    step = make_serve_step(group, engine="tiled-pruned", cfg=cfg, k=k,
+                           docs_per_shard=docs_per_shard, geometry=geometry,
+                           hierarchical_merge=hierarchical_merge,
+                           compute_dtype=compute_dtype)
+
+    def serve_step(index, queries, qw):
+        mv, mi, _ = step(index, queries=queries, qw=qw)
+        return mv, mi
+
+    return serve_step
+
+
+def make_retrieval_serve_step_tiled_bmp(
+    group=None, *, k: int, docs_per_shard: int, geometry: dict,
+    theta: float = 1.0, hierarchical_merge: bool = True,
+    compute_dtype=torch.float32,
+):
+    """Deprecated: ``make_serve_step(engine="tiled-pruned", ...)`` (or
+    ``engine="tiled-pruned-approx"`` with ``theta < 1``).
+
+    Original contract preserved: ``serve_step(index, queries, qw,
+    tau_init=None) -> (values, global ids, tau)``."""
+    _deprecated("make_retrieval_serve_step_tiled_bmp",
+                "make_serve_step(engine='tiled-pruned', ...)")
+    engine = "tiled-pruned-approx" if theta != 1.0 else "tiled-pruned"
+    cfg = RetrievalConfig(engine=engine, k=k,
+                          **({"theta": theta} if theta != 1.0 else {}))
+    step = make_serve_step(group, engine=engine, cfg=cfg, k=k,
+                           docs_per_shard=docs_per_shard, geometry=geometry,
+                           hierarchical_merge=hierarchical_merge,
+                           compute_dtype=compute_dtype)
+
+    def serve_step(index, queries, qw, tau_init=None):
+        return step(index, queries=queries, qw=qw, tau_init=tau_init)
+
+    return serve_step
+
+
 # -- state carried across from the JAX package -------------------------------
 
 ELL_FIELDS = ("terms", "values")
@@ -772,6 +964,9 @@ __all__ = [
     "ShardedEllIndex", "ShardedTiledIndex", "build_sharded_ell",
     "build_sharded_tiled", "snapshot_paged", "make_serve_step",
     "group_rank_size", "sharded_ell_from_numpy", "sharded_tiled_from_numpy",
+    "make_retrieval_serve_step", "make_retrieval_serve_step_tiled",
+    "make_retrieval_serve_step_tiled_pruned",
+    "make_retrieval_serve_step_tiled_bmp",
 ]
 
 

@@ -416,24 +416,42 @@ class EllIndex:
         return self.terms.device
 
 
+# Rows left-packed at once by fill_ell_rows: bounds its scratch (the
+# sort's int64 indices among it) to 2^26 slots.
+_ELL_ROW_ELEMS = 1 << 26
+
+
+def fill_ell_rows(docs: SparseBatch, terms: torch.Tensor,
+                  values: torch.Tensor) -> None:
+    """Write ``docs``' rows, left-packed, into the first ``docs.batch``
+    rows of ``terms``/``values`` [>= N, K] (which hold ``vocab_size`` and 0
+    already), a bounded number of rows at a time."""
+    n, v = docs.batch, docs.vocab_size
+    width = min(terms.shape[1], docs.max_terms)
+    step = max(1, _ELL_ROW_ELEMS // max(docs.max_terms, 1))
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        ids, vals = docs.term_ids[s:e], docs.values[s:e]
+        # Stable sort of each row on "is padding" moves live slots first.
+        order = torch.sort((ids < 0).to(torch.int8), dim=1,
+                           stable=True).indices
+        ids = ids.gather(1, order)[:, :width]
+        vals = vals.gather(1, order)[:, :width]
+        terms[s:e, :width] = torch.where(ids >= 0, ids, v).to(torch.int32)
+        values[s:e, :width] = torch.where(ids >= 0, vals, 0.0)
+
+
 def build_ell_index(
     docs: SparseBatch, k_pad: int = SUBLANE, n_pad: int = SUBLANE
 ) -> EllIndex:
     """Left-packed padded term lists, on ``docs``' device."""
     n, v = docs.batch, docs.vocab_size
-    live = docs.term_ids >= 0
-    lens = live.sum(dim=1)
+    lens = docs.nnz_per_row()
     k = ceil_to(max(int(lens.max()) if n else 1, 1), k_pad)
     npad = ceil_to(max(n, 1), n_pad)
-    # Stable sort of each row on "is padding" moves live slots to the front.
-    order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
-    width = min(k, docs.max_terms)
-    ids = docs.term_ids.gather(1, order)[:, :width]
-    vals = docs.values.gather(1, order)[:, :width]
     terms = torch.full((npad, k), v, dtype=torch.int32, device=docs.device)
     values = torch.zeros((npad, k), dtype=torch.float32, device=docs.device)
-    terms[:n, :width] = torch.where(ids >= 0, ids, v).to(torch.int32)
-    values[:n, :width] = torch.where(ids >= 0, vals, 0.0)
+    fill_ell_rows(docs, terms, values)
     return EllIndex(terms, values, n, v)
 
 

@@ -40,6 +40,17 @@ arguments, which carry over unchanged).
 
 TF32 is off for the whole package (set in ``repro_torch/__init__.py``), so
 ``score_dense`` and the bound products on the card are full-f32.
+
+The compute dtype is the index's: an index whose values are bf16 (the
+sharded steps' ``compute_dtype=torch.bfloat16``) scores through the
+kernels' bf16 routes.  The query weights are rounded to bf16 (to nearest,
+ties to even), each product of two bf16 numbers is exact in f32, the
+products are summed in f32, and each score is rounded once to bf16; the
+exact engines return bf16 scores, the BMP sweeps f32 ones holding the
+rounded values.  The block bounds stay f32 over the f32 bound storage;
+the prune and retire tests widen their margin to cover the roundings
+(:data:`repro_torch.kernels.bmp_scan.ref.MARGIN_REL`), so every pruned
+engine keeps the exact top-k of these scores, ties to the lower id.
 """
 from __future__ import annotations
 
@@ -54,6 +65,7 @@ from repro_torch.core import topk as topk_mod
 from repro_torch.core.index import EllIndex, FlatIndex, TiledIndex
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
+from repro_torch.kernels.bmp_scan import ref as bmp_ref
 from repro_torch.kernels.ell_gather import ops as ell_ops
 from repro_torch.kernels.scatter_score import ops as scatter_ops
 from repro_torch.sched import planner as planner_mod
@@ -105,13 +117,13 @@ def topk_f64(queries: SparseBatch, docs: SparseBatch, k: int):
 
 def _pad_queries_to_term_blocks(queries: SparseBatch,
                                 index: TiledIndex) -> torch.Tensor:
-    """[B, V_pad] query weights, the vocab padded up to a term-block
-    multiple: every tile is whole."""
+    """[B, V_pad] query weights in the index's compute dtype, the vocab
+    padded up to a term-block multiple: every tile is whole."""
     qw = queries.to_dense()
     v_pad = index.num_term_blocks * index.term_block
     if v_pad > qw.shape[1]:
         qw = F.pad(qw, (0, v_pad - qw.shape[1]))
-    return qw
+    return qw.to(index.value.dtype)
 
 
 def _score_blocks(qw: torch.Tensor, index: TiledIndex,
@@ -144,7 +156,8 @@ def score_tiled(queries: SparseBatch, index: TiledIndex) -> torch.Tensor:
 def score_ell(queries: SparseBatch, index: EllIndex) -> torch.Tensor:
     """Doc-parallel: every document's full term list is gathered against
     the dense query matrix — bandwidth-friendly streaming, O(N*k*B)."""
-    out = ell_ops.ell_gather(queries.to_dense(), index.terms, index.values)
+    qw = queries.to_dense().to(index.values.dtype)
+    out = ell_ops.ell_gather(qw, index.terms, index.values)
     return out[:, : index.num_docs]
 
 
@@ -196,11 +209,13 @@ def score_segment(queries: SparseBatch, index: FlatIndex) -> torch.Tensor:
 # Block-max bounds (shared by every pruned engine)
 
 
-def _prune_margin(tau: torch.Tensor) -> torch.Tensor:
-    """f32 rounding envelope of the skip test: the bound and the exact
-    scores sum in different orders, so a tight bound can round a few ulps
-    below tau in a near-tie; blocks within it are kept."""
-    return 1e-4 * tau.abs() + 1e-6
+def _prune_margin(tau: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Rounding envelope of the skip test for scores of ``dtype``: the
+    bound and the exact scores sum in different orders, so a tight bound
+    can round a few ulps below tau in a near-tie, and bf16 scores are
+    rounded where the bound is not; blocks within it are kept
+    (:func:`repro_torch.kernels.bmp_scan.ref.prune_margin`)."""
+    return bmp_ref.prune_margin(tau, dtype)
 
 
 def query_block_mass(qw: torch.Tensor, term_block: int) -> torch.Tensor:
@@ -261,7 +276,7 @@ def block_upper_bounds(queries: SparseBatch, index: TiledIndex,
         return torch.einsum("bkd,bk->bd", rows, w)
     if qw is None:
         qw = _pad_queries_to_term_blocks(queries, index)
-    return query_block_mass(qw, index.term_block) @ index.block_max
+    return query_block_mass(qw.float(), index.term_block) @ index.block_max
 
 
 @dataclasses.dataclass
@@ -348,12 +363,12 @@ def _pruned_passes(qw, index: TiledIndex, ub, term_seeds, alive_doc, *,
     scores1 = _score_blocks(qw, index, seeded_any)
     masked1 = torch.where(_doc_mask(seeded_any, d_blk, n_docs, alive_doc),
                           scores1[:, :n_docs], NEG_INF)
-    tau = topk_mod.partial_topk_threshold(masked1, k_eff)
+    tau = topk_mod.partial_topk_threshold(masked1, k_eff).float()
     del masked1
     # Pass 2 — every unseeded block some query's bound can still beat tau
-    # with (>=, and the margin keeps f32 near-ties).
-    needed_any = (ub >= (tau - _prune_margin(tau))[:, None]).any(dim=0) \
-        & ~seeded_any
+    # with (>=, and the margin keeps near-ties and the scores' roundings).
+    margin = _prune_margin(tau, scores1.dtype)
+    needed_any = (ub >= (tau - margin)[:, None]).any(dim=0) & ~seeded_any
     scores2 = _score_blocks(qw, index, needed_any)
     scores = torch.where(seeded_any.repeat_interleave(d_blk)[None, :],
                          scores1, scores2)

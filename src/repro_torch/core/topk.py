@@ -27,6 +27,39 @@ def _by_value_then_key(x: torch.Tensor, pos: torch.Tensor, key: torch.Tensor):
     return pos.gather(-1, order)
 
 
+# Rows of a selection by position done at once: bounds its scratch (a
+# mask of the row's entries at or above its k-th value) to 2^27 entries a
+# step whatever the row length ([500, 8.8M] scores at serve_8m).
+_TIE_ELEMS = 1 << 27
+
+
+def _positions_at_or_above(x: torch.Tensor, kth: torch.Tensor,
+                           k: int) -> torch.Tensor:
+    """[R, k] positions of each row's top-k set, ties at the row's k-th
+    value ``kth`` [R, 1] to the lower position: every entry above it, then
+    the first entries equal to it.  Ascending positions.  One pass over the
+    rows: their entries at or above ``kth`` (about k of them a row, more
+    where the k-th value ties, as bf16 scores do in most rows), a few rows
+    at a time."""
+    rows, n = x.shape
+    out = torch.empty((rows, k), dtype=torch.long, device=x.device)
+    step = max(1, _TIE_ELEMS // max(n, 1))
+    for s in range(0, rows, step):
+        xs, ks = x[s:s + step], kth[s:s + step]
+        r, p = (xs >= ks).nonzero(as_tuple=True)  # row-major: p ascends
+        m = xs.shape[0]
+        gt = xs[r, p] > ks[r, 0]
+        eq = ~gt
+        # Each tied entry's rank among its row's tied entries.
+        per_row = torch.bincount(r, weights=eq.double(), minlength=m).long()
+        before = torch.cumsum(per_row, 0) - per_row
+        rank = torch.cumsum(eq.long(), 0) - before[r]
+        need = k - torch.bincount(r[gt], minlength=m)
+        keep = gt | (eq & (rank <= need[r]))
+        out[s:s + step] = p[keep].view(m, k)
+    return out
+
+
 def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
                     ordered: bool = True):
     """(values, positions) of the top ``k`` along the last axis, ties to
@@ -35,17 +68,25 @@ def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
     no particular order."""
     *lead, n = scores.shape
     x = scores.reshape(-1, n)
+    by_position = key is None
     key = (torch.arange(n, device=x.device).expand_as(x) if key is None
            else key.reshape(-1, n))
     vals, pos = torch.topk(x, k, dim=-1, sorted=False)
     if x.shape[0] and k and not x.is_meta:  # meta holds no value to tie
-        # Rows where more than k entries reach the k-th value: topk picked
-        # an arbitrary subset of the tie; take its lowest keys instead.
         kth = vals.min(dim=-1, keepdim=True).values
-        tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)
-        if tied.numel():
-            full = torch.arange(n, device=x.device).expand(tied.numel(), n)
-            pos[tied] = _by_value_then_key(x[tied], full, key[tied])[:, :k]
+        if by_position:
+            # The exact set by position, tied or not: topk may have picked
+            # an arbitrary subset of a tie at the k-th value.
+            pos = _positions_at_or_above(x, kth, k)
+        else:
+            # Rows where more than k entries reach the k-th value: take
+            # the tie's lowest keys.
+            tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)
+            if tied.numel():
+                full = torch.arange(n, device=x.device).expand(
+                    tied.numel(), n)
+                pos[tied] = _by_value_then_key(x[tied], full,
+                                               key[tied])[:, :k]
     if ordered:
         pos = _by_value_then_key(x, pos, key)
     return x.gather(-1, pos).reshape(*lead, k), pos.reshape(*lead, k)

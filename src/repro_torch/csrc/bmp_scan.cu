@@ -68,6 +68,15 @@
 // exactly lax.top_k's values and tau is bit-identical.  The retire test
 // rounds as the plain version (no contraction to FMA).
 //
+// Two element types: f32, and bf16, where the value stream and the query
+// weights are read as bf16 (half the bytes; a TMA chunk line's values are
+// C x 2 bytes, so the small route takes C a multiple of 8 there), widened
+// exactly to f32 and summed in the order above; a block's window is
+// rounded once to bf16 when it is complete, as it is written to the
+// scores (held widened in f32), so the heap and tau see the rounded
+// values.  The retire test's relative margin is the caller's (ops.py:
+// 1e-4 for f32, a wider one for bf16 that covers the roundings).
+//
 // What bounds it: the HBM floor is one read of the demanded chunk lines of
 // nonzero term blocks, the windows written once, the heaps and the weights.
 // A group's steps are sequential (each retire test reads the last fold's
@@ -80,6 +89,7 @@
 #include <math_constants.h>
 
 #include "hopper.cuh"
+#include "query_tiles.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -97,11 +107,13 @@ constexpr int kMaxRows = 8;       // small: the most rows a group has
 constexpr int kPipeState = 20;    // small: alive[8], tau[8], stop
 constexpr int kMaxSmem = 232448;
 
+// The element arrays (qwt, nz_w, value) are f32 or bf16: the kernels'
+// Val template argument says which.
 struct Params {
-  const float* qwt;             // wide: [G, v_pad, b_pad]
+  const void* qwt;              // wide: [G, v_pad, b_pad]
   const unsigned* nz_bits;      // small: [G, n_words]
   const int* nz_rank;           // small: [G, n_words]
-  const float* nz_w;            // small: [G, nz_cap, tile]
+  const void* nz_w;             // small: [G, nz_cap, tile]
   const int* tb_nz;             // [G, n_tb]
   const int* order;             // [G, b, n_db]
   const float* ub_sorted;       // [G, b, n_db]
@@ -111,7 +123,7 @@ struct Params {
   const int* chunk_term_block;  // [num_chunks]
   const int* local_term;        // [num_chunks, C]
   const int* local_doc;         // [num_chunks, C]
-  const float* value;           // [num_chunks, C]
+  const void* value;            // [num_chunks, C]
   const unsigned char* alive_doc;  // [num_docs] or null
   float* scores;                // [G, b, n_pad]
   float* heap;                  // [G, b, k_eff]
@@ -121,7 +133,7 @@ struct Params {
   int b, b_pad;
   long long v_pad;
   int n_db, num_chunks, term_block, doc_block, chunk_size, k_eff;
-  float theta;
+  float theta, margin_rel;
   long long num_docs, n_pad;
   int n_words, nz_cap, nz_in_smem, n_tb, max_run, cluster;
   float* spec;       // small: [G, spec_workers, tile, doc_block * tile]
@@ -142,10 +154,19 @@ __device__ __forceinline__ unsigned lanes_below(int lane) {
 
 // The retire test, rounded as the plain version: separate f32 multiply,
 // add and subtract (no contraction to FMA).
-__device__ __forceinline__ bool stays_alive(float theta, float ub,
+__device__ __forceinline__ bool stays_alive(const Params& p, float ub,
                                             float tau) {
-  const float margin = __fadd_rn(__fmul_rn(1e-4f, fabsf(tau)), 1e-6f);
-  return __fmul_rn(theta, ub) >= __fsub_rn(tau, margin);
+  const float margin = __fadd_rn(__fmul_rn(p.margin_rel, fabsf(tau)), 1e-6f);
+  return __fmul_rn(p.theta, ub) >= __fsub_rn(tau, margin);
+}
+
+// A complete window's score as the scores keep it: f32 as summed; bf16
+// rounded once to the nearest bf16 (ties to even), held widened.
+template <class Val>
+__device__ __forceinline__ float kept(float x) {
+  Val r;
+  query_tiles::store(&r, x);
+  return query_tiles::widen(r);
 }
 
 // The wide route's end of a step's scoring: every CTA of the group has
@@ -260,7 +281,7 @@ struct SmallShared {
   float* window;   // a block's [doc][tile] rows
   const unsigned* bits;
   const int* rank;
-  const float* w;  // shared or device memory
+  const void* w;   // shared or device memory, Val [nz_cap][tile]
   unsigned* mask;  // one bit a slot
   float* carry;    // [32][tile]
   int* carry_doc;  // [32]
@@ -289,16 +310,18 @@ struct Ring {
   __device__ uint32_t bar(long long k) const {
     return hopper::smem_u32(bars + k % kDepth);
   }
+  template <class Val>
   __device__ void issue(const Params& p, long long k, int c) const {
     const uint32_t bytes = static_cast<uint32_t>(C) * 4;
+    const uint32_t vbytes = static_cast<uint32_t>(C) * sizeof(Val);
     const long long at = static_cast<long long>(c) * C;
     int* dst = slot(k);
-    hopper::mbar_arrive_expect_tx(bar(k), 3 * bytes);
+    hopper::mbar_arrive_expect_tx(bar(k), 2 * bytes + vbytes);
     hopper::bulk_load(hopper::smem_u32(dst), p.local_term + at, bytes, bar(k));
     hopper::bulk_load(hopper::smem_u32(dst + C), p.local_doc + at, bytes,
                       bar(k));
-    hopper::bulk_load(hopper::smem_u32(dst + 2 * C), p.value + at, bytes,
-                      bar(k));
+    hopper::bulk_load(hopper::smem_u32(dst + 2 * C),
+                      static_cast<const Val*>(p.value) + at, vbytes, bar(k));
   }
   __device__ void wait(long long k) const {
     hopper::mbar_wait(bar(k), static_cast<int>((k / kDepth) & 1));
@@ -307,9 +330,9 @@ struct Ring {
 
 // Adds one staged chunk's postings of docs [dlo, dhi) to their window rows
 // (row d - dlo), in scatter_score's order (see the header).
-template <int kTile>
+template <int kTile, class Val>
 __device__ void score_chunk(const Params& p, const SmallShared& s,
-                            const int* lt, const int* ld, const float* val,
+                            const int* lt, const int* ld, const Val* val,
                             int tb, int dlo, int dhi, int lane) {
   const int C = p.chunk_size, T = p.term_block;
   const long long tbase = static_cast<long long>(tb) * T;
@@ -414,10 +437,13 @@ __device__ void score_chunk(const Params& p, const SmallShared& s,
     const int word = static_cast<int>(t >> 5);
     const unsigned below = lanes_below(static_cast<int>(t & 31));
     const int slot = s.rank[word] + __popc(s.bits[word] & below);
-    const float v = val[x];
-    const float* w = s.w + static_cast<long long>(slot) * kTile;
+    const float v = query_tiles::widen(val[x]);
+    const Val* w = static_cast<const Val*>(s.w) +
+                   static_cast<long long>(slot) * kTile;
 #pragma unroll
-    for (int r = 0; r < kTile; ++r) acc[r] = fmaf(w[r], v, acc[r]);
+    for (int r = 0; r < kTile; ++r) {
+      acc[r] = fmaf(query_tiles::widen(w[r]), v, acc[r]);
+    }
   }
   if (cur >= 0) emit();
   __syncwarp();
@@ -439,7 +465,7 @@ __device__ void score_chunk(const Params& p, const SmallShared& s,
 // Fills s.window with docs [dlo, dhi) of block blk for every row, from the
 // block's chunks of a term block with a nonzero weight, in run order.
 // `issued` counts the chunks the ring has taken so far.
-template <int kTile, int kDepth>
+template <int kTile, int kDepth, class Val>
 __device__ void fill_window(const Params& p, const SmallShared& s,
                             const Ring<kDepth>& ring, long long& issued,
                             int* clist, int* ctb, const int* tbnz, int blk,
@@ -467,25 +493,28 @@ __device__ void fill_window(const Params& p, const SmallShared& s,
   __syncwarp();
   const long long k0 = issued;
   if (lane == 0) {
-    for (int t = 0; t < min(n, kDepth); ++t) ring.issue(p, k0 + t, clist[t]);
+    for (int t = 0; t < min(n, kDepth); ++t) {
+      ring.template issue<Val>(p, k0 + t, clist[t]);
+    }
   }
   for (int t = 0; t < n; ++t) {
     ring.wait(k0 + t);
     const int* buf = ring.slot(k0 + t);
     score_chunk<kTile>(p, s, buf, buf + p.chunk_size,
-                       reinterpret_cast<const float*>(buf + 2 * p.chunk_size),
+                       reinterpret_cast<const Val*>(buf + 2 * p.chunk_size),
                        ctb[t], dlo, dhi, lane);
     __syncwarp();  // every lane is done with the slot
     if (lane == 0 && t + kDepth < n) {
-      ring.issue(p, k0 + t + kDepth, clist[t + kDepth]);
+      ring.template issue<Val>(p, k0 + t + kDepth, clist[t + kDepth]);
     }
   }
   issued = k0 + n;
 }
 
-// Writes the window of docs [dlo, dhi) of block blk to group g's scores;
-// with `mark`, marks every chunk of the block's run scored.
-template <int kTile>
+// Writes the window of docs [dlo, dhi) of block blk to group g's scores
+// (each score kept<Val>); with `mark`, marks every chunk of the block's run
+// scored.
+template <int kTile, class Val>
 __device__ void commit_window(const Params& p, const float* window, int g,
                               int blk, int dlo, int dhi, bool mark,
                               int lane) {
@@ -493,7 +522,8 @@ __device__ void commit_window(const Params& p, const float* window, int g,
                static_cast<long long>(blk) * p.doc_block + dlo;
   for (int r = 0; r < p.b; ++r) {
     for (int x = lane; x < dhi - dlo; x += 32) {
-      out[static_cast<long long>(r) * p.n_pad + x] = window[x * kTile + r];
+      out[static_cast<long long>(r) * p.n_pad + x] =
+          kept<Val>(window[x * kTile + r]);
     }
   }
   if (mark) {
@@ -548,7 +578,15 @@ struct PipeLayout {
   }
 };
 
-template <int kTile>
+// The packed weights' words in shared memory (0: read from device memory).
+template <class Val>
+__host__ __device__ inline int weight_words(int nz_in_smem, int nz_cap,
+                                            int tile) {
+  return nz_in_smem ? (nz_cap * tile * static_cast<int>(sizeof(Val)) + 3) / 4
+                    : 0;
+}
+
+template <int kTile, class Val>
 __global__ void __launch_bounds__(32 * kPipeWarps) sweep_small(Params p) {
   extern __shared__ __align__(16) int smem_small[];
   const int D = p.doc_block, C = p.chunk_size, b = p.b, n_db = p.n_db;
@@ -557,13 +595,15 @@ __global__ void __launch_bounds__(32 * kPipeWarps) sweep_small(Params p) {
   const int g = blockIdx.x / R, rank = blockIdx.x % R;
   const int K = R * kPipeWarps, me = rank * kPipeWarps + warp;
   const PipeLayout lay(kTile, D, C, p.n_words, p.n_tb,
-                       p.nz_in_smem ? p.nz_cap * kTile : 0, p.max_run);
+                       weight_words<Val>(p.nz_in_smem, p.nz_cap, kTile),
+                       p.max_run);
   int* sm = smem_small;
   unsigned* bits = reinterpret_cast<unsigned*>(sm + lay.bits);
   int* rnk = sm + lay.rank;
   int* tbnz = sm + lay.tbnz;
-  float* w = reinterpret_cast<float*>(sm + lay.w);
-  const float* gw = p.nz_w + static_cast<long long>(g) * p.nz_cap * kTile;
+  Val* w = reinterpret_cast<Val*>(sm + lay.w);
+  const Val* gw = static_cast<const Val*>(p.nz_w) +
+                  static_cast<long long>(g) * p.nz_cap * kTile;
   for (int x = threadIdx.x; x < p.n_words; x += blockDim.x) {
     bits[x] = p.nz_bits[static_cast<long long>(g) * p.n_words + x];
     rnk[x] = p.nz_rank[static_cast<long long>(g) * p.n_words + x];
@@ -638,8 +678,8 @@ __global__ void __launch_bounds__(32 * kPipeWarps) sweep_small(Params p) {
       nc = __popc(m);
       __syncwarp();
       for (int j = 0; j < nc; ++j) {
-        fill_window<kTile>(p, s, ring, issued, clist, ctb, tbnz, cand[j], 0,
-                           D, lane);
+        fill_window<kTile, kPipeStages, Val>(p, s, ring, issued, clist, ctb,
+                                             tbnz, cand[j], 0, D, lane);
         float* out = spec + j * D * kTile;
         for (int x = lane; x < D * kTile; x += 32) out[x] = s.window[x];
         __syncwarp();
@@ -658,7 +698,7 @@ __global__ void __launch_bounds__(32 * kPipeWarps) sweep_small(Params p) {
       int blk = n_db;
       if (row) {
         const long long at = static_cast<long long>(lane) * n_db + i;
-        if (alive) alive = stays_alive(p.theta, ubs[at], s_tau[lane]);
+        if (alive) alive = stays_alive(p, ubs[at], s_tau[lane]);
         blk = order[at];
       }
       const bool fresh = row && alive && !__ldcg(bscored + blk);
@@ -678,7 +718,8 @@ __global__ void __launch_bounds__(32 * kPipeWarps) sweep_small(Params p) {
         int j = 0;
         while (cand[j] != d) ++j;
         if (lane == 0) bscored[d] = 1;
-        commit_window<kTile>(p, spec + j * D * kTile, g, d, 0, D, true, lane);
+        commit_window<kTile, Val>(p, spec + j * D * kTile, g, d, 0, D, true,
+                                  lane);
       }
       const unsigned folds = __ballot_sync(kFull, row && alive);
       for (unsigned f = folds; f; f &= f - 1) {
@@ -739,16 +780,22 @@ struct WideLayout {
 };
 
 // Start copying chunk c into the shared buffer [lt | ld | v] at dst and its
-// term block id into *tb (the caller commits the copy group).
+// term block id into *tb (the caller commits the copy group).  The values
+// go by 4-byte words (bf16: two a word; the launcher takes an even C).
+template <class Val>
 __device__ __forceinline__ void stage_chunk(int* dst, int* tb, const Params& p,
                                             int c) {
   const long long base = static_cast<long long>(c) * p.chunk_size;
+  const int* v = reinterpret_cast<const int*>(
+      static_cast<const Val*>(p.value) + base);
+  const int v_words = p.chunk_size * static_cast<int>(sizeof(Val)) / 4;
   for (int j = threadIdx.x; j < p.chunk_size; j += kWideThreads) {
     __pipeline_memcpy_async(dst + j, p.local_term + base + j, sizeof(int));
     __pipeline_memcpy_async(dst + p.chunk_size + j, p.local_doc + base + j,
                             sizeof(int));
-    __pipeline_memcpy_async(dst + 2 * p.chunk_size + j, p.value + base + j,
-                            sizeof(float));
+    if (j < v_words) {
+      __pipeline_memcpy_async(dst + 2 * p.chunk_size + j, v + j, sizeof(int));
+    }
   }
   if (threadIdx.x == 0) {
     __pipeline_memcpy_async(tb, p.chunk_term_block + c, sizeof(int));
@@ -771,7 +818,7 @@ __device__ __forceinline__ void decode(int t, int total, const int* doff,
   c = dstart[j] + (u - doff[j]);
 }
 
-template <int kQpl>
+template <int kQpl, class Val>
 __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
   constexpr int kQueryTile = 32 * kQpl;
   constexpr int kRowStride = kQueryTile + 1;  // odd: conflict-free columns
@@ -799,7 +846,8 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
   const int b = p.b, n_db = p.n_db, D = p.doc_block, C = p.chunk_size;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float* qwt = p.qwt + static_cast<long long>(g) * p.v_pad * p.b_pad;
+  const Val* qwt = static_cast<const Val*>(p.qwt) +
+                  static_cast<long long>(g) * p.v_pad * p.b_pad;
   const int* order = p.order + static_cast<long long>(g) * b * n_db;
   const float* ubs = p.ub_sorted + static_cast<long long>(g) * b * n_db;
   float* scores = p.scores + static_cast<long long>(g) * b * p.n_pad;
@@ -835,7 +883,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
           int a = s_alive[r];
           const long long at = static_cast<long long>(r) * n_db + i;
           if (a) {
-            a = stays_alive(p.theta, ubs[at], s_tau[r]);
+            a = stays_alive(p, ubs[at], s_tau[r]);
             s_alive[r] = a;
           }
           const int blk = order[at];
@@ -907,7 +955,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
         decode(t, total, doff, dstart, nl, tile, j, c);
         const int slot = t % kStages;
         const bool keep = s_tbnz[__ldg(p.chunk_term_block + c)] != 0;
-        if (keep) stage_chunk(bufs + slot * 3 * C, s_tb + slot, p, c);
+        if (keep) stage_chunk<Val>(bufs + slot * 3 * C, s_tb + slot, p, c);
         if (threadIdx.x == 0) s_skip[slot] = !keep;
       };
       for (int s = 0; s < kStages - 1; ++s) {
@@ -925,12 +973,12 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
         decode(t, total, doff, dstart, nl, tile, j, c);
         const int q0 = tile * kQueryTile;
         if (!s_skip[slot]) {
-          const float* qcol = qwt + q0 + lane;
+          const Val* qcol = qwt + q0 + lane;
           const long long row0 =
               static_cast<long long>(s_tb[slot]) * p.term_block;
           const int* s_lt = bufs + slot * 3 * C;
           const int* s_ld = s_lt + C;
-          const float* s_v = reinterpret_cast<const float*>(s_ld + C);
+          const Val* s_v = reinterpret_cast<const Val*>(s_ld + C);
 
           // The live slots are a prefix of the chunk; split them evenly.
           int n_live = 0;
@@ -967,12 +1015,14 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
             for (int jj = 0; jj < kBatch; ++jj) {
               const int pp = p0 + jj;
               const int lt = pp < slice_end ? s_lt[pp] : 0;
-              const float* q =
+              const Val* q =
                   qcol + (row0 + (lt >= 0 && lt < p.term_block ? lt : 0)) *
                              p.b_pad;
 #pragma unroll
               for (int q2 = 0; q2 < kQpl; ++q2) {
-                gw[jj][q2] = pp < slice_end ? __ldg(q + 32 * q2) : 0.f;
+                gw[jj][q2] = pp < slice_end
+                                 ? query_tiles::widen(__ldg(q + 32 * q2))
+                                 : 0.f;
               }
             }
 #pragma unroll
@@ -991,7 +1041,9 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
 #pragma unroll
                 for (int q = 0; q < kQpl; ++q) acc[q] = 0.f;
               }
-              const float w = lt >= 0 && lt < p.term_block ? s_v[pp] : 0.f;
+              const float w = lt >= 0 && lt < p.term_block
+                                  ? query_tiles::widen(s_v[pp])
+                                  : 0.f;
 #pragma unroll
               for (int q = 0; q < kQpl; ++q) {
                 acc[q] = fmaf(gw[jj][q], w, acc[q]);
@@ -1021,7 +1073,7 @@ __global__ void __launch_bounds__(kWideThreads, 1) sweep_wide(Params p) {
             const int d = x - q * D;
             if (q0 + q < b) {
               scores[static_cast<long long>(q0 + q) * p.n_pad + col0 + d] =
-                  window[d * kRowStride + q];
+                  kept<Val>(window[d * kRowStride + q]);
             }
             window[d * kRowStride + q] = 0.f;
           }
@@ -1095,21 +1147,78 @@ cudaError_t launch(Kernel kernel, int threads, int smem, Params p, int groups,
   return cudaGetLastError();
 }
 
+template <class Val>
+int launch_route(int route, int tile, int cluster, long long smem,
+                 int* cluster_used, const Params& p, int groups,
+                 cudaStream_t s) {
+  if (cluster < 1 || cluster > 16 || smem > kMaxSmem) {
+    return cudaErrorInvalidValue;
+  }
+  const int C = p.chunk_size;
+  if (route == 0) {  // small: tile = b rounded up to a power of two <= 8
+    // A TMA copy moves a multiple of 16 bytes from a 16-byte boundary.
+    if (p.b > tile || (C * static_cast<int>(sizeof(Val))) % 16 != 0 ||
+        C > 512) {
+      return cudaErrorInvalidValue;
+    }
+    const PipeLayout lay(tile, p.doc_block, C, p.n_words, p.n_tb,
+                         weight_words<Val>(p.nz_in_smem, p.nz_cap, tile),
+                         p.max_run);
+    if (static_cast<long long>(lay.total) * 4 != smem ||
+        p.spec_workers < cluster * kPipeWarps) {
+      return cudaErrorInvalidValue;  // ops.py and this file disagree
+    }
+    const int bytes = static_cast<int>(smem);
+    const int threads = 32 * kPipeWarps;
+    switch (tile) {
+      case 1: return launch(sweep_small<1, Val>, threads, bytes, p, groups,
+                            cluster, cluster_used, s);
+      case 2: return launch(sweep_small<2, Val>, threads, bytes, p, groups,
+                            cluster, cluster_used, s);
+      case 4: return launch(sweep_small<4, Val>, threads, bytes, p, groups,
+                            cluster, cluster_used, s);
+      case 8: return launch(sweep_small<8, Val>, threads, bytes, p, groups,
+                            cluster, cluster_used, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (route != 1 || p.b_pad % tile != 0 ||
+      (C * static_cast<int>(sizeof(Val))) % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const WideLayout lay(tile, p.doc_block, C, p.b, p.n_tb);
+  if (static_cast<long long>(lay.words()) * 4 != smem) {
+    return cudaErrorInvalidValue;  // ops.py and this file disagree
+  }
+  const int bytes = static_cast<int>(smem);
+  if (tile == 32) {
+    return launch(sweep_wide<1, Val>, kWideThreads, bytes, p, groups, cluster,
+                  cluster_used, s);
+  }
+  if (tile == 128) {
+    return launch(sweep_wide<4, Val>, kWideThreads, bytes, p, groups, cluster,
+                  cluster_used, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// bf16 = 0: qwt, nz_w and value are f32; 1: bf16.  The retire test's
+// margin is margin_rel * |tau| + 1e-6.
 extern "C" int bmp_scan_launch(
     int route, int tile, int cluster, long long smem, int* cluster_used,
-    const float* qwt, const unsigned* nz_bits, const int* nz_rank,
-    const float* nz_w, const int* tb_nz, const int* order,
+    int bf16, const void* qwt, const unsigned* nz_bits, const int* nz_rank,
+    const void* nz_w, const int* tb_nz, const int* order,
     const float* ub_sorted, const float* tau0, const int* block_chunk_start,
     const int* block_chunk_count, const int* chunk_term_block,
-    const int* local_term, const int* local_doc, const float* value,
+    const int* local_term, const int* local_doc, const void* value,
     const unsigned char* alive_doc, float* scores, float* heap,
     int* block_scored, int* chunk_scored, int* steps, int groups, int b,
     int b_pad, long long v_pad, int n_db, int num_chunks, int term_block,
-    int doc_block, int chunk_size, int k_eff, float theta, long long num_docs,
-    int n_words, int nz_cap, int nz_in_smem, int n_tb, int max_run,
-    float* spec, int spec_workers, int device, void* stream) {
+    int doc_block, int chunk_size, int k_eff, float theta, float margin_rel,
+    long long num_docs, int n_words, int nz_cap, int nz_in_smem, int n_tb,
+    int max_run, float* spec, int spec_workers, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   Params p{qwt, nz_bits, nz_rank, nz_w, tb_nz, order, ub_sorted, tau0,
@@ -1117,51 +1226,15 @@ extern "C" int bmp_scan_launch(
            local_term, local_doc, value, alive_doc, scores, heap,
            block_scored, chunk_scored, steps, b, b_pad, v_pad, n_db,
            num_chunks, term_block, doc_block, chunk_size, k_eff, theta,
-           num_docs, static_cast<long long>(n_db) * doc_block, n_words,
-           nz_cap, nz_in_smem, n_tb, max_run, 1, spec, spec_workers};
+           margin_rel, num_docs, static_cast<long long>(n_db) * doc_block,
+           n_words, nz_cap, nz_in_smem, n_tb, max_run, 1, spec, spec_workers};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cluster < 1 || cluster > 16 || smem > kMaxSmem) {
-    return cudaErrorInvalidValue;
+  if (bf16) {
+    return launch_route<unsigned short>(route, tile, cluster, smem,
+                                        cluster_used, p, groups, s);
   }
-  if (route == 0) {  // small: tile = b rounded up to a power of two <= 8
-    if (b > tile || chunk_size % 4 != 0 || chunk_size > 512) {
-      return cudaErrorInvalidValue;
-    }
-    const PipeLayout lay(tile, doc_block, chunk_size, n_words, n_tb,
-                         nz_in_smem ? nz_cap * tile : 0, max_run);
-    if (static_cast<long long>(lay.total) * 4 != smem ||
-        spec_workers < cluster * kPipeWarps) {
-      return cudaErrorInvalidValue;  // ops.py and this file disagree
-    }
-    const int bytes = static_cast<int>(smem);
-    const int threads = 32 * kPipeWarps;
-    switch (tile) {
-      case 1: return launch(sweep_small<1>, threads, bytes, p, groups,
-                            cluster, cluster_used, s);
-      case 2: return launch(sweep_small<2>, threads, bytes, p, groups,
-                            cluster, cluster_used, s);
-      case 4: return launch(sweep_small<4>, threads, bytes, p, groups,
-                            cluster, cluster_used, s);
-      case 8: return launch(sweep_small<8>, threads, bytes, p, groups,
-                            cluster, cluster_used, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-  if (route != 1 || b_pad % tile != 0) return cudaErrorInvalidValue;
-  const WideLayout lay(tile, doc_block, chunk_size, b, n_tb);
-  if (static_cast<long long>(lay.words()) * 4 != smem) {
-    return cudaErrorInvalidValue;  // ops.py and this file disagree
-  }
-  const int bytes = static_cast<int>(smem);
-  if (tile == 32) {
-    return launch(sweep_wide<1>, kWideThreads, bytes, p, groups, cluster,
-                  cluster_used, s);
-  }
-  if (tile == 128) {
-    return launch(sweep_wide<4>, kWideThreads, bytes, p, groups, cluster,
-                  cluster_used, s);
-  }
-  return cudaErrorInvalidValue;
+  return launch_route<float>(route, tile, cluster, smem, cluster_used, p,
+                             groups, s);
 }
 
 extern "C" const char* bmp_scan_error_string(int err) {

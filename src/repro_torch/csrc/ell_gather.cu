@@ -33,6 +33,13 @@
 // Skipped work adds nothing where the dense route adds +0 to a finite sum,
 // so both routes give the same bits.
 //
+// Two element types (query_tiles.cuh Types): f32, and bf16, where the
+// values, the packed weights and the slab are read as bf16 (half the
+// bytes), widened exactly to f32, multiplied exactly (a product of two
+// bf16 fits in f32) and summed in f32 as the f32 route sums them; each
+// score is rounded once to bf16 as it is written.  So the bf16 route's
+// scores are the f32 route's on the bf16-rounded inputs, rounded once.
+//
 // What bounds it: the HBM floor is one read of the ELL stream and one
 // write of the scores (~1.3 ms at serve_1m); the nonzero products are ~9 %
 // of postings x B.  The sparse route reads a record (8 B, through L2) a
@@ -58,8 +65,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Dense route: one doc's scores for the tile into row (slab points at this
 // lane's column of the tile's [V, kQueryTile] slab).
-__device__ void doc_dense(const int* trow, const float* vrow, int k,
-                          int vocab, const float* slab, float* row,
+template <class Val>
+__device__ void doc_dense(const int* trow, const Val* vrow, int k,
+                          int vocab, const Val* slab, float* row,
                           int lane) {
   float acc[kQpl];
 #pragma unroll
@@ -69,7 +77,7 @@ __device__ void doc_dense(const int* trow, const float* vrow, int k,
     float v = 0.f;
     if (s + lane < k) {
       t = trow[s + lane];
-      v = vrow[s + lane];
+      v = query_tiles::widen(vrow[s + lane]);
     }
     const bool live = t >= 0 && t < vocab;
     if (__ballot_sync(kFull, live) == 0u) continue;
@@ -79,9 +87,11 @@ __device__ void doc_dense(const int* trow, const float* vrow, int k,
     for (int j = 0; j < 32; ++j) {
       const int tj = __shfl_sync(kFull, t_safe, j);
       const float wj = __shfl_sync(kFull, w, j);
-      const float* q = slab + static_cast<long long>(tj) * kQueryTile;
+      const Val* q = slab + static_cast<long long>(tj) * kQueryTile;
 #pragma unroll
-      for (int r = 0; r < kQpl; ++r) acc[r] = fmaf(__ldg(q + 32 * r), wj, acc[r]);
+      for (int r = 0; r < kQpl; ++r) {
+        acc[r] = fmaf(query_tiles::widen(__ldg(q + 32 * r)), wj, acc[r]);
+      }
     }
   }
 #pragma unroll
@@ -90,20 +100,22 @@ __device__ void doc_dense(const int* trow, const float* vrow, int k,
 
 // Sparse route: one doc's scores for the tile, summed in row (shared).
 // The next batch's terms and values are loaded while this one is summed.
-__device__ void doc_sparse(const int* trow, const float* vrow, int k,
+template <class Val, class Entry>
+__device__ void doc_sparse(const int* trow, const Val* vrow, int k,
                            int vocab, const int2* rec_tile,
-                           const int2* __restrict__ entries, float* row,
+                           const Entry* __restrict__ entries, float* row,
                            int4* s_st, int lane) {
+  using query_tiles::widen;
 #pragma unroll
   for (int r = 0; r < kQpl; ++r) row[lane + 32 * r] = 0.f;
   int t_next = lane < k ? __ldcg(trow + lane) : -1;
-  float v_next = lane < k ? __ldcg(vrow + lane) : 0.f;
+  float v_next = lane < k ? widen(__ldcg(vrow + lane)) : 0.f;
   for (int s = 0; s < k; s += 32) {
     const int t = t_next;
     const float v = v_next;
     const bool more = s + 32 + lane < k;
     t_next = more ? __ldcg(trow + s + 32 + lane) : -1;
-    v_next = more ? __ldcg(vrow + s + 32 + lane) : 0.f;
+    v_next = more ? widen(__ldcg(vrow + s + 32 + lane)) : 0.f;
     // Records bypass L1, which keeps the tile's entries.
     const int2 rec = t >= 0 && t < vocab ? __ldcg(rec_tile + t) : make_int2(0, 0);
     __syncwarp();  // the previous batch's postings are consumed
@@ -115,15 +127,21 @@ __device__ void doc_sparse(const int* trow, const float* vrow, int k,
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 ell_gather_kernel(const int2* __restrict__ records,   // [n_tiles, vocab]
-                  const int2* __restrict__ entries,   // sparse tiles: [entries]
-                  const float* __restrict__ cw,       // dense tiles: [n, vocab, 128]
+                  const typename query_tiles::Types<kBf16>::Entry* __restrict__
+                      entries,                        // sparse tiles: [entries]
+                  const typename query_tiles::Types<kBf16>::Val* __restrict__
+                      cw,                             // dense tiles: [n, vocab, 128]
                   const int* __restrict__ tile_dense, // [n_tiles]
                   const int* __restrict__ terms,      // [n_pad, k]
-                  const float* __restrict__ values,   // [n_pad, k]
-                  float* __restrict__ out,            // [b, n_pad]
+                  const typename query_tiles::Types<kBf16>::Val* __restrict__
+                      values,                         // [n_pad, k]
+                  typename query_tiles::Types<kBf16>::Val* __restrict__
+                      out,                            // [b, n_pad]
                   int b, int n_tiles, int vocab, long long n_pad, int k) {
+  using Val = typename query_tiles::Types<kBf16>::Val;
   __shared__ float tile_s[kDocTile][kRowStride];
   __shared__ int4 s_st[kWarps][32];
   const int tile = blockIdx.x % n_tiles;
@@ -134,7 +152,7 @@ ell_gather_kernel(const int2* __restrict__ records,   // [n_tiles, vocab]
   const bool dense = tile_dense[tile] != 0;
   const int2* rec_tile = records + static_cast<long long>(tile) * vocab;
   // Dense route: the tile's slab starts at its first term's entries.
-  const float* slab = cw + (dense ? rec_tile[0].x : 0) + lane;
+  const Val* slab = cw + (dense ? rec_tile[0].x : 0) + lane;
 
   for (int r = 0; r < kDocsPerWarp; ++r) {
     const int dl = warp * kDocsPerWarp + r;
@@ -142,7 +160,7 @@ ell_gather_kernel(const int2* __restrict__ records,   // [n_tiles, vocab]
     float* row = tile_s[dl];
     if (n >= n_pad) continue;
     const int* trow = terms + n * k;
-    const float* vrow = values + n * k;
+    const Val* vrow = values + n * k;
     if (dense) {
       doc_dense(trow, vrow, k, vocab, slab, row, lane);
     } else {
@@ -156,30 +174,56 @@ ell_gather_kernel(const int2* __restrict__ records,   // [n_tiles, vocab]
     const int q = i / kDocTile;
     const int d = i % kDocTile;
     if (q0 + q < b && n0 + d < n_pad) {
-      out[static_cast<long long>(q0 + q) * n_pad + n0 + d] = tile_s[d][q];
+      query_tiles::store(out + static_cast<long long>(q0 + q) * n_pad + n0 + d,
+                         tile_s[d][q]);
     }
   }
 }
 
+template <bool kBf16>
+int launch(const int* records, const void* entries, const void* cw,
+           const int* tile_dense, const int* terms, const void* values,
+           void* out, int b, int n_tiles, int vocab, long long n_pad, int k,
+           int device, void* stream) {
+  using T = query_tiles::Types<kBf16>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_tiles < 1 || b > n_tiles * kQueryTile) return cudaErrorInvalidValue;
+  const long long blocks = (n_pad + kDocTile - 1) / kDocTile * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  ell_gather_kernel<kBf16><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int2*>(records),
+      static_cast<const typename T::Entry*>(entries),
+      static_cast<const typename T::Val*>(cw), tile_dense, terms,
+      static_cast<const typename T::Val*>(values),
+      static_cast<typename T::Val*>(out), b, n_tiles, vocab, n_pad, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// f32: entries int32 [E, 2], cw, values and out f32.
 extern "C" int ell_gather_launch(const int* records, const int* entries,
                                  const float* cw, const int* tile_dense,
                                  const int* terms, const float* values,
                                  float* out, int b, int n_tiles, int vocab,
                                  long long n_pad, int k, int device,
                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (n_tiles < 1 || b > n_tiles * kQueryTile) return cudaErrorInvalidValue;
-  const long long blocks = (n_pad + kDocTile - 1) / kDocTile * n_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  ell_gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int2*>(records),
-      reinterpret_cast<const int2*>(entries), cw, tile_dense, terms, values,
-      out, b, n_tiles, vocab, n_pad, k);
-  return cudaGetLastError();
+  return launch<false>(records, entries, cw, tile_dense, terms, values, out,
+                       b, n_tiles, vocab, n_pad, k, device, stream);
+}
+
+// bf16: entries int32 [E] (query | weight's bf16 bits << 16), cw, values
+// and out bf16.
+extern "C" int ell_gather_bf16_launch(const int* records, const int* entries,
+                                      const void* cw, const int* tile_dense,
+                                      const int* terms, const void* values,
+                                      void* out, int b, int n_tiles,
+                                      int vocab, long long n_pad, int k,
+                                      int device, void* stream) {
+  return launch<true>(records, entries, cw, tile_dense, terms, values, out,
+                      b, n_tiles, vocab, n_pad, k, device, stream);
 }
 
 extern "C" const char* ell_gather_error_string(int err) {

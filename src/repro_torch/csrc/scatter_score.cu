@@ -50,6 +50,12 @@
 // where the dense route adds +0 to a finite sum, so both routes give the
 // same bits.
 //
+// Two element types (query_tiles.cuh Types): f32, and bf16, where the
+// values, the packed weights and the slab are read as bf16, widened
+// exactly, multiplied exactly and summed in f32 in the order above; a
+// warp's docs' sums are complete when the run ends, so each score is
+// rounded once to bf16 as the window is written, with no atomics.
+//
 // What bounds it: the HBM floor is one read of the chunk stream and one
 // write of the scores (~1.3 ms at serve_1m); the nonzero products are ~9 %
 // of postings x B.  A warp's walk is a chain of dependent loads a chunk
@@ -76,10 +82,11 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // A warp's segment of one chunk: slots [lo, hi) of the live prefix hold
 // the warp's docs; slot p lies in slice p / per.
+template <class Val>
 struct Segment {
   const int* lt;     // the chunk's local terms, docs and values (global)
   const int* ld;
-  const float* v;
+  const Val* v;
   long long row0;    // the chunk's first term: term block x term_block
   int lo, hi, per;
 };
@@ -100,9 +107,11 @@ __device__ __forceinline__ void add_part(const float* acc, int key,
 // Dense route: lanes over the tile's queries, weights from the slab
 // [V, kQueryTile] (slab points at this lane's column).  The segment's slots
 // are loaded 32 at a time, a slot a lane, and broadcast.
-__device__ void fold_dense(const Segment& g, const float* slab,
+template <class Val>
+__device__ void fold_dense(const Segment<Val>& g, const Val* slab,
                            int term_block, int doc_block, float* window,
                            int lane) {
+  using query_tiles::widen;
   int cur = -1;
   float acc[kQpl];
   for (int base = g.lo; base < g.hi; base += 32) {
@@ -116,16 +125,18 @@ __device__ void fold_dense(const Segment& g, const float* slab,
       if (d >= 0 && d < doc_block) key = part_key(d, p, g.per);
       if (tl >= 0 && tl < term_block) {
         t = tl;
-        x = __ldg(g.v + p);
+        x = widen(__ldg(g.v + p));
       }
     }
     for (int j0 = 0; j0 < n; j0 += kBatch) {
       float w[kBatch][kQpl];
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {  // gathers, all in flight
-        const float* q = slab + (g.row0 + __shfl_sync(kFull, t, j0 + j)) * kQueryTile;
+        const Val* q = slab + (g.row0 + __shfl_sync(kFull, t, j0 + j)) * kQueryTile;
 #pragma unroll
-        for (int r = 0; r < kQpl; ++r) w[j][r] = j0 + j < n ? __ldg(q + 32 * r) : 0.f;
+        for (int r = 0; r < kQpl; ++r) {
+          w[j][r] = j0 + j < n ? widen(__ldg(q + 32 * r)) : 0.f;
+        }
       }
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {  // fold in slot order
@@ -148,8 +159,9 @@ __device__ void fold_dense(const Segment& g, const float* slab,
 
 // Sparse route: lanes over each posting's nonzero entries; the running
 // part in part_row (shared, zero between parts).
-__device__ void fold_sparse(const Segment& g, const int2* rec_tile,
-                            const int2* __restrict__ entries, int term_block,
+template <class Val, class Entry>
+__device__ void fold_sparse(const Segment<Val>& g, const int2* rec_tile,
+                            const Entry* __restrict__ entries, int term_block,
                             int doc_block, float* window, float* part_row,
                             int4* s_st, int lane) {
   int cur = -1;
@@ -172,7 +184,7 @@ __device__ void fold_sparse(const Segment& g, const int2* rec_tile,
     if (p < g.hi) {
       const int t = __ldg(g.lt + p);
       const int d = __ldg(g.ld + p);
-      v = __ldg(g.v + p);
+      v = query_tiles::widen(__ldg(g.v + p));
       if (t >= 0 && t < term_block && d >= 0 && d < doc_block) {
         rec = __ldcg(rec_tile + g.row0 + t);  // bypass L1, which keeps the entries
         key = part_key(d, p, g.per);
@@ -196,21 +208,27 @@ __device__ void fold_sparse(const Segment& g, const int2* rec_tile,
   if (cur >= 0) flush();
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
 scatter_score_kernel(const int2* __restrict__ records,     // [n_tiles, v_pad]
-                     const int2* __restrict__ entries,     // sparse tiles: [entries]
-                     const float* __restrict__ cw,         // dense tiles: [n, v_pad, 128]
+                     const typename query_tiles::Types<kBf16>::Entry*
+                         __restrict__ entries,             // sparse tiles: [entries]
+                     const typename query_tiles::Types<kBf16>::Val*
+                         __restrict__ cw,                  // dense tiles: [n, v_pad, 128]
                      const int* __restrict__ tile_dense,   // [n_tiles]
                      const int* __restrict__ local_term,   // [n_chunks, C]
                      const int* __restrict__ local_doc,    // [n_chunks, C]
-                     const float* __restrict__ value,      // [n_chunks, C]
+                     const typename query_tiles::Types<kBf16>::Val*
+                         __restrict__ value,               // [n_chunks, C]
                      const int* __restrict__ chunk_term_block,   // [n_chunks]
                      const int* __restrict__ doc_bounds,   // [n_chunks, kWarps + 1]
                      const int* __restrict__ block_chunk_start,  // [n_db]
                      const int* __restrict__ block_chunk_count,  // [n_db]
-                     float* __restrict__ out,              // [b, n_pad]
+                     typename query_tiles::Types<kBf16>::Val*
+                         __restrict__ out,                 // [b, n_pad]
                      int b, int n_tiles, int v_pad, int term_block,
                      int doc_block, int chunk_size, long long n_pad) {
+  using Val = typename query_tiles::Types<kBf16>::Val;
   extern __shared__ __align__(16) float smem[];
   int4* s_st = reinterpret_cast<int4*>(smem);              // [kWarps][32]
   float* window = reinterpret_cast<float*>(s_st + kWarps * 32);  // [doc_block][kRowStride]
@@ -224,7 +242,7 @@ scatter_score_kernel(const int2* __restrict__ records,     // [n_tiles, v_pad]
   const bool dense = tile_dense[tile] != 0;
   const int2* rec_tile = records + static_cast<long long>(tile) * v_pad;
   // Dense route: the tile's slab starts at its first term's entries.
-  const float* slab = cw + (dense ? rec_tile[0].x : 0) + lane;
+  const Val* slab = cw + (dense ? rec_tile[0].x : 0) + lane;
 
   for (int i = threadIdx.x; i < doc_block * kRowStride; i += kThreads) {
     window[i] = 0.f;
@@ -249,7 +267,7 @@ scatter_score_kernel(const int2* __restrict__ records,     // [n_tiles, v_pad]
     const int4 cur = next;  // lo, hi, live count, term block
     next = bounds_of(c + 1);
     if (cur.x == cur.y) continue;
-    Segment g;
+    Segment<Val> g;
     const long long base = static_cast<long long>(c) * chunk_size;
     g.lt = local_term + base;
     g.ld = local_doc + base;
@@ -272,14 +290,48 @@ scatter_score_kernel(const int2* __restrict__ records,     // [n_tiles, v_pad]
     const int q = i / doc_block;
     const int d = i - q * doc_block;
     if (q0 + q < b) {
-      out[static_cast<long long>(q0 + q) * n_pad + col0 + d] =
-          window[d * kRowStride + q];
+      query_tiles::store(out + static_cast<long long>(q0 + q) * n_pad + col0 + d,
+                         window[d * kRowStride + q]);
     }
   }
 }
 
+template <bool kBf16>
+int launch(const int* records, const void* entries, const void* cw,
+           const int* tile_dense, const int* local_term, const int* local_doc,
+           const void* value, const int* chunk_term_block,
+           const int* doc_bounds, const int* block_chunk_start,
+           const int* block_chunk_count, void* out, int b, int n_tiles,
+           int v_pad, int n_db, int term_block, int doc_block, int chunk_size,
+           long long n_pad, int device, void* stream) {
+  using T = query_tiles::Types<kBf16>;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n_tiles < 1 || b > n_tiles * kQueryTile) return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(kWarps) * 32 * sizeof(int4) +
+                      static_cast<size_t>(doc_block) * kRowStride * sizeof(float) +
+                      static_cast<size_t>(kWarps) * kQueryTile * sizeof(float);
+  err = cudaFuncSetAttribute(scatter_score_kernel<kBf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(n_db) * n_tiles;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  scatter_score_kernel<kBf16><<<static_cast<unsigned>(blocks), kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int2*>(records),
+      static_cast<const typename T::Entry*>(entries),
+      static_cast<const typename T::Val*>(cw), tile_dense, local_term,
+      local_doc, static_cast<const typename T::Val*>(value), chunk_term_block,
+      doc_bounds, block_chunk_start, block_chunk_count,
+      static_cast<typename T::Val*>(out), b, n_tiles, v_pad, term_block,
+      doc_block, chunk_size, n_pad);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// f32: entries int32 [E, 2], cw, value and out f32.
 extern "C" int scatter_score_launch(const int* records, const int* entries,
                                     const float* cw, const int* tile_dense,
                                     const int* local_term,
@@ -292,26 +344,27 @@ extern "C" int scatter_score_launch(const int* records, const int* entries,
                                     int term_block, int doc_block,
                                     int chunk_size, long long n_pad,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (n_tiles < 1 || b > n_tiles * kQueryTile) return cudaErrorInvalidValue;
-  const size_t smem = static_cast<size_t>(kWarps) * 32 * sizeof(int4) +
-                      static_cast<size_t>(doc_block) * kRowStride * sizeof(float) +
-                      static_cast<size_t>(kWarps) * kQueryTile * sizeof(float);
-  err = cudaFuncSetAttribute(scatter_score_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const long long blocks = static_cast<long long>(n_db) * n_tiles;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  scatter_score_kernel<<<static_cast<unsigned>(blocks), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const int2*>(records),
-      reinterpret_cast<const int2*>(entries), cw, tile_dense, local_term,
-      local_doc, value, chunk_term_block, doc_bounds, block_chunk_start,
-      block_chunk_count, out, b, n_tiles, v_pad, term_block, doc_block,
-      chunk_size, n_pad);
-  return cudaGetLastError();
+  return launch<false>(records, entries, cw, tile_dense, local_term,
+                       local_doc, value, chunk_term_block, doc_bounds,
+                       block_chunk_start, block_chunk_count, out, b, n_tiles,
+                       v_pad, n_db, term_block, doc_block, chunk_size, n_pad,
+                       device, stream);
+}
+
+// bf16: entries int32 [E] (query | weight's bf16 bits << 16), cw, value
+// and out bf16.
+extern "C" int scatter_score_bf16_launch(
+    const int* records, const int* entries, const void* cw,
+    const int* tile_dense, const int* local_term, const int* local_doc,
+    const void* value, const int* chunk_term_block, const int* doc_bounds,
+    const int* block_chunk_start, const int* block_chunk_count, void* out,
+    int b, int n_tiles, int v_pad, int n_db, int term_block, int doc_block,
+    int chunk_size, long long n_pad, int device, void* stream) {
+  return launch<true>(records, entries, cw, tile_dense, local_term,
+                      local_doc, value, chunk_term_block, doc_bounds,
+                      block_chunk_start, block_chunk_count, out, b, n_tiles,
+                      v_pad, n_db, term_block, doc_block, chunk_size, n_pad,
+                      device, stream);
 }
 
 extern "C" const char* scatter_score_error_string(int err) {

@@ -33,6 +33,9 @@ QUERY_TERMS_MEAN, QUERY_TERMS_STD = 49.9, 18.2
 # Rows of [rows, vocab] Gumbel keys drawn at once: bounds the sampler's
 # scratch to 2^27 floats (512 MB) whatever the corpus size.
 _KEY_ELEMS = 1 << 27
+# Rows of a corpus masked, sorted and packed at once: bounds that scratch
+# (the sort's int64 indices among it) to 2^26 slots.
+_PACK_ELEMS = 1 << 26
 
 
 @dataclasses.dataclass
@@ -50,11 +53,11 @@ def _zipf_log_probs(vocab: int, alpha: float, device) -> torch.Tensor:
 
 
 def _gumbel_top(logp: torch.Tensor, rows: int, k: int,
-                g: torch.Generator) -> torch.Tensor:
+                g: torch.Generator, dtype=torch.int64) -> torch.Tensor:
     """[rows, k] distinct term ids per row, in descending key order: the
     first ``j`` of a row are a sample of ``j`` terms without replacement."""
     vocab = logp.shape[0]
-    out = torch.empty((rows, k), dtype=torch.int64, device=logp.device)
+    out = torch.empty((rows, k), dtype=dtype, device=logp.device)
     step = max(1, _KEY_ELEMS // max(vocab, 1))
     for s in range(0, rows, step):
         n = min(step, rows - s)
@@ -72,14 +75,17 @@ def _log1p_abs_normal(shape, mean: float, std: float,
     return torch.log1p(z.abs()).clamp(0.01, 3.5)
 
 
-def _pack_rows(ids: torch.Tensor, vals: torch.Tensor,
-               vocab: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _pack_rows(ids: torch.Tensor, vals: torch.Tensor, vocab: int,
+               cut: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort each row by term id with the sentinel ``vocab`` last, cut to
-    the widest row, and mark the sentinels as padding."""
+    the widest row (unless ``cut`` is False), and mark the sentinels as
+    padding."""
     ids, order = torch.sort(ids, dim=1)
     vals = vals.gather(1, order)
-    width = max(int((ids < vocab).sum(dim=1).max()) if ids.numel() else 1, 1)
-    ids, vals = ids[:, :width], vals[:, :width]
+    if cut:
+        width = max(int((ids < vocab).sum(dim=1).max())
+                    if ids.numel() else 1, 1)
+        ids, vals = ids[:, :width], vals[:, :width]
     pad = ids >= vocab
     return (torch.where(pad, PAD_ID, ids).to(torch.int32),
             torch.where(pad, 0.0, vals).to(torch.float32))
@@ -94,17 +100,31 @@ def make_corpus(
     device="cuda",
     min_terms: int = 4,
 ) -> SparseBatch:
+    """``num_docs`` documents of the MS MARCO/SPLADE laws, on ``device``.
+
+    The draws are whole-corpus (lengths, then every row's terms, then
+    every weight), so a seed gives the same documents at any size; the
+    ids are held as int32 and the rows are masked, sorted and packed in
+    place, ``_PACK_ELEMS`` slots at a time, so the corpus plus a bounded
+    scratch is all the memory it takes (serve_8m: 2 x 11 GB)."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     lengths = (torch.randn(num_docs, generator=g, device=dev) * doc_terms[1]
                + doc_terms[0]).round().clamp(min_terms, vocab_size).long()
     kmax = int(lengths.max()) if num_docs else 1
     logp = _zipf_log_probs(vocab_size, zipf_alpha, dev)
-    ids = _gumbel_top(logp, num_docs, kmax, g)
-    live = torch.arange(kmax, device=dev)[None, :] < lengths[:, None]
-    vals = _log1p_abs_normal((num_docs, kmax), 1.0, 1.2, g, dev)
-    ids, vals = _pack_rows(torch.where(live, ids, vocab_size), vals,
-                           vocab_size)
+    ids = _gumbel_top(logp, num_docs, kmax, g, dtype=torch.int32)
+    # _log1p_abs_normal's arithmetic, in place.
+    vals = torch.randn((num_docs, kmax), generator=g, device=dev)
+    vals.mul_(1.2).add_(1.0).abs_().log1p_().clamp_(0.01, 3.5)
+    # The longest row is kmax live slots long: no column is cut.
+    slots = torch.arange(kmax, device=dev)[None, :]
+    step = max(1, _PACK_ELEMS // kmax)
+    for s in range(0, num_docs, step):
+        rows = slice(s, s + step)
+        ids[rows].masked_fill_(slots >= lengths[rows, None], vocab_size)
+        ids[rows], vals[rows] = _pack_rows(ids[rows], vals[rows], vocab_size,
+                                           cut=False)
     return SparseBatch(ids, vals, vocab_size)
 
 

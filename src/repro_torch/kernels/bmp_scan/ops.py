@@ -15,7 +15,10 @@ weights packed by :func:`pack_small_weights` into shared memory); larger
 groups, and small ones whose chunk geometry the small route cannot take,
 run the wide route (1,024 threads, lanes over rows, term-major weights).  A launch of fewer groups than the card has SMs splits each
 group over a thread-block cluster.  ``last_route`` holds the last launch's
-route, with the cluster size the card accepted.
+route, with the cluster size the card accepted.  bf16 weights and values
+take the bf16 route of either (:mod:`~repro_torch.kernels.bmp_scan.ref`:
+the values and weights read as bf16, each complete window rounded once,
+the retire test's wider margin); the scores and heaps stay f32.
 
 :func:`bmp_scan` is the fused engine's entry (``"tiled-bmp-fused"``,
 :func:`repro.kernels.bmp_scan.ops.bmp_scan`): the demand-grouped sweep
@@ -30,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
+from repro_torch.kernels.bmp_scan.ref import MARGIN_REL, bmp_sweep_ref
 
 NAME = "bmp_scan"
 launches = 0
@@ -51,8 +54,8 @@ _WIDE_WARPS, _WIDE_STAGES = 32, 4
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_ARGTYPES = ((_I, _I, _I, _L, _P) + (_P,) * 20
-             + (_I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _F, _L)
+_ARGTYPES = ((_I, _I, _I, _L, _P, _I) + (_P,) * 20
+             + (_I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _F, _F, _L)
              + (_I, _I, _I, _I, _I) + (_P, _I) + (_I, _P))
 
 
@@ -121,27 +124,36 @@ def wide_smem_words(tile: int, doc_block: int, chunk_size: int, b: int,
 
 def pick_route(groups: int, b: int, sm_count: int, doc_block: int,
                chunk_size: int, *, v_pad: int, term_block: int,
-               nz_cap: int = 0, max_run: int = 1) -> Route:
+               nz_cap: int = 0, max_run: int = 1,
+               elem_bytes: int = 4) -> Route:
     """The route and cluster size of a launch of ``groups`` groups of
     ``b`` rows: a pure function of the shapes (``nz_cap``: the most
     nonzero-weight terms of any group; ``max_run``: the longest block
-    chunk run).  Groups of at most ``SMALL_MAX_ROWS`` rows take the small
-    route where it fits: a chunk_size that is a multiple of 4 and at most
+    chunk run; ``elem_bytes``: 4 for f32 values and weights, 2 for bf16).
+    Groups of at most ``SMALL_MAX_ROWS`` rows take the small route where it
+    fits: a chunk_size that is a multiple of 4 and at most
     ``SMALL_MAX_CHUNK`` (it reads a chunk in 16-byte pieces, 128 slots a
-    load) and its shared memory within ``MAX_SMEM``; else the wide route.
-    Raises ``ValueError`` where no route fits in shared memory; no route
-    falls back to the plain version."""
+    load) whose values fill whole 16-byte pieces too (bf16: a multiple of
+    8), and its shared memory within ``MAX_SMEM``; else the wide route
+    (bf16: an even chunk_size, its values copied 4 bytes at a time).
+    Raises ``ValueError`` where no route fits; no route falls back to the
+    plain version."""
     if (b <= SMALL_MAX_ROWS and chunk_size % 4 == 0
+            and chunk_size * elem_bytes % 16 == 0
             and chunk_size <= SMALL_MAX_CHUNK):
         tile = _pow2(b)
         sizes = (tile, doc_block, chunk_size, v_pad, term_block, max_run)
-        with_w = small_smem_words(*sizes, max(nz_cap, 1) * tile)
+        with_w = small_smem_words(*sizes,
+                                  -(-max(nz_cap, 1) * tile * elem_bytes // 4))
         in_smem = 4 * with_w <= SMALL_SMEM_TARGET
         smem = 4 * (with_w if in_smem else small_smem_words(*sizes, 0))
         if smem <= MAX_SMEM:
             return Route("small", tile,
                          _cluster(groups, sm_count, MAX_CLUSTER),
                          32 * PIPE_WARPS, smem, in_smem)
+    if chunk_size * elem_bytes % 4:
+        raise ValueError(f"{NAME}: chunk_size {chunk_size} of {elem_bytes}-"
+                         "byte values is no whole number of 4-byte words")
     tile = 32 if b <= 32 else 128
     smem = 4 * wide_smem_words(tile, doc_block, chunk_size, b,
                                v_pad // term_block)
@@ -171,7 +183,7 @@ def term_block_mask(nz: torch.Tensor, term_block: int) -> torch.Tensor:
 
 def pack_small_weights(qw: torch.Tensor, tile: int):
     """The small route's compact weights of each group -> ``(bits [G, W]
-    int32, rank [G, W] int32, weights [G, nz_cap, tile] f32)``, W =
+    int32, rank [G, W] int32, weights [G, nz_cap, tile] in qw's dtype)``, W =
     ceil(V_pad / 32): bit t % 32 of word t // 32 is set iff term t has a
     nonzero weight in some row; ``rank`` counts the set bits of the words
     before; ``weights[g, rank(t) + popcount of the bits below t in its
@@ -186,7 +198,7 @@ def pack_small_weights(qw: torch.Tensor, tile: int):
     counts = bit.sum(-1)
     rank = torch.cumsum(counts, -1) - counts
     nz_cap = max(int(counts.sum(-1).max()), 1) if g else 1
-    weights = torch.zeros((g, nz_cap, tile), dtype=torch.float32,
+    weights = torch.zeros((g, nz_cap, tile), dtype=qw.dtype,
                           device=qw.device)
     gi, ti = nz.nonzero(as_tuple=True)  # group-major, then term order
     slot = (torch.cumsum(nz, -1) - 1)[gi, ti]
@@ -195,7 +207,7 @@ def pack_small_weights(qw: torch.Tensor, tile: int):
 
 
 def bmp_sweep(
-    qw: torch.Tensor,  # f32 [G, b, V_pad]
+    qw: torch.Tensor,  # f32 or bf16 [G, b, V_pad]
     order: torch.Tensor,  # int32 [G, b, n_db] descending-bound block order
     ub_sorted: torch.Tensor,  # f32 [G, b, n_db]
     tau0: torch.Tensor,  # f32 [G, b]
@@ -205,7 +217,7 @@ def bmp_sweep(
     chunk_doc_block: torch.Tensor,  # int32 [num_chunks]
     local_term: torch.Tensor,  # int32 [num_chunks, C]
     local_doc: torch.Tensor,  # int32 [num_chunks, C]
-    value: torch.Tensor,  # f32 [num_chunks, C]
+    value: torch.Tensor,  # qw's dtype [num_chunks, C]
     alive_doc: Optional[torch.Tensor] = None,  # bool [num_docs]
     *,
     term_block: int,
@@ -220,6 +232,7 @@ def bmp_sweep(
     for what one group's sweep computes.  :func:`pick_route` chooses how
     the card runs it and raises where no route fits in shared memory."""
     global launches, last_route
+    dtype = build.score_dtype(NAME, qw, value)
     g, b, v_pad = qw.shape
     n_db = order.shape[-1]
     kw = dict(term_block=term_block, doc_block=doc_block, k_eff=k_eff,
@@ -244,7 +257,7 @@ def bmp_sweep(
     if k_eff < 1:
         raise ValueError(f"{NAME}: k_eff must be >= 1, got {k_eff}")
     i32, f32 = torch.int32, torch.float32
-    build.expect(qw, "qw", f32, device=dev)
+    build.expect(qw, "qw", dtype, device=dev)
     build.expect(order, "order", i32, (g, b, n_db), dev)
     build.expect(ub_sorted, "ub_sorted", f32, (g, b, n_db), dev)
     build.expect(tau0, "tau0", f32, (g, b), dev)
@@ -254,7 +267,7 @@ def bmp_sweep(
     build.expect(chunk_term_block, "chunk_term_block", i32, (n_chunks,), dev)
     for t, what in ((local_term, "local_term"), (local_doc, "local_doc")):
         build.expect(t, what, i32, (n_chunks, c), dev)
-    build.expect(value, "value", f32, (n_chunks, c), dev)
+    build.expect(value, "value", dtype, (n_chunks, c), dev)
     if alive_doc is not None:
         build.expect(alive_doc, "alive_doc", torch.bool, (num_docs,), dev)
 
@@ -272,7 +285,8 @@ def bmp_sweep(
     max_run = max(int(block_chunk_count.max()), 1) if n_db else 1
     nz_cap = max(int(nz.sum(-1).max()), 1)
     route = pick_route(g, b, sm_count, doc_block, c, v_pad=v_pad,
-                       term_block=term_block, nz_cap=nz_cap, max_run=max_run)
+                       term_block=term_block, nz_cap=nz_cap, max_run=max_run,
+                       elem_bytes=qw.element_size())
     qwt = bits = rank = weights = spec = None
     b_pad, workers = b, 0
     if route.name == "small":
@@ -294,7 +308,7 @@ def bmp_sweep(
     launch = build.load_function(NAME, "bmp_scan_launch", _ARGTYPES)
     err = launch(
         0 if route.name == "small" else 1, route.tile, route.cluster,
-        route.smem, ctypes.addressof(used),
+        route.smem, ctypes.addressof(used), int(dtype == torch.bfloat16),
         ptr(qwt), ptr(bits), ptr(rank), ptr(weights), tb_nz.data_ptr(),
         order.data_ptr(), ub_sorted.data_ptr(), tau0.data_ptr(),
         block_chunk_start.data_ptr(), block_chunk_count.data_ptr(),
@@ -303,7 +317,7 @@ def bmp_sweep(
         scores.data_ptr(), heap.data_ptr(), block_scored.data_ptr(),
         chunk_scored.data_ptr(), steps.data_ptr(),
         g, b, b_pad, v_pad, n_db, n_chunks, term_block, doc_block, c,
-        k_eff, float(theta), num_docs,
+        k_eff, float(theta), MARGIN_REL[dtype], num_docs,
         -(-v_pad // 32), 0 if weights is None else weights.shape[1],
         int(route.weights_in_smem),
         v_pad // term_block, max_run, ptr(spec), workers,

@@ -13,6 +13,11 @@ derive the masked scores and ``tau = max(tau0, heap[:, -1])``, as
 
 :func:`bmp_scan_ref` runs it per padded group of a plan and returns the
 per-group fetch sets (``repro.kernels.bmp_scan.ref.bmp_scan_ref``).
+
+bf16 weights and values follow the scoring kernels' contract: widened to
+f32 (every product exact), summed in f32, and each block's window rounded
+once to bf16 when it is complete, before it enters the f32 heap; the
+retire test then takes the wider margin of :data:`MARGIN_REL`.
 """
 from __future__ import annotations
 
@@ -25,9 +30,35 @@ from repro_torch.kernels.scatter_score.ref import run_chunks, scatter_chunks
 
 NEG_INF = float("-inf")
 
+# The retire and prune tests keep a block while theta * ub >= tau -
+# (MARGIN_REL * |tau| + 1e-6).  f32: the bound and the scores sum the same
+# products in different orders, a few ulps apart in a near-tie.  bf16 adds
+# three roundings a bound built from the f32 values does not see: a value
+# rounded to bf16 grows by up to 2^-8 of itself, a query weight is rounded
+# before the bound is formed (so the bound sees it), and a score rounded
+# once to bf16 grows by up to 2^-8.  So a score is at most (1 + 2^-8)^2 (1
+# + d) ub, d the f32 error the 1e-4 covers, and a block whose every doc
+# could tie tau or beat it (a tie with a lower id enters the top-k) has ub
+# >= tau / (1 + 2^-8)^2 (1 + d) > tau - (2^-7 + 2^-15 + 1e-4) |tau|; 2^-6
+# covers that with room to spare.
+MARGIN_REL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+
+
+def prune_margin(tau: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """The keep test's envelope below ``tau`` for scores of ``dtype``."""
+    return MARGIN_REL[dtype] * tau.abs() + 1e-6
+
+
+def round_scores(scores: torch.Tensor, dtype) -> torch.Tensor:
+    """f32 ``scores`` as the ``dtype`` route keeps them: bf16 rounds each
+    once to the nearest bf16 (ties to even), held in f32."""
+    if dtype == torch.bfloat16:
+        return scores.to(torch.bfloat16).float()
+    return scores
+
 
 def bmp_sweep_ref(
-    qw: torch.Tensor,  # f32 [b, V_pad]
+    qw: torch.Tensor,  # f32 or bf16 [b, V_pad]
     order: torch.Tensor,  # int32 [b, n_db] descending-bound block order
     ub_sorted: torch.Tensor,  # f32 [b, n_db] bounds in that order
     tau0: torch.Tensor,  # f32 [b]
@@ -37,7 +68,7 @@ def bmp_sweep_ref(
     chunk_doc_block: torch.Tensor,  # int32 [num_chunks]
     local_term: torch.Tensor,  # int32 [num_chunks, C]
     local_doc: torch.Tensor,  # int32 [num_chunks, C]
-    value: torch.Tensor,  # f32 [num_chunks, C]
+    value: torch.Tensor,  # qw's dtype [num_chunks, C]
     alive_doc: Optional[torch.Tensor] = None,  # bool [num_docs]
     *,
     term_block: int,
@@ -52,10 +83,12 @@ def bmp_sweep_ref(
 
     While some row is alive (at most ``n_db`` steps), step ``i``: rows
     whose scaled bound ``theta * ub_sorted[:, i]`` falls below ``tau -
-    (1e-4 |tau| + 1e-6)`` retire for good; the alive rows' rank-i blocks
-    not scored yet are scored for every row; each alive row folds its
-    rank-i block's window (``-inf`` outside real, alive docs) into its
-    heap, and tau rises to the heap's k-th value."""
+    prune_margin(tau)`` retire for good; the alive rows' rank-i blocks not
+    scored yet are scored for every row (bf16: and rounded); each alive row
+    folds its rank-i block's window (``-inf`` outside real, alive docs)
+    into its heap, and tau rises to the heap's k-th value."""
+    dtype = qw.dtype
+    qw, value = qw.float(), value.float()
     dev = qw.device
     b, n_db = order.shape
     n_pad = n_db * doc_block
@@ -75,7 +108,7 @@ def bmp_sweep_ref(
     steps = 0
     while steps < n_db and bool(alive.any()):
         i = steps
-        alive &= theta * ub_sorted[:, i] >= tau - (1e-4 * tau.abs() + 1e-6)
+        alive &= theta * ub_sorted[:, i] >= tau - prune_margin(tau, dtype)
         blk = order[:, i].long()
         fresh = alive & ~block_scored[torch.where(alive, blk, n_db)]
         demand = torch.unique(blk[fresh])
@@ -86,6 +119,9 @@ def bmp_sweep_ref(
             scatter_chunks(scores, qw, local_term, local_doc, value,
                            chunk_term_block, chunk_doc_block, chunks,
                            term_block=term_block, doc_block=doc_block)
+            if dtype != torch.float32:
+                done = (demand[:, None] * doc_block + win).reshape(-1)
+                scores[:, done] = round_scores(scores[:, done], dtype)
             block_scored[demand] = True
             chunk_scored[chunks] = True
         cols = (torch.where(alive, blk, 0) * doc_block)[:, None] + win

@@ -124,6 +124,19 @@ def check(name: str, err: int) -> None:
         )
 
 
+def score_dtype(name: str, qw: torch.Tensor, values: torch.Tensor):
+    """The route a scoring kernel takes for query weights ``qw`` and index
+    values ``values``: float32 or bfloat16, the same for both; anything
+    else raises."""
+    if qw.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: query weights of dtype {qw.dtype}; the "
+                        "kernel has float32 and bfloat16 routes")
+    if values.dtype != qw.dtype:
+        raise TypeError(f"{name}: index values of dtype {values.dtype} "
+                        f"with query weights of dtype {qw.dtype}")
+    return qw.dtype
+
+
 def expect(t: torch.Tensor, what: str, dtype, shape=None,
            device: torch.device | None = None) -> None:
     """Validate a kernel operand before its pointer reaches C."""

@@ -9,13 +9,18 @@ _SLAB_ELEMS = 1 << 24
 
 
 def ell_gather_ref(
-    qw: torch.Tensor,  # f32 [B, V]
+    qw: torch.Tensor,  # f32 or bf16 [B, V]
     terms: torch.Tensor,  # int32 [N_pad, K], ids outside [0, V) are padding
-    values: torch.Tensor,  # f32 [N_pad, K]
+    values: torch.Tensor,  # qw's dtype [N_pad, K]
 ) -> torch.Tensor:
     """out[b, n] = sum_k values[n, k] * qw[b, terms[n, k]] over slots whose
     id lies in [0, V) (``repro.kernels.ell_gather.ref``, where padding ids
-    ``V`` read an appended zero row): f32 [B, N_pad]."""
+    ``V`` read an appended zero row): [B, N_pad] in ``qw``'s dtype.  bf16
+    operands are widened to f32 (every product exact), summed in f32 and
+    each score rounded once to bf16, the kernel's contract."""
+    if qw.dtype == torch.bfloat16:
+        return ell_gather_ref(qw.float(), terms,
+                              values.float()).to(torch.bfloat16)
     b, v = qw.shape
     n, k = terms.shape
     live = (terms >= 0) & (terms < v)

@@ -16,6 +16,11 @@ lays the weights out per (tile, term) so that a kernel reads only those:
   dense route reads term ``t``'s row at ``records[tile, 0, 0] + 128 t``
   without a record load.
 
+A bf16 ``qw`` (the bf16 routes) packs the same records; each entry is one
+int32 word, the query in bits 0-15 and the weight's bf16 bits in bits
+16-31, and ``cw`` is bf16.  The weights are rounded before they come here,
+so the nonzero counts and the routes are those of the rounded weights.
+
 The route is a pure function of the tile's nonzero count, and either route
 gives the same bits (a zero weight adds +0 to a finite sum).  On the
 encoder's nearly dense tiles the dense route is the faster (``PERF.md``
@@ -52,8 +57,8 @@ def dense_tiles(counts: torch.Tensor, rows: torch.Tensor,
 
 def pack_query_tiles(qw: torch.Tensor):
     """f32 ``qw`` [B, V] -> ``(records [n_tiles, V, 2] int32, entries [E, 2]
-    int32, cw [n_dense * V * 128] f32, dense [n_tiles] int32)`` (see the
-    module doc): for a sparse tile ``g``, ``records[g, t] = (off, cnt)``
+    int32, cw [n_dense * V * 128] f32, dense [n_tiles] int32)``; bf16
+    ``qw`` -> entries [E] int32 and bf16 ``cw`` (see the module doc): for a sparse tile ``g``, ``records[g, t] = (off, cnt)``
     and ``entries[off:off + cnt]`` are the queries ``j`` of the tile
     (query ``g * 128 + j < B``) with ``qw[g * 128 + j, t] != 0``,
     ascending, with their weights; for the ``r``-th dense tile,
@@ -89,7 +94,12 @@ def pack_query_tiles(qw: torch.Tensor):
     tile, rest = kept // (v * QUERY_TILE), kept % (v * QUERY_TILE)
     j = rest % QUERY_TILE
     w = qw[tile * QUERY_TILE + j, rest // QUERY_TILE]
-    entries = torch.stack((j.to(torch.int32), w.view(torch.int32)), -1)
+    if qw.dtype == torch.bfloat16:
+        word = (w.view(torch.int16).to(torch.int64) & 0xFFFF) << 16 | j
+        entries = torch.where(word >= 1 << 31, word - (1 << 32),
+                              word).to(torch.int32)
+    else:
+        entries = torch.stack((j.to(torch.int32), w.view(torch.int32)), -1)
     if dense_ids:
         x = F.pad(qw, (0, 0, 0, n_tiles * QUERY_TILE - b))
         cw = x.view(n_tiles, QUERY_TILE, v)[dense_ids].transpose(1, 2).reshape(-1)

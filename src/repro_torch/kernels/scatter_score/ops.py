@@ -8,6 +8,12 @@ The entry packs the query weights by tiles of 128 queries first
 card, one host sync to size the entries) and finds each warp's slots of
 each chunk (:func:`chunk_doc_bounds`, torch ops on the card).
 ``launches`` counts kernel launches, and nothing else.
+
+Two routes by dtype: f32 ``qw`` and ``value`` give f32 scores; bf16 ones
+give bf16 scores, each the f32 sum of the exact products of the bf16
+inputs, in the f32 route's order, rounded once
+(``scatter_score_bf16_launch``; the plain version keeps the same
+contract).  Mixed dtypes raise.
 """
 from __future__ import annotations
 
@@ -44,10 +50,10 @@ def chunk_doc_bounds(local_doc: torch.Tensor, doc_block: int) -> torch.Tensor:
 
 
 def scatter_score(
-    qw: torch.Tensor,  # f32 [B, V_pad]
+    qw: torch.Tensor,  # f32 or bf16 [B, V_pad]
     local_term: torch.Tensor,  # int32 [num_chunks, C]
     local_doc: torch.Tensor,  # int32 [num_chunks, C]
-    value: torch.Tensor,  # f32 [num_chunks, C]
+    value: torch.Tensor,  # qw's dtype [num_chunks, C]
     chunk_term_block: torch.Tensor,  # int32 [num_chunks]
     chunk_doc_block: torch.Tensor,  # int32 [num_chunks]
     block_chunk_start: torch.Tensor,  # int32 [num_doc_blocks]
@@ -57,10 +63,11 @@ def scatter_score(
     doc_block: int,
     num_doc_blocks: int,
 ) -> torch.Tensor:
-    """Exact f32 [B, num_doc_blocks * doc_block] scores of the chunks in
-    the runs ``block_chunk_start/count`` of a TiledIndex (0 in blocks
-    whose runs are empty)."""
+    """Exact [B, num_doc_blocks * doc_block] scores, in ``qw``'s dtype, of
+    the chunks in the runs ``block_chunk_start/count`` of a TiledIndex (0
+    in blocks whose runs are empty)."""
     global launches
+    dtype = build.score_dtype(NAME, qw, value)
     if qw.device.type == "cpu":
         return scatter_score_ref(
             qw, local_term, local_doc, value, chunk_term_block,
@@ -76,23 +83,25 @@ def scatter_score(
     if v_pad % term_block or v_pad < term_block:
         raise ValueError(f"{NAME}: qw width {v_pad} is not a multiple of "
                          f"term_block {term_block}")
-    i32, f32 = torch.int32, torch.float32
-    build.expect(qw, "qw", f32, device=dev)
+    i32 = torch.int32
+    build.expect(qw, "qw", dtype, device=dev)
     for t, what in ((local_term, "local_term"), (local_doc, "local_doc")):
         build.expect(t, what, i32, (n_chunks, c), dev)
-    build.expect(value, "value", f32, (n_chunks, c), dev)
+    build.expect(value, "value", dtype, (n_chunks, c), dev)
     build.expect(chunk_term_block, "chunk_term_block", i32, (n_chunks,), dev)
     for t, what in ((block_chunk_start, "block_chunk_start"),
                     (block_chunk_count, "block_chunk_count")):
         build.expect(t, what, i32, (num_doc_blocks,), dev)
 
     n_pad = num_doc_blocks * doc_block
-    out = torch.empty((b, n_pad), dtype=f32, device=dev)
+    out = torch.empty((b, n_pad), dtype=dtype, device=dev)
     if b == 0 or num_doc_blocks == 0:
         return out
     records, entries, cw, dense = pack_query_tiles(qw)
     doc_bounds = chunk_doc_bounds(local_doc, doc_block)
-    launch = build.load_function(NAME, "scatter_score_launch", _ARGTYPES)
+    entry = ("scatter_score_launch" if dtype == torch.float32
+             else "scatter_score_bf16_launch")
+    launch = build.load_function(NAME, entry, _ARGTYPES)
     err = launch(
         records.data_ptr(), entries.data_ptr(), cw.data_ptr(),
         dense.data_ptr(), local_term.data_ptr(), local_doc.data_ptr(),

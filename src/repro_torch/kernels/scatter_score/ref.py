@@ -56,10 +56,10 @@ def scatter_chunks(
 
 
 def scatter_score_ref(
-    qw: torch.Tensor,  # f32 [B, V_pad]
+    qw: torch.Tensor,  # f32 or bf16 [B, V_pad]
     local_term: torch.Tensor,  # int32 [num_chunks, C]
     local_doc: torch.Tensor,  # int32 [num_chunks, C]
-    value: torch.Tensor,  # f32 [num_chunks, C]
+    value: torch.Tensor,  # qw's dtype [num_chunks, C]
     chunk_term_block: torch.Tensor,  # int32 [num_chunks]
     chunk_doc_block: torch.Tensor,  # int32 [num_chunks]
     block_chunk_start: torch.Tensor,  # int32 [num_doc_blocks]
@@ -72,8 +72,16 @@ def scatter_score_ref(
     """out[b, db*D + ld] += qw[b, tb*T + lt] * v over every valid posting
     of the chunks inside the runs ``block_chunk_start/count``
     (``repro.kernels.scatter_score.ref`` restricted to those chunks):
-    f32 [B, num_doc_blocks * D], 0 in blocks whose runs are empty.  Runs
-    that cover every chunk score the whole index."""
+    [B, num_doc_blocks * D] in ``qw``'s dtype, 0 in blocks whose runs are
+    empty.  Runs that cover every chunk score the whole index.  bf16
+    operands are widened to f32 (every product exact), summed in f32 and
+    each score rounded once to bf16, the kernel's contract."""
+    if qw.dtype == torch.bfloat16:
+        return scatter_score_ref(
+            qw.float(), local_term, local_doc, value.float(),
+            chunk_term_block, chunk_doc_block, block_chunk_start,
+            block_chunk_count, term_block=term_block, doc_block=doc_block,
+            num_doc_blocks=num_doc_blocks).to(torch.bfloat16)
     out = torch.zeros((qw.shape[0], num_doc_blocks * doc_block),
                       dtype=torch.float32, device=qw.device)
     return scatter_chunks(

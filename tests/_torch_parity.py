@@ -7,6 +7,8 @@ equal except inside a run of reference values closer than that tolerance
 only the set of ids must match, and in the run that reaches the k-th slot
 — which may go on past the cut — each id must carry its float64 score.
 
+``assert_bf16_topk`` compares two bf16 top-ks the same way at one bf16 ulp.
+
 ``dyadic`` rounds a JAX batch's weights to multiples of 2^-8: every f32
 sum of their products is then exact in any order, so the two packages'
 scores, top-k and certified thresholds agree bit for bit (the serving
@@ -19,6 +21,15 @@ from repro_torch.core import index as tidx
 from repro_torch.core.sparse import SparseBatch
 
 RTOL, ATOL = 1e-5, 1e-6
+
+# One intra-op thread a process.  The suite runs in several worker
+# processes at once (pytest-xdist; every worker imports this module when it
+# collects the port's tests), and torch's per-process pools of as many
+# threads as cores, spinning on shared cores, slow the plain versions'
+# loops of small ops by tens of times (a 1 s sweep test took 34 s beside
+# seven busy processes, 1.2 s with one thread).  Sums are exact or held to
+# tolerances, never to a thread count.
+torch.set_num_threads(1)
 
 
 def port_batch(batch) -> SparseBatch:
@@ -69,6 +80,30 @@ def assert_same_topk(port, ref, oracle, deleted=None):
         np.testing.assert_allclose(pv[row][live], got, rtol=RTOL, atol=ATOL)
         if deleted is not None:
             assert not np.any(deleted[pi[row][live]])
+
+
+def bf16_ulp(x) -> np.ndarray:
+    """One bf16 ulp at each value of ``x`` (2^(e - 7) for |x| in [2^e,
+    2^(e + 1)))."""
+    x = np.abs(np.asarray(x, np.float64))
+    return 2.0 ** (np.floor(np.log2(np.maximum(x, 2.0 ** -126))) - 7)
+
+
+def assert_bf16_topk(port, ref):
+    """Two bf16 top-ks under one contract whose f32 sums ran in other
+    orders: each value within one bf16 ulp of ``ref``'s at its rank (a
+    score may round either way at a tie of the f32 sums), and an id in one
+    list but not the other only at a value within one ulp of the other's
+    k-th value (a rounding tie at the cut)."""
+    (pv, pi), (rv, ri) = ((np.asarray(v), np.asarray(i)) for v, i, *_ in
+                          (port, ref))
+    assert pv.shape == rv.shape and pi.shape == ri.shape
+    assert np.all(np.abs(pv - rv) <= bf16_ulp(rv))
+    for row in range(rv.shape[0]):
+        for v, ids, other, kth in ((pv[row], pi[row], ri[row], rv[row, -1]),
+                                   (rv[row], ri[row], pi[row], pv[row, -1])):
+            out = ~np.isin(ids, other)
+            assert np.all(v[out] <= kth + bf16_ulp(kth)), (row, ids[out])
 
 
 def shard_run(tdocs, tq, shards, *, k, geo, min_share):

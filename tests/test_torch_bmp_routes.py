@@ -25,8 +25,15 @@ order in which it sums are held here in plain numpy and torch:
     Every demanded block is a candidate, and the skips keep the order of
     every nonzero term, so the scores are bit for bit equal in every run.
     The fma is emulated in float64 (the product is exact) rounded once to
-    f32.
+    f32.  The bf16 route's walk (weights and values widened from bf16, a
+    complete window rounded once, the bf16 margin) against the plain bf16
+    version the same way, within one bf16 ulp.
+(d) ``pick_route`` with bf16 values: the small route where a chunk's
+    values fill whole 16-byte pieces (chunk_size a multiple of 8), the
+    weights' shared memory counted in 2-byte words.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +43,8 @@ from repro_torch.core import scoring
 from repro_torch.core.topk import update_topk_heap
 from repro_torch.data.synthetic import make_topical_corpus
 from repro_torch.kernels.bmp_scan import ops as bmp_ops
-from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref
+from repro_torch.kernels.bmp_scan.ref import bmp_sweep_ref, prune_margin
+from repro_torch.kernels.scatter_score.ref import scatter_score_ref
 
 KERNEL_TOL = 1e-5
 H100_SMS = 132
@@ -236,10 +244,12 @@ def kernel_sweep(qw, order, ub_sorted, tau0, t, *, k_eff, theta, workers=1,
     block it demands must be a candidate, and only those windows are
     written."""
     D, T = t.doc_block, t.term_block
+    bf16 = qw.dtype == torch.bfloat16  # widened exactly; a window rounded
     bcs, bcc = t.block_chunk_start.numpy(), t.block_chunk_count.numpy()
-    idx = (t.local_term.numpy(), t.local_doc.numpy(), t.value.numpy(),
-           t.chunk_term_block.numpy(), bcs, bcc, T, D)
-    qn = qw.numpy()
+    idx = (t.local_term.numpy(), t.local_doc.numpy(),
+           t.value.float().numpy(), t.chunk_term_block.numpy(), bcs, bcc, T,
+           D)
+    qn = qw.float().numpy()
     nz = (qn != 0).any(axis=0)
     tb_nz = nz.reshape(-1, T).any(axis=1)
     b, n_db = order.shape
@@ -264,11 +274,14 @@ def kernel_sweep(qw, order, ub_sorted, tau0, t, *, k_eff, theta, workers=1,
             if was_alive[r] and not was_scored[bk] and bk not in windows:
                 windows[bk] = np.zeros((b, D), np.float32)
                 _score_block(windows[bk], qn, nz, tb_nz, idx, bk, skip)
-        alive &= theta * ub_sorted[:, i] >= tau - (1e-4 * tau.abs() + 1e-6)
+        alive &= theta * ub_sorted[:, i] >= tau - prune_margin(tau, qw.dtype)
         for r in range(b):  # the demand: row order, each block once
             bk = int(blk[r])
             if alive[r] and not bscored[bk]:
-                scores[:, bk * D:(bk + 1) * D] = windows[bk]
+                done = windows[bk]
+                if bf16:  # the complete window, rounded once
+                    done = torch.from_numpy(done).to(qw.dtype).float().numpy()
+                scores[:, bk * D:(bk + 1) * D] = done
                 bscored[bk] = True
                 cscored[bcs[bk]: bcs[bk] + bcc[bk]] = True
         st = torch.from_numpy(scores)
@@ -338,3 +351,65 @@ def test_kernel_order_matches_plain_and_skips_are_exact(sweep_case, rows,
         assert got[4] == other[4]
     if not qw[sel].any():
         assert not got[0].any()
+
+
+@pytest.mark.parametrize("rows,theta", [([0], 1.0), ([0, 1], 0.8),
+                                        ([2, 3, 4], 1.0)])
+def test_bf16_kernel_order_matches_plain_and_skips_are_exact(sweep_case, rows,
+                                                             theta):
+    """The bf16 route's walk: the weights and values widened from bf16,
+    each complete window rounded once before it enters the heap, the bf16
+    margin in the retire test.  The plain bf16 version sums in another
+    order: scores, heap within one bf16 ulp of its largest score, the
+    fetch sets and steps equal; the skips and 48 workers change no bit;
+    a scored block is the plain ``scatter_score`` bf16 block's value."""
+    t, qw, order, ub_sorted = sweep_case
+    bf = torch.bfloat16
+    tb = dataclasses.replace(t, value=t.value.to(bf))
+    sel = torch.tensor(rows)
+    q = qw[sel].to(bf)
+    tau0 = torch.full((len(rows),), float("-inf"))
+    kw = dict(term_block=t.term_block, doc_block=t.doc_block, k_eff=10,
+              theta=theta, num_docs=t.num_docs)
+    want = bmp_sweep_ref(q, order[sel], ub_sorted[sel], tau0, *_runs(tb),
+                         **kw)
+    args = (q, order[sel], ub_sorted[sel], tau0, tb)
+    got = kernel_sweep(*args, k_eff=10, theta=theta)
+    tol = 2.0 ** -7 * max(float(want[0].abs().max()), 1e-30)
+    assert float((got[0] - want[0]).abs().max()) <= tol
+    fin = torch.isfinite(want[1])
+    assert torch.equal(torch.isfinite(got[1]), fin)
+    assert float((got[1][fin] - want[1][fin]).abs().max()) <= tol
+    assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+    assert got[4] == want[4]
+    assert torch.equal(got[0], got[0].to(bf).float())  # bf16 values
+    for other in (kernel_sweep(*args, k_eff=10, theta=theta, skip=False),
+                  kernel_sweep(*args, k_eff=10, theta=theta, workers=48)):
+        for x, y in zip(got[:4], other[:4]):
+            assert torch.equal(x, y)
+    cols = want[2].repeat_interleave(t.doc_block)
+    plain = scatter_score_ref(
+        q, tb.local_term, tb.local_doc, tb.value, tb.chunk_term_block,
+        tb.chunk_doc_block, tb.block_chunk_start,
+        tb.block_chunk_count * want[2].to(torch.int32),
+        term_block=t.term_block, doc_block=t.doc_block,
+        num_doc_blocks=t.num_doc_blocks).float()
+    assert torch.equal(want[0][:, cols], plain[:, cols])
+
+
+@pytest.mark.parametrize("chunk_size,name", [(128, "small"), (68, "wide"),
+                                             (512, "small")])
+def test_pick_route_bf16_takes_the_small_route_on_whole_pieces(chunk_size,
+                                                               name):
+    kw = dict(v_pad=30720, term_block=512, nz_cap=40, max_run=4)
+    f32 = bmp_ops.pick_route(4, 2, 132, 64, chunk_size, **kw)
+    bf16 = bmp_ops.pick_route(4, 2, 132, 64, chunk_size, **kw, elem_bytes=2)
+    assert f32.name == "small" and bf16.name == name
+    if name == "small":  # 40 terms x 2 rows of weights: 80 words or 40
+        assert f32.smem - bf16.smem == 4 * 40
+
+
+def test_pick_route_bf16_wide_needs_whole_words():
+    with pytest.raises(ValueError, match="4-byte words"):
+        bmp_ops.pick_route(1, 64, 132, 64, 63, v_pad=1024, term_block=512,
+                           elem_bytes=2)

@@ -27,7 +27,12 @@ kernel of their own): ``segment`` bit for bit its CPU run, ``bcoo``
 ``FlatIndex`` built on the card equal to the CPU build.  The MoE layer
 (plain PyTorch) on the card within TOL of its CPU run, with the same
 expert ids and drops; the data-parallel step under an NCCL group of one
-bit for bit ``make_train_step``.
+bit for bit ``make_train_step``.  The bf16 routes of ``scatter_score``,
+``ell_gather`` and ``bmp_scan``: bitwise the f32 route on the rounded
+inputs rounded once (the exact two), each score within one bf16 ulp of the
+plain version's; the six bf16 sharded steps on the card against the same
+step on the CPU the same way (``_torch_parity.assert_bf16_topk``), the
+pruned ones the bf16 ``tiled`` step's bits.
 """
 import numpy as np
 import pytest
@@ -53,6 +58,7 @@ from repro_torch.kernels.splade_head import ops as head_ops
 from repro_torch.kernels.splade_head.ref import splade_head_ref
 
 TOL = 1e-5
+BF = torch.bfloat16
 
 
 @pytest.fixture(scope="module")
@@ -1348,3 +1354,137 @@ def test_train_state_cut_into_shards_and_gathered_back(cuda):
         assert torch.equal(back["params"][k], v)
         assert torch.equal(back["opt_state"]["mu"][k], opt["mu"][k])
         assert torch.equal(back["opt_state"]["nu"][k], opt["nu"][k])
+
+
+# -- the bf16 routes ------------------------------------------------------------
+
+
+def _within_bf16_ulp(got, want):
+    """Each bf16 value within one bf16 ulp of ``want``'s (two f32 sums of
+    one contract in other orders may round either way)."""
+    torch.cuda.synchronize()
+    g, w = got.double().cpu(), want.double().cpu()
+    fin = torch.isfinite(w)
+    assert torch.equal(torch.isfinite(g), fin)
+    ulp = torch.exp2(torch.floor(torch.log2(w[fin].abs().clamp_min(
+        2.0 ** -126))) - 7)
+    assert bool(((g[fin] - w[fin]).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("kernel", ["scatter_score", "ell_gather"])
+@pytest.mark.parametrize("b", [3, 130])
+def test_bf16_routes_match_plain_and_the_f32_route(cuda, kernel, b):
+    c = make_msmarco_like(3001, b, vocab_size=5000, seed=b + 7, device=cuda)
+    if kernel == "ell_gather":
+        e = tidx.build_ell_index(c.docs)
+        vb = e.values.to(BF)
+        qw = c.queries.to_dense()
+        fn = lambda q, v: ell_ops.ell_gather(q, e.terms, v)  # noqa: E731
+        plain = lambda q, v: ell_gather_ref(q, e.terms, v)  # noqa: E731
+    else:
+        t = tidx.build_tiled_index(c.docs, 512, 128, 256)
+        vb = t.value.to(BF)
+        qw = torch.nn.functional.pad(c.queries.to_dense(),
+                                     (0, t.num_term_blocks * 512 - 5000))
+        runs = (t.chunk_term_block, t.chunk_doc_block, t.block_chunk_start,
+                t.block_chunk_count)
+        kw = dict(term_block=512, doc_block=128,
+                  num_doc_blocks=t.num_doc_blocks)
+        fn = lambda q, v: scatter_ops.scatter_score(  # noqa: E731
+            q, t.local_term, t.local_doc, v, *runs, **kw)
+        plain = lambda q, v: scatter_score_ref(  # noqa: E731
+            q, t.local_term, t.local_doc, v, *runs, **kw)
+    for q in _query_cases(cuda, qw, qw.shape[1]).values():
+        qb = q.to(BF)
+        got = fn(qb, vb)
+        assert got.dtype == BF
+        assert torch.equal(got, fn(qb.float(), vb.float()).to(BF))
+        assert torch.equal(got, fn(qb, vb))
+        _within_bf16_ulp(got, plain(qb, vb))
+    with pytest.raises(TypeError, match="index values"):
+        fn(qw.to(BF), vb.float())
+
+
+@pytest.mark.parametrize("rows,n_groups,cs", [(1, 6, 128), (4, 3, 256),
+                                              (64, 1, 128), (3, 2, 68)])
+def test_bmp_sweep_bf16_route_matches_plain(cuda, rows, n_groups, cs):
+    """Small route (rows <= 8, chunk lines of whole 16-byte pieces), wide
+    route (64 rows, or 3 rows whose 68-slot bf16 lines are no whole
+    pieces): the plain bf16 sweep's fetch sets and steps, scores and heap
+    within one bf16 ulp of its largest score, each scored block the bf16
+    ``scatter_score``'s bits."""
+    c = make_topical_corpus(6000, rows * n_groups, vocab_size=5000, seed=cs,
+                            device=cuda)
+    docs, _ = tidx.reorder_docs(c.docs, "df-signature")
+    t = tidx.build_tiled_index(docs, 512, 64, cs, store_term_block_max=True)
+    tb = tidx.TiledIndex(**{**t.__dict__, "value": t.value.to(BF)})
+    qw = scoring._pad_queries_to_term_blocks(c.queries, tb)
+    ub = scoring.block_upper_bounds(c.queries, tb)
+    order = torch.argsort(-ub, dim=-1, stable=True)
+    us = ub.gather(-1, order)
+    g = lambda x: x.reshape(n_groups, rows, *x.shape[1:])  # noqa: E731
+    runs = (tb.block_chunk_start, tb.block_chunk_count, tb.chunk_term_block,
+            tb.chunk_doc_block, tb.local_term, tb.local_doc, tb.value)
+    kw = dict(term_block=512, doc_block=64, k_eff=10, theta=1.0,
+              num_docs=tb.num_docs)
+    tau = torch.full((n_groups, rows), float("-inf"), device=cuda)
+    got = bmp_ops.bmp_sweep(g(qw), g(order.int()), g(us), tau, *runs, **kw)
+    want_route = "small" if rows <= 8 and cs % 8 == 0 else "wide"
+    assert bmp_ops.last_route.name == want_route
+    for i in range(n_groups):
+        want = bmp_sweep_ref(g(qw)[i], g(order.int())[i], g(us)[i], tau[i],
+                             *runs, **kw)
+        scale = want[0].abs().max().item()
+        assert (got[0][i] - want[0]).abs().max().item() <= 2 ** -7 * scale
+        fin = torch.isfinite(want[1])
+        assert torch.equal(torch.isfinite(got[1][i]), fin)
+        assert torch.equal(got[2][i].bool(), want[2])
+        assert torch.equal(got[3][i].bool(), want[3])
+        assert int(got[4][i, 0]) == want[4]
+        cols = want[2].repeat_interleave(64)
+        exact = scatter_ops.scatter_score(
+            g(qw)[i], tb.local_term, tb.local_doc, tb.value,
+            tb.chunk_term_block, tb.chunk_doc_block, tb.block_chunk_start,
+            tb.block_chunk_count * want[2].int(), term_block=512,
+            doc_block=64, num_doc_blocks=tb.num_doc_blocks).float()
+        assert torch.equal(got[0][i][:, cols], exact[:, cols])
+
+
+@pytest.mark.parametrize("engine", ["ell", "tiled", "tiled-pruned",
+                                    "tiled-pruned-approx",
+                                    "tiled-bmp-grouped", "tiled-bmp-fused"])
+def test_bf16_sharded_steps_on_the_card_match_the_cpu(cuda, engine):
+    """Each bf16 step through the kernels against the same step on the CPU
+    (the plain versions): one contract, sums in other orders."""
+    from _torch_parity import assert_bf16_topk
+    from repro_torch.core.distributed import (
+        build_sharded_ell, build_sharded_tiled, make_serve_step,
+    )
+
+    c = make_topical_corpus(20_000, 32, vocab_size=5000, seed=29,
+                            device="cpu")
+    docs, _ = tidx.reorder_docs(c.docs, "df-signature")
+    k = 100
+
+    def run(dev, name):
+        ell = name == "ell"
+        d = docs.to(dev)
+        idx = build_sharded_ell(d, 1) if ell else build_sharded_tiled(d, 1)
+        cfg = RetrievalConfig(engine=name, k=k)
+        step = make_serve_step(engine=name, cfg=cfg,
+                               docs_per_shard=idx.docs_per_shard,
+                               geometry=None if ell else idx.geometry(),
+                               compute_dtype=BF)
+        return step(idx, queries=c.queries.to(dev))
+
+    before = (ell_ops.launches, scatter_ops.launches, bmp_ops.launches)
+    got = run(cuda, engine)
+    assert (ell_ops.launches, scatter_ops.launches,
+            bmp_ops.launches) != before
+    want = run("cpu", engine)
+    assert_bf16_topk([x.cpu().numpy() for x in got],
+                     [x.numpy() for x in want])
+    if engine.startswith("tiled-"):
+        tiled = run(cuda, "tiled")
+        for a, b in zip(got, tiled):
+            assert torch.equal(a, b)

@@ -457,7 +457,7 @@ def test_errors(corpus, one_shard):
         ell(te, queries=tq, deleted_mask=np.zeros(te.num_docs, bool))
     with pytest.raises(NotImplementedError, match="float32"):
         tdist.make_serve_step(engine="ell", k=K, docs_per_shard=8,
-                              compute_dtype=torch.bfloat16)
+                              compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="serveable engines"):
         tdist.make_serve_step(engine="dense", k=K, docs_per_shard=8)
     csr = tdist.build_sharded_tiled(tdocs, 1, bounds_format="csr", **GEO)

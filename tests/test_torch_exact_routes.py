@@ -21,6 +21,11 @@ host and the order in which the kernels sum are held here in numpy:
 (c) The same for ``ell_gather`` (a doc's sums over its slots in slot
     order) against ``ell_gather_ref`` and the Pallas kernel.
 (d) The route of a tile is a pure function of its nonzero count.
+(e) The bf16 routes: the bf16 packing holds each weight's bf16 bits and
+    the f32 packing's records and routes; each walk, fed the bf16 packing
+    and the bf16 values widened, is the f32 walk on the rounded inputs bit
+    for bit, so a score rounded once is the bf16 route's, within one bf16
+    ulp of the plain bf16 version (which sums in another order).
 
 The fma is emulated in float64 (the product is exact) rounded once to f32.
 """
@@ -53,6 +58,20 @@ def _fma(w, x, acc):
 def _within(got, want):
     scale = max(float(np.abs(want).max()), 1e-30)
     assert float(np.abs(got - want).max()) <= KERNEL_TOL * scale
+
+
+def _numpy(packed):
+    """pack_query_tiles' tensors as numpy (a bf16 slab widened: exact)."""
+    return tuple((x.float() if x.dtype == torch.bfloat16 else x).numpy()
+                 for x in packed)
+
+
+def _entries(e):
+    """(queries, f32 weights) of packed entries: f32 (query, bits) pairs,
+    or bf16 words (query | bf16 bits << 16)."""
+    if e.ndim == 2:
+        return e[:, 0], e[:, 1].view(np.float32)
+    return e & 0xFFFF, (e & np.int32(-65536)).view(np.float32)
 
 
 # (a) the packer ------------------------------------------------------------
@@ -201,8 +220,8 @@ def emulate_scatter(qw, t, count, packed=None):
                         off, n = packed[0][g, term]
                         if not live or n == 0:
                             continue  # no nonzero weight: not summed
-                        e = packed[1][off:off + n]
-                        q, w, x = e[:, 0], e[:, 1].view(np.float32), val[c, p]
+                        q, w = _entries(packed[1][off:off + n])
+                        x = val[c, p]
                     if (d, p // per) != key:
                         if key is not None:
                             win[key[0]] += acc
@@ -296,8 +315,8 @@ def emulate_ell(qw, terms, values, packed=None):
                     off, cnt = packed[0][g, tk] if live else (0, 0)
                     if cnt == 0:
                         continue
-                    e = packed[1][off:off + cnt]
-                    q, w, x = e[:, 0], e[:, 1].view(np.float32), values[n, k]
+                    q, w = _entries(packed[1][off:off + cnt])
+                    x = values[n, k]
                 acc[q] = _fma(w, x, acc[q])
             out[g * TILE:(g + 1) * TILE, n] = acc
     return out[:b]
@@ -355,3 +374,86 @@ def test_route_follows_the_count_not_the_places():
     assert dense.tolist() == [1, 1]
     assert query_tiles.tile_rows(256).tolist() == [128, 128]
     assert query_tiles.tile_rows(129).tolist() == [128, 1]
+
+
+# (e) the bf16 routes ---------------------------------------------------------
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (nearest, ties to even), held in f32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("b,v,nnz,dense_rows", [
+    (129, 257, 20, ()), (500, 300, 48, ()), (130, 200, 0, (128, 129)),
+])
+def test_pack_query_tiles_bf16_equals_its_definition(b, v, nnz, dense_rows):
+    """The bf16 packing: the f32 packing's records and routes for the
+    rounded weights; an entry is one word, the query in bits 0-15 and the
+    weight's bf16 bits in bits 16-31; the slab is the rounded weights."""
+    qw = _bf16(_qw(b, v, nnz, seed=b + 2 * v, dense_rows=dense_rows))
+    bf = query_tiles.pack_query_tiles(torch.from_numpy(qw).to(torch.bfloat16))
+    records, entries, cw, dense = _numpy(bf)
+    assert bf[1].dtype == torch.int32 and entries.ndim == 1
+    assert bf[2].dtype == torch.bfloat16
+    want = _numpy(query_tiles.pack_query_tiles(torch.from_numpy(qw)))
+    np.testing.assert_array_equal(records, want[0])
+    np.testing.assert_array_equal(dense, want[3])
+    q, w = _entries(entries)
+    np.testing.assert_array_equal(q, want[1][:, 0])
+    np.testing.assert_array_equal(w, want[1][:, 1].view(np.float32))
+    np.testing.assert_array_equal(cw, want[2])
+
+
+def _bf16_within_ulp(got, want):
+    """Each bf16 value within one bf16 ulp of ``want``'s."""
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_scatter_bf16_walk_is_the_f32_walk_rounded_once():
+    c, j, t, qw = _tiled_case(150, 600, 256, 32, 64, 130, seed=7)
+    rng = np.random.default_rng(1)
+    qw[128:] = np.where(rng.random(qw[128:].shape) < 0.9,
+                        rng.uniform(0.05, 3.0, qw[128:].shape), 0.0)
+    qw[:, 600:] = 0.0
+    qb = torch.from_numpy(qw).to(torch.bfloat16)
+    tb = torch.from_numpy(_bf16(t.value.numpy()))
+    t_b = tidx.TiledIndex(**{**t.__dict__, "value": tb})
+    count = t.block_chunk_count.numpy()
+    packed = _numpy(query_tiles.pack_query_tiles(qb))
+    assert packed[3].tolist() == [0, 1]  # both routes
+    walk = emulate_scatter(qb.float().numpy(), t_b, count, packed)
+    f32 = emulate_scatter(qb.float().numpy(), t_b, count, _numpy(
+        query_tiles.pack_query_tiles(qb.float())))
+    np.testing.assert_array_equal(walk.view(np.int32), f32.view(np.int32))
+    plain = scatter_score_ref(
+        qb, t.local_term, t.local_doc, tb.to(torch.bfloat16),
+        t.chunk_term_block, t.chunk_doc_block, t.block_chunk_start,
+        t.block_chunk_count, term_block=256, doc_block=32,
+        num_doc_blocks=t.num_doc_blocks)
+    assert plain.dtype == torch.bfloat16
+    _bf16_within_ulp(_bf16(walk), plain.float().numpy())
+
+
+def test_ell_bf16_walk_is_the_f32_walk_rounded_once():
+    c = make_msmarco_like(90, 130, vocab_size=300, seed=5)
+    j = jidx.build_ell_index(c.docs)
+    e = tidx.ell_index_from_numpy(j.terms, j.values, j.num_docs,
+                                  j.vocab_size, device="cpu")
+    qw = np.array(c.queries.to_dense())
+    rng = np.random.default_rng(2)
+    qw[128:] = np.where(rng.random(qw[128:].shape) < 0.9,
+                        rng.uniform(0.05, 3.0, qw[128:].shape), 0.0)
+    qb = torch.from_numpy(qw).to(torch.bfloat16)
+    vb = e.values.to(torch.bfloat16)
+    terms, values = e.terms.numpy(), vb.float().numpy()
+    packed = _numpy(query_tiles.pack_query_tiles(qb))
+    assert packed[3].tolist() == [0, 1]
+    walk = emulate_ell(qb.float().numpy(), terms, values, packed)
+    f32 = emulate_ell(qb.float().numpy(), terms, values, _numpy(
+        query_tiles.pack_query_tiles(qb.float())))
+    np.testing.assert_array_equal(walk.view(np.int32), f32.view(np.int32))
+    plain = ell_gather_ref(qb, e.terms, vb)
+    assert plain.dtype == torch.bfloat16
+    _bf16_within_ulp(_bf16(walk), plain.float().numpy())

@@ -8,8 +8,9 @@ the paper's system comparison (the ``bcoo`` and ``segment`` engines, the
 WAND/BMW and Seismic CPU baselines), every LM architecture of the
 registry (mixture-of-experts layers, the training driver, data-parallel
 training), SchNet with the cell layer's dry run, tensor- and
-expert-parallel serving under the sharding policy, and training under
-it, on one NVIDIA H100.
+expert-parallel serving under the sharding policy, training under it,
+and the port lint's device half over every kernel route, on one NVIDIA
+H100.
 
 Run from the root of a checkout, with one CUDA card and no arguments:
 
@@ -409,6 +410,21 @@ Phases (each raises on failure; the script then exits non-zero):
    ``"quad"`` (13c counted them at ``"quad_tp"``), in worker processes
    started with the phase.  A ``{"sharded_training": {...}}`` line holds
    the numbers.
+15. The lint's device half, with phase 14's data freed: ``python -m
+   repro_torch.lint --device cuda --select kernel-memory,kernel-race`` in
+   a child process (``repro_torch.lint.sanitize``): every route of the six
+   kernels at a tiny geometry (``repro_torch.lint.geometry``: the exact
+   kernels' f32 and bf16 routes on sparse and dense query tiles,
+   ``bmp_scan``'s small and wide routes in both dtypes, ``splade_head``,
+   ``flash_attention`` bf16 ``wgmma`` with and without a window and f32,
+   ``embedding_bag`` with ids outside [0, V)) under ``compute-sanitizer``
+   memcheck and racecheck, in 4 KiB guard bands, and launched three times
+   for the same bits; each held to its plain version.  Any finding fails
+   the script; a route the tool cannot check is listed by name with the
+   tool's words.  A ``{"lint_device": {...}}`` line holds each route's
+   results, the routes not memchecked or race-checked and the seconds;
+   each row of the ``kernels`` line gains its routes' results
+   (``sanitizer``).
 
 It prints the ``kernels`` JSON line, the card line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a checkout,
@@ -506,6 +522,8 @@ TP_TIMEOUT_S = 900.0
 # whose launch counters a rank reads (no kernel lies on a training path).
 SHARD_TRAIN_TIMEOUT_S = 900.0
 SHARD_TRAIN_STEPS = 3
+# Phase 15: the lint's device half, a child process with its own children.
+LINT_TIMEOUT_S = 600.0
 SHARD_RECSYS_MODEL = "xdeepfm"
 KERNELS = ("scatter_score", "ell_gather", "bmp_scan", "splade_head",
            "flash_attention", "embedding_bag")
@@ -1748,6 +1766,17 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
                   work_b, line_b))
     log(f"  bmp_scan bf16, every launch of one search call: {all_b!r} ms "
         f"(f32 {all_ms!r} ms)")
+    # A bf16 call's bound, reckoned as the f32 call's: each launch's kept
+    # bf16 lines once, summed over the call's launches.
+    outs_b = [launch[4]() for launch in launches_b]
+    whole_b = [sweep_work(idx_b, qw_b, launch, out, k_eff)
+               for launch, out in zip(launches_b, outs_b)]
+    del outs_b
+    call_b = {key: sum(w[key] for w in whole_b) for key in whole_b[0]}
+    row["bf16"]["call_bound_ms"] = sweep_bound(call_b)[0]
+    log(work_line(f"bmp_scan bf16, every launch of one search call "
+                  f"({len(launches_b)} launches; bytes and flops summed "
+                  f"over its launches)", all_b, call_b, line_b))
     return row
 
 
@@ -6082,6 +6111,53 @@ def bf16_rows(dev, sizes: Sizes, rows, corpus, tiled, ell, qw_t, qw,
         next(r for r in rows if r["name"] == name)["bf16"] = sub
 
 
+def lint_phase() -> dict:
+    """Phase 15: ``python -m repro_torch.lint --device cuda --select
+    kernel-memory,kernel-race`` in a child process (which starts its own:
+    memcheck and racecheck under ``compute-sanitizer``, and the guard
+    bands).  Raises unless it exits 0 with no finding.  Prints one JSON
+    line: each route's results, the routes memcheck or racecheck could not
+    check (with the tool's words), and the seconds the phase took."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.lint", "--device", "cuda",
+         "--select", "kernel-memory,kernel-race", "--format", "json",
+         os.path.join(SRC, "repro_torch")],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=LINT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError(f"phase 15: the lint printed no report (exit "
+                             f"{proc.returncode}): {proc.stderr[-3000:]}")
+    routes = report["device"]["routes"]
+    for name, res in routes.items():
+        log(f"  15 {name}: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    not_checked = {tool: sorted(n for n, res in routes.items()
+                                if str(res.get(tool)).startswith(
+                                    "not checked"))
+                   for tool in ("memcheck", "racecheck")}
+    out = {"seconds": seconds, "exit": proc.returncode,
+           "tool": report["device"]["tool"], "routes": routes,
+           "not_memchecked": not_checked["memcheck"],
+           "not_race_checked": not_checked["racecheck"],
+           "findings": report["findings"]}
+    print(json.dumps({"lint_device": out}, default=float))
+    log(f"phase 15: {seconds:.3f} s; not memchecked: "
+        f"{len(out['not_memchecked'])} route(s), not race-checked: "
+        f"{len(out['not_race_checked'])} of {len(routes)}")
+    if proc.returncode != 0 or report["findings"]:
+        raise AssertionError(
+            f"phase 15: the lint's device half found "
+            f"{len(report['findings'])} fault(s) (exit {proc.returncode}): "
+            + "; ".join(f["message"] for f in report["findings"][:10]))
+    return out
+
+
 def run(dev, sizes: Sizes) -> list[dict]:
     import numpy as np
     import torch
@@ -6522,6 +6598,20 @@ def run(dev, sizes: Sizes) -> list[dict]:
                              f"{trained['launches']}")
     log(f"phase 14: {trained['seconds']:.3f} s")
     print(json.dumps({"sharded_training": trained}, default=float))
+
+    # 15. the lint's device half over every route of the six kernels
+    del trained
+    torch.cuda.empty_cache()
+    log("phase 15: python -m repro_torch.lint --device cuda --select "
+        "kernel-memory,kernel-race (memcheck, racecheck, guard bands, "
+        "repeated launches; every route of the six kernels)")
+    lint = lint_phase()
+    for row in rows:
+        row["sanitizer"] = {
+            name: {k: res.get(k) for k in ("memcheck", "racecheck", "guard",
+                                           "repeat")}
+            for name, res in lint["routes"].items()
+            if name.split("/", 1)[0] == row["name"]}
     return rows
 
 

@@ -447,13 +447,12 @@ def build_sharded_tiled(
 
 
 class _Group(NamedTuple):
-    """The process group a step serves over, this process's place in it
-    (shard ``rank`` is served here), and the step's compute dtype."""
+    """The process group a step serves over and this process's place in it
+    (shard ``rank`` is served here)."""
 
     group: object
     rank: int
     size: int
-    dtype: torch.dtype = torch.float32
 
 
 def group_rank_size(group=None) -> tuple[int, int]:
@@ -499,7 +498,7 @@ def _bounds_mode(geometry: Optional[dict]) -> tuple[bool, int]:
     """(csr?, row_cap) the step was built for, from ``geometry()``."""
     geo = geometry or {}
     return (geo.get("bounds_format", "dense") == "csr",
-            int(geo.get("csr_row_cap", 0) or 0))
+            int(geo.get("csr_row_cap", 0) or 0))  # lint: disable=host-sync -- a geometry() number, no tensor
 
 
 def _check_bounds(index: ShardedTiledIndex, csr: bool, row_cap: int) -> None:
@@ -568,17 +567,18 @@ def _need_queries(queries) -> SparseBatch:
 
 
 def _sharded_step(ctx: _Group, k: int, docs_per_shard: int, kind: type,
-                  geometry: Optional[dict], local_scores):
+                  geometry: Optional[dict], local_scores,
+                  dtype: torch.dtype = torch.float32):
     """The uniform step around ``local_scores(local index, queries, qw,
     tau_init, index) -> [B, docs_per_shard]`` scores of this rank's shard
-    (its values in the step's compute dtype): checks, then local top-k,
-    gather, merge, tau.  The values come back as f32."""
+    (its values in the step's compute ``dtype``): checks, then local
+    top-k, gather, merge, tau.  The values come back as f32."""
 
     def serve_step(index, queries=None, qw=None, tau_init=None,
                    deleted_mask=None):
         _reject_deleted(deleted_mask)
         _check_index(index, ctx, docs_per_shard, kind, geometry)
-        local = index.shard(ctx.rank, ctx.dtype)
+        local = index.shard(ctx.rank, dtype)
         if queries is not None:
             queries = queries.to(index.device)
         scores = local_scores(local, queries, qw, tau_init, index)
@@ -640,10 +640,11 @@ def make_serve_step(
     engine = engine or cfg.engine
     k = k or cfg.k
     factory = registry.get_serve_factory(engine)
-    ctx = _Group(group, *group_rank_size(group), compute_dtype)
+    ctx = _Group(group, *group_rank_size(group))
     step = factory(ctx, k=k, docs_per_shard=docs_per_shard,
                    geometry=geometry, cfg=cfg,
-                   hierarchical_merge=hierarchical_merge)
+                   hierarchical_merge=hierarchical_merge,
+                   compute_dtype=compute_dtype)
     obs = getattr(cfg, "obs", None)
     if obs is None:
         return step
@@ -662,7 +663,7 @@ def make_serve_step(
 
 @registry.register_serve_factory("ell")
 def _serve_factory_ell(ctx, *, k, docs_per_shard, geometry, cfg,
-                       hierarchical_merge):
+                       hierarchical_merge, compute_dtype):
     def local_scores(local: EllIndex, queries, qw, tau_init, index):
         qw = _query_weights(queries, qw, local.vocab_size,
                             local.terms.device, local.values.dtype)
@@ -670,7 +671,7 @@ def _serve_factory_ell(ctx, *, k, docs_per_shard, geometry, cfg,
                                   local.values)[:, :docs_per_shard]
 
     return _sharded_step(ctx, k, docs_per_shard, ShardedEllIndex, geometry,
-                         local_scores)
+                         local_scores, compute_dtype)
 
 
 def _raw_tiled_shard(arrays, rank: int, docs_per_shard: int,
@@ -694,7 +695,7 @@ def _raw_tiled_shard(arrays, rank: int, docs_per_shard: int,
 
 @registry.register_serve_factory("tiled")
 def _serve_factory_tiled(ctx, *, k, docs_per_shard, geometry, cfg,
-                         hierarchical_merge):
+                         hierarchical_merge, compute_dtype):
     def local_scores(local: TiledIndex, queries, qw, tau_init, index):
         qw = _query_weights(queries, qw,
                             local.num_term_blocks * local.term_block,
@@ -702,7 +703,7 @@ def _serve_factory_tiled(ctx, *, k, docs_per_shard, geometry, cfg,
         return scoring._score_blocks(qw, local)[:, :docs_per_shard]
 
     step = _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
-                         geometry, local_scores)
+                         geometry, local_scores, compute_dtype)
 
     def serve_step(index, queries=None, qw=None, tau_init=None,
                    deleted_mask=None):
@@ -716,7 +717,7 @@ def _serve_factory_tiled(ctx, *, k, docs_per_shard, geometry, cfg,
             raise ValueError("a tiled step over raw arrays needs qw")
         qw = torch.as_tensor(qw)
         local = _raw_tiled_shard(index, ctx.rank, docs_per_shard, geometry,
-                                 qw.shape[1], ctx.dtype)
+                                 qw.shape[1], compute_dtype)
         scores = local_scores(local, None, qw, tau_init, None)
         mv, mi = topk_mod.local_then_global_topk(
             scores, ctx.rank * docs_per_shard, k, ctx.group)
@@ -737,10 +738,10 @@ def _bmp_local(theta: float, k: int):
 
 @registry.register_serve_factory("tiled-pruned")
 def _serve_factory_tiled_pruned(ctx, *, k, docs_per_shard, geometry, cfg,
-                                hierarchical_merge):
+                                hierarchical_merge, compute_dtype):
     if cfg.traversal != "two-pass":
         return _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
-                             geometry, _bmp_local(1.0, k))
+                             geometry, _bmp_local(1.0, k), compute_dtype)
 
     def local_scores(local: TiledIndex, queries, qw, tau_init, index):
         if tau_init is not None:
@@ -753,14 +754,14 @@ def _serve_factory_tiled_pruned(ctx, *, k, docs_per_shard, geometry, cfg,
                                           seed_blocks=cfg.prune_seed_blocks)
 
     return _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
-                         geometry, local_scores)
+                         geometry, local_scores, compute_dtype)
 
 
 @registry.register_serve_factory("tiled-pruned-approx")
 def _serve_factory_tiled_pruned_approx(ctx, *, k, docs_per_shard, geometry,
-                                       cfg, hierarchical_merge):
+                                       cfg, hierarchical_merge, compute_dtype):
     return _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
-                         geometry, _bmp_local(cfg.theta, k))
+                         geometry, _bmp_local(cfg.theta, k), compute_dtype)
 
 
 def demand_plan(ctx: _Group, index: ShardedTiledIndex, local: TiledIndex,
@@ -775,7 +776,7 @@ def demand_plan(ctx: _Group, index: ShardedTiledIndex, local: TiledIndex,
     cost = topk_mod.gather_shards(local.block_chunk_count, ctx.group)
     demand = demand.permute(1, 0, 2).reshape(ub.shape[0], -1)
     knobs = (cfg.sched_top_m, cfg.sched_max_group, cfg.sched_min_share)
-    return planner_mod.plan_with_cache(
+    return planner_mod.plan_with_cache(  # lint: disable=host-sync -- the demand planner is numpy on the host: every shard's bounds and chunk counts go to it once a step (PERF.md section 5, bottleneck 1)
         getattr(cfg, "plan_cache", None), queries, index,
         lambda: planner_mod.plan_micro_batches(
             demand.cpu().numpy(), cost.reshape(-1).cpu().numpy(),
@@ -785,7 +786,8 @@ def demand_plan(ctx: _Group, index: ShardedTiledIndex, local: TiledIndex,
     )
 
 
-def _grouped_factory(ctx, k, docs_per_shard, geometry, cfg, stacked: bool):
+def _grouped_factory(ctx, k, docs_per_shard, geometry, cfg, stacked: bool,
+                     dtype: torch.dtype):
     def local_scores(local: TiledIndex, queries, qw, tau_init, index):
         queries = _need_queries(queries)
         ub = scoring.block_upper_bounds(queries, local)
@@ -796,26 +798,26 @@ def _grouped_factory(ctx, k, docs_per_shard, geometry, cfg, stacked: bool):
         )
 
     return _sharded_step(ctx, k, docs_per_shard, ShardedTiledIndex,
-                         geometry, local_scores)
+                         geometry, local_scores, dtype)
 
 
 @registry.register_serve_factory("tiled-bmp-grouped")
 def _serve_factory_tiled_bmp_grouped(ctx, *, k, docs_per_shard, geometry,
-                                     cfg, hierarchical_merge):
+                                     cfg, hierarchical_merge, compute_dtype):
     """Demand-grouped sharded BMP: one plan over every shard's bounds, one
     ``bmp_scan`` launch a padded group on each shard, one merge."""
     return _grouped_factory(ctx, k, docs_per_shard, geometry, cfg,
-                            stacked=False)
+                            stacked=False, dtype=compute_dtype)
 
 
 @registry.register_serve_factory("tiled-bmp-fused")
 def _serve_factory_tiled_bmp_fused(ctx, *, k, docs_per_shard, geometry,
-                                   cfg, hierarchical_merge):
+                                   cfg, hierarchical_merge, compute_dtype):
     """Fused sharded BMP: the grouped step's plan, the groups of each
     power-of-two bucket stacked into one ``bmp_scan`` launch a shard
     (:func:`repro_torch.kernels.bmp_scan.ops.bmp_scan`'s contract)."""
     return _grouped_factory(ctx, k, docs_per_shard, geometry, cfg,
-                            stacked=True)
+                            stacked=True, dtype=compute_dtype)
 
 
 # -- the deprecated factories (JAX's historical make_retrieval_serve_step_*) --

@@ -187,18 +187,17 @@ def score_segment(queries: SparseBatch, index: FlatIndex) -> torch.Tensor:
     and the add), which is the structure the fused kernels remove.
     """
     global segment_launches
-    ids = queries.term_ids.cpu().numpy()
-    weights = queries.values.cpu().numpy()
-    offsets = index.offsets.cpu().numpy()
-    lengths = index.lengths.cpu().numpy()
+    ids, weights, offsets, lengths = (  # lint: disable=host-sync -- the comparison engine's loop runs on the host: its terms and the offsets come over once a call
+        t.tolist() for t in (queries.term_ids, queries.values, index.offsets,
+                             index.lengths))
     out = torch.zeros((queries.batch, index.num_docs), dtype=torch.float32,
                       device=index.device)
     for b in range(queries.batch):
         row = out[b]
-        for t, w in zip(ids[b].tolist(), weights[b].tolist()):
+        for t, w in zip(ids[b], weights[b]):
             if t < 0:
                 continue
-            start, n = int(offsets[t]), int(lengths[t])
+            start, n = offsets[t], lengths[t]
             docs = index.doc_ids[start:start + n]
             row.index_add_(0, docs, index.values[start:start + n] * w)
             segment_launches += 1
@@ -414,12 +413,14 @@ def score_tiled_pruned(queries: SparseBatch, index: TiledIndex, k: int,
     )
     if not return_stats:
         return out
+    seeded, scored, chunks = torch.stack((  # lint: disable=host-sync -- PruneStats are host numbers, read in one transfer when return_stats asks for them
+        seeded_any.sum(), scored_any.sum(), chunks_mask.sum())).tolist()
     return out, PruneStats(
         num_doc_blocks=index.num_doc_blocks,
-        blocks_seeded=int(seeded_any.sum()),
-        blocks_scored=int(scored_any.sum()),
+        blocks_seeded=seeded,
+        blocks_scored=scored,
         chunks_total=index.num_chunks,
-        chunks_scored=int(chunks_mask.sum()),
+        chunks_scored=chunks,
     )
 
 
@@ -496,14 +497,16 @@ def score_tiled_bmp(queries: SparseBatch, index: TiledIndex, k: int,
     )
     ret = [out[0]]
     if return_stats:
+        scored, chunks, n_steps = torch.stack((  # lint: disable=host-sync -- PruneStats are host numbers, read in one transfer when return_stats asks for them
+            bsc.sum(), csc.sum(), steps[0].long())).tolist()
         ret.append(PruneStats(
             num_doc_blocks=index.num_doc_blocks,
             blocks_seeded=0,  # no seed pass: tau grows from the sweep
-            blocks_scored=int(bsc.sum()),
+            blocks_scored=scored,
             chunks_total=index.num_chunks,
-            chunks_scored=int(csc.sum()),
-            sweep_steps=int(steps[0]),
-            theta=float(theta),
+            chunks_scored=chunks,
+            sweep_steps=n_steps,
+            theta=theta,
         ))
     if return_tau:
         ret.append(tau[0])
@@ -611,7 +614,7 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
     if ub is None:
         ub = block_upper_bounds(queries, index, qw=qw)
     if groups is None:
-        groups = planner_mod.plan_with_cache(
+        groups = planner_mod.plan_with_cache(  # lint: disable=host-sync -- the demand planner is numpy on the host: the bounds and chunk counts go to it once a call (PERF.md section 5, bottleneck 1)
             plan_cache, queries, index,
             lambda: planner_mod.plan_micro_batches(
                 ub.cpu().numpy(), index.block_chunk_count.cpu().numpy(),
@@ -621,7 +624,7 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
             obs=obs,
         ).groups
     groups = planner_mod.validate_groups(groups, b)
-    tau0 = _tau0(tau_init, b, "cpu").numpy()
+    tau0 = _tau0(tau_init, b, "cpu").numpy()  # lint: disable=host-sync -- the planner pads each group's rows with their tau on the host
     alive = _alive_from_deleted(deleted_mask, index.num_docs, dev)
     if stacked:
         with obs_mod.span(obs, "bucket.assembly") as sp:
@@ -636,7 +639,7 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
         )
     n = len(groups)
     out = torch.empty((b, index.num_docs), dtype=torch.float32, device=dev)
-    tau_out = tau0.copy()
+    tau_out = torch.tensor(tau0, device=dev)
     blocks_g, chunks_g, padded, steps_g = [0] * n, [0] * n, [0] * n, [0] * n
     block_union = torch.zeros(index.num_doc_blocks, dtype=torch.bool,
                               device=dev)
@@ -655,36 +658,38 @@ def grouped_sweeps(queries: SparseBatch, index: TiledIndex, k: int, *,
                 obs.counter("kernel.launches_total").inc()
                 obs_mod.fence((out_g, tau_g))
         launches += 1
-        tau_g = tau_g.cpu().numpy()
         if return_stats:
-            nb, nc = bsc.sum(dim=1).tolist(), csc.sum(dim=1).tolist()
-            steps = steps.tolist()
+            nb, nc, steps = torch.stack((  # lint: disable=host-sync -- SchedStats are host numbers, read in one transfer a launch when return_stats asks for them
+                bsc.sum(dim=1), csc.sum(dim=1), steps.long())).tolist()
             block_union |= bsc.any(dim=0)
             chunk_union |= csc.any(dim=0)
         for slot, (gi, g) in enumerate(entries):
-            out[torch.from_numpy(g).to(dev)] = out_g[slot, : len(g)]
-            tau_out[g] = tau_g[slot, : len(g)]
+            rows = torch.from_numpy(g).to(dev)
+            out[rows] = out_g[slot, : len(g)]
+            tau_out[rows] = tau_g[slot, : len(g)]
             if return_stats:
                 blocks_g[gi], chunks_g[gi] = nb[slot], nc[slot]
                 padded[gi], steps_g[gi] = size, steps[slot]
         del out_g
     ret = [out]
     if return_stats:
+        blocks_union, chunks_union = torch.stack((  # lint: disable=host-sync -- SchedStats are host numbers, read in one transfer when return_stats asks for them
+            block_union.sum(), chunk_union.sum())).tolist()
         ret.append(SchedStats(
             num_doc_blocks=index.num_doc_blocks,
             chunks_total=index.num_chunks,
             group_sizes=tuple(len(g) for g in groups),
             blocks_scored_per_group=tuple(blocks_g),
             chunks_scored_per_group=tuple(chunks_g),
-            blocks_scored_union=int(block_union.sum()),
-            chunks_scored_union=int(chunk_union.sum()),
+            blocks_scored_union=blocks_union,
+            chunks_scored_union=chunks_union,
             sweep_steps=sum(steps_g),
-            theta=float(theta),
+            theta=theta,
             padded_group_sizes=tuple(padded),
             kernel_launches=launches if stacked else 0,
         ))
     if return_tau:
-        ret.append(torch.from_numpy(tau_out).to(dev))
+        ret.append(tau_out)
     return ret[0] if len(ret) == 1 else tuple(ret)
 
 

@@ -46,7 +46,7 @@ def _positions_at_or_above(x: torch.Tensor, kth: torch.Tensor,
     step = max(1, _TIE_ELEMS // max(n, 1))
     for s in range(0, rows, step):
         xs, ks = x[s:s + step], kth[s:s + step]
-        r, p = (xs >= ks).nonzero(as_tuple=True)  # row-major: p ascends
+        r, p = (xs >= ks).nonzero(as_tuple=True)  # row-major: p ascends  # lint: disable=host-sync -- the tie repair: each row's entries at or above its k-th value, a count only the data gives
         m = xs.shape[0]
         gt = xs[r, p] > ks[r, 0]
         eq = ~gt
@@ -81,7 +81,7 @@ def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
         else:
             # Rows where more than k entries reach the k-th value: take
             # the tie's lowest keys.
-            tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)
+            tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)  # lint: disable=host-sync -- the tie repair: the rows whose k-th value ties, a count only the data gives
             if tied.numel():
                 full = torch.arange(n, device=x.device).expand(
                     tied.numel(), n)
@@ -197,7 +197,7 @@ def local_topk(scores: torch.Tensor, doc_offset: int, k: int):
     shard's first global id, ties to the lower id."""
     kk = min(k, scores.shape[-1])
     lv, li = _topk_lower_key(scores, kk)
-    return lv, li.to(torch.int32) + int(doc_offset)
+    return lv, li.to(torch.int32) + doc_offset
 
 
 def gather_shards(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -181,13 +181,27 @@ def term_block_mask(nz: torch.Tensor, term_block: int) -> torch.Tensor:
         torch.int32)
 
 
-def pack_small_weights(qw: torch.Tensor, tile: int):
+def launch_sizes(nz: torch.Tensor,
+                 block_chunk_count: torch.Tensor) -> tuple[int, int]:
+    """``(nz_cap, max_run)`` of a launch, each at least 1: the most terms of
+    nonzero weight in any group (``nz`` from :func:`nonzero_terms`) and the
+    longest block chunk run.  Both size the launch's shared memory, so both
+    are read on the host here, in one transfer."""
+    counts = [nz.sum(-1).max()]
+    if block_chunk_count.numel():
+        counts.append(block_chunk_count.max().to(nz.device, torch.int64))
+    sizes = torch.stack(counts).tolist() + [1]  # lint: disable=host-sync -- the launch's shared memory is sized from these counts on the host
+    return max(sizes[0], 1), max(sizes[1], 1)
+
+
+def pack_small_weights(qw: torch.Tensor, tile: int, nz_cap: int):
     """The small route's compact weights of each group -> ``(bits [G, W]
     int32, rank [G, W] int32, weights [G, nz_cap, tile] in qw's dtype)``, W =
     ceil(V_pad / 32): bit t % 32 of word t // 32 is set iff term t has a
     nonzero weight in some row; ``rank`` counts the set bits of the words
     before; ``weights[g, rank(t) + popcount of the bits below t in its
-    word, r] = qw[g, r, t]`` (rows b .. tile-1 are 0)."""
+    word, r] = qw[g, r, t]`` (rows b .. tile-1 are 0).  ``nz_cap`` is the
+    most nonzero-weight terms of any group (:func:`launch_sizes`)."""
     g, b, v_pad = qw.shape
     nz = nonzero_terms(qw)
     n_words = -(-v_pad // 32)
@@ -197,10 +211,9 @@ def pack_small_weights(qw: torch.Tensor, tile: int):
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
     counts = bit.sum(-1)
     rank = torch.cumsum(counts, -1) - counts
-    nz_cap = max(int(counts.sum(-1).max()), 1) if g else 1
     weights = torch.zeros((g, nz_cap, tile), dtype=qw.dtype,
                           device=qw.device)
-    gi, ti = nz.nonzero(as_tuple=True)  # group-major, then term order
+    gi, ti = nz.nonzero(as_tuple=True)  # group-major, then term order  # lint: disable=host-sync -- the nonzero weights' slots, a count only the data gives
     slot = (torch.cumsum(nz, -1) - 1)[gi, ti]
     weights[gi, slot, :b] = qw.transpose(1, 2)[gi, ti]
     return words.to(torch.int32), rank.to(torch.int32), weights
@@ -282,15 +295,14 @@ def bmp_sweep(
     nz = nonzero_terms(qw)
     tb_nz = term_block_mask(nz, term_block)
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    max_run = max(int(block_chunk_count.max()), 1) if n_db else 1
-    nz_cap = max(int(nz.sum(-1).max()), 1)
+    nz_cap, max_run = launch_sizes(nz, block_chunk_count)
     route = pick_route(g, b, sm_count, doc_block, c, v_pad=v_pad,
                        term_block=term_block, nz_cap=nz_cap, max_run=max_run,
                        elem_bytes=qw.element_size())
     qwt = bits = rank = weights = spec = None
     b_pad, workers = b, 0
     if route.name == "small":
-        bits, rank, weights = pack_small_weights(qw, route.tile)
+        bits, rank, weights = pack_small_weights(qw, route.tile, nz_cap)
         # Each worker's windows of the blocks it scores ahead of their step.
         workers = route.cluster * PIPE_WARPS
         spec = torch.empty((g, workers, route.tile,
@@ -308,7 +320,7 @@ def bmp_sweep(
     launch = build.load_function(NAME, "bmp_scan_launch", _ARGTYPES)
     err = launch(
         0 if route.name == "small" else 1, route.tile, route.cluster,
-        route.smem, ctypes.addressof(used), int(dtype == torch.bfloat16),
+        route.smem, ctypes.addressof(used), dtype == torch.bfloat16,
         ptr(qwt), ptr(bits), ptr(rank), ptr(weights), tb_nz.data_ptr(),
         order.data_ptr(), ub_sorted.data_ptr(), tau0.data_ptr(),
         block_chunk_start.data_ptr(), block_chunk_count.data_ptr(),
@@ -317,9 +329,9 @@ def bmp_sweep(
         scores.data_ptr(), heap.data_ptr(), block_scored.data_ptr(),
         chunk_scored.data_ptr(), steps.data_ptr(),
         g, b, b_pad, v_pad, n_db, n_chunks, term_block, doc_block, c,
-        k_eff, float(theta), MARGIN_REL[dtype], num_docs,
+        k_eff, theta, MARGIN_REL[dtype], num_docs,
         -(-v_pad // 32), 0 if weights is None else weights.shape[1],
-        int(route.weights_in_smem),
+        route.weights_in_smem,
         v_pad // term_block, max_run, ptr(spec), workers,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -lineinfo
+         -shared -Xcompiler -fPIC -Xptxas -v
 
 into ``build/kernels/<name>-<hash>.so`` at the repository root (a
 git-ignored directory).  The hash covers the source, every shared header
 ``csrc/*.cuh`` it may include, and the flags, so an edited source or
-header is rebuilt and a stale library is never loaded.  The library
+header is rebuilt and a stale library is never loaded.  ``-lineinfo``
+changes no code (the registers and spills ``-Xptxas -v`` reports are the
+same) and lets ``compute-sanitizer`` name the ``.cu`` line of an error
+(:mod:`repro_torch.lint.sanitize`).  The library
 is loaded with ``ctypes``; callers declare each function's ``argtypes``
 (``c_void_p`` for pointers and the stream) through :func:`load_function`.
 
@@ -36,7 +39,7 @@ SOURCES = ("scatter_score", "ell_gather", "bmp_scan", "splade_head",
            "flash_attention", "embedding_bag")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-lineinfo", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -138,8 +141,12 @@ def score_dtype(name: str, qw: torch.Tensor, values: torch.Tensor):
 
 
 def expect(t: torch.Tensor, what: str, dtype, shape=None,
-           device: torch.device | None = None) -> None:
-    """Validate a kernel operand before its pointer reaches C."""
+           device: torch.device | None = None,
+           contiguous: bool = True) -> None:
+    """Validate a kernel operand before its pointer reaches C: its dtype,
+    shape and device where given, and its layout unless ``contiguous`` is
+    False (an operand the kernel reads through its strides, which the
+    caller checks)."""
     if t.dtype != dtype:
         raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -147,5 +154,5 @@ def expect(t: torch.Tensor, what: str, dtype, shape=None,
                          f"{tuple(shape)}")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: not contiguous")

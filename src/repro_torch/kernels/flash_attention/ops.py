@@ -52,8 +52,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{NAME}: Dh {dh}; the kernel takes {HEAD_DIMS}")
     vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{NAME}: {name} on {t.device}, q on {q.device}")
+        build.expect(t, f"{NAME}: {name}", q.dtype, device=q.device,
+                     contiguous=False)
         if (t.stride(3) != 1 or any(s % vec for s in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"{NAME}: {name} rows must be contiguous in Dh "
@@ -88,8 +88,7 @@ def flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         DTYPES[q.dtype], b, sq, skv, hq, hkv, dh,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), int(window is not None),
-        0 if window is None else int(window),
+        causal, window is not None, 0 if window is None else window,
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(NAME, err)

@@ -79,7 +79,7 @@ def pack_query_tiles(qw: torch.Tensor):
                       torch.cumsum(sparse_cnt, 0) - sparse_cnt)
     cnt = torch.where(is_dense, QUERY_TILE, sparse_cnt)
     records = torch.stack((off, cnt), -1).view(n_tiles, v, 2)
-    head = torch.cat((dense.long(), sparse_cnt.sum().view(1))).tolist()  # the one host sync
+    head = torch.cat((dense.long(), sparse_cnt.sum().view(1))).tolist()  # lint: disable=host-sync -- the one transfer: the tiles' routes and the entries' count size the packed arrays
     dense_ids = [g for g in range(n_tiles) if head[g]]
     n_entries = head[-1]
     if max(n_entries, len(dense_ids) * v * QUERY_TILE) >= 1 << 31:

@@ -50,9 +50,7 @@ def splade_head(
     build.expect(h, "h", torch.float32, device=dev)
     build.expect(mask, "mask", torch.float32, (bsz, t), dev)
     build.expect(b, "b", torch.float32, (v,), dev)
-    if w.dtype != torch.float32 or tuple(w.shape) != (d, v) or w.device != dev:
-        raise ValueError(f"{NAME}: w is {w.dtype} {tuple(w.shape)} on "
-                         f"{w.device}, expected float32 ({d}, {v}) on {dev}")
+    build.expect(w, "w", torch.float32, (d, v), dev, contiguous=False)
     out = torch.empty((bsz, v), dtype=torch.float32, device=dev)
     if bsz == 0 or v == 0:
         return out

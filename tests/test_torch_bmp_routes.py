@@ -158,7 +158,9 @@ def _sparse_qw(g, b, v_pad, nnz, seed):
 def test_pack_small_weights_equals_its_definition(b, v_pad, nnz):
     qw = _sparse_qw(4, b, v_pad, nnz, seed=b)
     tile = 1 << (b - 1).bit_length()
-    bits, rank, weights = bmp_ops.pack_small_weights(qw, tile)
+    nz_cap, _ = bmp_ops.launch_sizes(bmp_ops.nonzero_terms(qw),
+                                     torch.zeros(0, dtype=torch.int32))
+    bits, rank, weights = bmp_ops.pack_small_weights(qw, tile, nz_cap)
     g = qw.shape[0]
     n_words = -(-v_pad // 32)
     assert bits.dtype == rank.dtype == torch.int32

@@ -179,6 +179,23 @@ def test_grouped_and_fused_equal_flat_with_less_work(corpus, groups):
         assert torch.equal(va, vb) and torch.equal(ia, ib)
 
 
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("as_numpy", [False, True])
+def test_grouped_sweeps_leave_tau_init_unchanged(corpus, stacked, as_numpy):
+    """The swept thresholds go to a new tensor: a float32 ``tau_init`` on
+    the CPU (a tensor or a numpy array) is the caller's and is not written."""
+    c, _ = corpus
+    _, t = _indices(corpus, 16, 32)
+    q = port_batch(c.queries)
+    _, tau = tscoring.score_tiled_bmp_grouped(q, t, 5, return_tau=True)
+    warm = (tau * 0.5).numpy() if as_numpy else tau * 0.5
+    kept = np.array(warm, copy=True)
+    _, got = tscoring.grouped_sweeps(q, t, 5, stacked=stacked, tau_init=warm,
+                                     return_tau=True)
+    np.testing.assert_array_equal(np.asarray(warm), kept)
+    assert got is not warm and not np.array_equal(got.numpy(), kept)
+
+
 def test_fused_bucket_above_the_tpu_row_cap(corpus):
     """A 256-row bucket is one launch (the TPU kernel capped buckets at 128
     rows and ran larger ones through its oracle, group by group)."""

@@ -1179,7 +1179,8 @@ def test_policy_at_model_one_is_the_unsharded_lm_bit_for_bit(cuda):
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.sharding.policies import make_policy
 
-    cfg = dataclasses.replace(qwen3_4b.SMOKE, dtype="bfloat16")
+    # Dh 64: the kernel takes Dh 64 or 128, SMOKE's 16 raises.
+    cfg = dataclasses.replace(qwen3_4b.SMOKE, dtype="bfloat16", d_head=64)
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
                            generator=torch.Generator(cuda).manual_seed(1))
 
@@ -1488,3 +1489,22 @@ def test_bf16_sharded_steps_on_the_card_match_the_cpu(cuda, engine):
         tiled = run(cuda, "tiled")
         for a, b in zip(got, tiled):
             assert torch.equal(a, b)
+
+
+def test_lint_device_half_on_one_kernel(cuda):
+    """The lint's device half (``repro_torch.lint.sanitize``) on
+    ``embedding_bag``'s weighted route, ids outside [0, V) included: the
+    guard bands and the repeated launches are clean, the kernel agrees with
+    its plain version, and memcheck and racecheck are each clean or say
+    why they could not check (never silent); no finding."""
+    from repro_torch.lint import sanitize
+
+    name = "embedding_bag/vec4/weighted"
+    results = sanitize.run("cuda", names=[name])
+    res = results["routes"][name]
+    assert res["guard"] == "clean" and res["repeat"] == "clean"
+    assert res["plain"] == "clean"
+    for tool in ("memcheck", "racecheck"):
+        assert res[tool] == "clean" or res[tool].startswith("not checked")
+    assert sanitize.memory_findings(results) == []
+    assert sanitize.race_findings(results) == []

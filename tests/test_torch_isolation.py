@@ -58,7 +58,18 @@ def test_port_imports_no_jax_and_no_repro():
               "repro_torch.analysis.ops", "repro_torch.analysis.roofline",
               "repro_torch.analysis.report",
               "repro_torch.runtime.elastic", "repro_torch.sharding",
-              "repro_torch.sharding.ctx", "repro_torch.sharding.policies"):
+              "repro_torch.sharding.ctx", "repro_torch.sharding.policies",
+              "repro_torch.lint", "repro_torch.lint.__main__",
+              "repro_torch.lint.core", "repro_torch.lint.cache",
+              "repro_torch.lint.obs_contract",
+              "repro_torch.lint.registry_conformance",
+              "repro_torch.lint.deprecation_shim",
+              "repro_torch.lint.device_contract",
+              "repro_torch.lint.host_sync", "repro_torch.lint.kernel_shape",
+              "repro_torch.lint.accum_dtype",
+              "repro_torch.lint.kernel_memory",
+              "repro_torch.lint.kernel_race", "repro_torch.lint.sanitize",
+              "repro_torch.lint.geometry"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -262,14 +262,25 @@ Phases (each raises on failure; the script then exits non-zero):
    1.0000 as printed, the others at least 0.999).  A ``{"sharded":
    {...}}`` line holds the numbers.
 9d. serve_8m (``src/repro_torch/configs/gpusparse.py:58``: 8,841,823
-   docs, B = 500, k = 1000) on one card, with phase 9's data freed (the
-   counters zeroed before and read after; ``ell_gather`` must be
-   launched): the corpus made on the card, the one-shard ELL index, the
-   corpus freed; the ``ell`` step in f32 and bf16, a warm-up and 5 calls
-   timed with CUDA events (median), ``ell_gather`` alone beside its bound
-   (that dtype's bytes) and HBM share, the f32 step exact against float64
-   on 16 queries as phase 3, the bf16 step's overlap with float64, peak
-   device memory.  A ``{"serve_8m": {...}}`` line holds the numbers.
+   docs, B = 500, k = 1000) on one card, with phase 9's data freed: the
+   corpus made on the card and the float64 scores of 16 sampled queries
+   computed from it; then the paper's main path, ``RetrievalEngine(docs,
+   RetrievalConfig(engine=...)).search`` for ``"tiled"`` and ``"ell"``,
+   one at a time, each freed before the next (both counters zeroed before
+   the build and read after the searches; the engine's kernel must be
+   launched): build s, index bytes and padding overhead (the paper's Table
+   6), a warm-up and 5 searches timed with CUDA events (median), ms a
+   search, us a query and QPS beside the paper's 1.27 ms a query and 787
+   QPS (a yardstick, not a gate), exact against float64 as phase 3, the
+   kernel alone on the search's inputs beside its bound and HBM share,
+   the top-k alone, peak device memory; then the one-shard ELL index, the
+   corpus freed, and the ``ell`` step in f32 and bf16 (each dtype's
+   ``ell_gather`` launches counted from its warm-up to its last timed
+   call and must be more than 0), timed the same way, ``ell_gather``
+   alone beside its bound (that dtype's bytes) and HBM share, the f32 step
+   exact against float64
+   as phase 3, the bf16 step's overlap with float64, peak device memory.
+   A ``{"serve_8m": {...}}`` line holds the numbers.
 
 10. The paper's system comparison, with phase 9's data freed (the
    counters of ``scatter_score``, ``ell_gather`` and the ``segment``
@@ -351,18 +362,18 @@ Phases (each raises on failure; the script then exits non-zero):
 13. Tensor and expert parallelism (``repro_torch.sharding``), with phase
    12's data freed.  First, which collectives gloo takes CUDA tensors for
    (each tried on a group of one).  13a: ``qwen3-4b`` at full width and
-   depth, prefill 1 x 4,096 in bf16 under the policy of a 1 x 1 mesh over
+   depth, prefill 1 x 2,048 in bf16 under the policy of a 1 x 1 mesh over
    an NCCL group of one: logits bit for bit the unsharded model's, 36
    ``flash_attention`` launches.  13b: the single-rank run of the cases
    below on the card, then two processes on card 0 over gloo with CUDA
    tensors (spawned without ``CUBLAS_WORKSPACE_CONFIG``), mesh 1 x 2, each
    holding its shards of the same seeded weights: ``qwen3-4b`` prefill 1 x
-   4,096 and 8 decode steps of 8 sequences from 4,096 seeded cache slots
+   2,048 and 4 decode steps of 8 sequences from 4,096 seeded cache slots
    (bf16 within ARCH_BF16_DRIFTS of the single run's own bf16-vs-f32
    drift, f32 prefill within PREFILL_F32_RTOL; 36 launches a prefill on
    16 q / 4 kv heads a rank), ``smollm-135m`` in f32 (9 q / 3 kv heads:
    every head from gathered weights, the cache split by sequence; within
-   TP_SEQ_RTOL), ``olmoe-1b-7b`` prefill 4 x 2,048 under TP inside the
+   TP_SEQ_RTOL), ``olmoe-1b-7b`` prefill 4 x 1,024 under TP inside the
    experts and under EP (within the bf16 bar; expert ids and drops equal
    on the ranks, their share off the single run printed; layer 0's
    experts on 256 seeded tokens in f32: ids and drops the single run's,
@@ -373,7 +384,8 @@ Phases (each raises on failure; the script then exits non-zero):
    call (two ranks sharing one card, gloo: no measure of TP speed), each
    rank's peak memory beside the single run's, the launches.  13c: the
    ``meta`` dry run of every cell at ``"quad_tp"``, the MoE cells also
-   with ``--expert-parallel``, in worker processes; every cell must count.
+   with ``--expert-parallel``, in worker processes started before 13a and
+   counting while 13a and 13b run; every cell must count.
    A ``{"tensor_parallel": {...}}`` line holds the numbers; the
    ``kernels`` line's ``flash_attention`` and ``embedding_bag`` rows gain
    their launches a call on each rank.
@@ -387,7 +399,7 @@ Phases (each raises on failure; the script then exits non-zero):
    0 under deterministic algorithms (a world of four for 14b and one of two
    for the rest, at once), each holding its shards of the same seeded
    weights and its share of the same batch, 3 steps a case.  14a:
-   ``qwen3-4b`` at full width, **8 of 36 layers**, bf16, remat, batch **2
+   ``qwen3-4b`` at full width, **2 of 36 layers**, bf16, remat, batch **2
    (of 256)** x 4,096 (a mask of 70 % of the tokens), at mesh (1, 2) with
    ``seq_parallel`` forced on (TP + SP) and at (2, 1) (FSDP).  14b:
    ``smollm-135m`` in f32 at full depth, 4 x 1,024, at (2, 2) on four
@@ -641,8 +653,9 @@ class Sizes:
     # (--sched drains the queue once, after one micro-batch).
     serve_rounds: int = 1
     # Phase 9d: serve_8m, the paper's corpus size and the repo's own shape
-    # (src/repro_torch/configs/gpusparse.py:58), on one card: the ell step
-    # in f32 and bf16, a warm-up and 5 rounds each.
+    # (src/repro_torch/configs/gpusparse.py:58), on one card: the tiled and
+    # ell engines' searches, then the ell step in f32 and bf16, a warm-up
+    # and 5 rounds each.
     serve_8m_docs: int = 8_841_823
     # The system comparison (phase 10).  10a is serve_1m; 10b the paper's
     # Table 2 at its own size (benchmarks/table2_systems.py:18, the
@@ -703,17 +716,19 @@ class Sizes:
     reddit_edges: int = 114_615_892
     dryrun_workers: int = 8
     # Tensor and expert parallelism (phase 13), TP_RANKS gloo ranks on card
-    # 0: dense_arch (qwen3-4b) prefill 1 x 4,096 and 8 decode steps of 8
+    # 0: dense_arch (qwen3-4b) prefill 1 x 2,048 and 4 decode steps of 8
     # sequences from 4,096 seeded cache slots (bf16 and f32); TP_SEQ_ARCH
     # the same in f32 (its 3 kv heads: the cache split by sequence);
-    # moe_arch prefill 4 x 2,048 under TP inside the experts and under EP;
-    # xDeepFM and AutoInt at serve_p99 with their tables row-sharded.
-    tp_prefill_len: int = 4096
+    # moe_arch prefill 4 x 1,024 under TP inside the experts and under EP;
+    # xDeepFM and AutoInt at serve_p99 with their tables row-sharded.  The
+    # prefills and the decode steps cut in half (4,096, 2,048 and 8 before)
+    # to keep the script inside its time with 9d's engines.
+    tp_prefill_len: int = 2048
     tp_decode_batch: int = 8
     tp_decode_context: int = 4096
-    tp_decode_steps: int = 8
+    tp_decode_steps: int = 4
     tp_moe_batch: int = 4
-    tp_moe_len: int = 2048
+    tp_moe_len: int = 1024
     tp_recsys_models: tuple = ("xdeepfm", "autoint")
     # Training under the sharding policy (phase 14), SHARD_TRAIN_STEPS steps
     # a case on gloo ranks sharing card 0: 14a dense_arch cut to
@@ -725,7 +740,7 @@ class Sizes:
     # SHARD_RECSYS_MODEL at recsys_train_batch; 14e SchNet's full_graph_sm
     # (edges split) and molecule (graphs split).  The cells' meta counts
     # and 14f in shard_workers processes.
-    shard_lm_layers: int = 8
+    shard_lm_layers: int = 2  # 8 -> 2 (the time went to 9d's engines)
     shard_lm_batch: int = 2
     shard_lm_len: int = 4096
     shard_split_batch: int = 4
@@ -3675,36 +3690,139 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     return out
 
 
-def ell_f64(index, queries, sample):
-    """Float64 scores [N, len(sample)] of the sampled queries over an
-    ``EllIndex``, a bounded slab of docs at a time (the corpus is gone by
-    then, and its CSR in float64 would not fit beside the index)."""
+def ell_f64(terms, values, queries, sample):
+    """Float64 scores [N, len(sample)] of the sampled queries over rows of
+    padded term lists ``terms``/``values`` [N, K] — a corpus's (padding id
+    -1) or an ``EllIndex``'s (padding id V): both read the zero column
+    appended to the queries — a bounded slab of docs at a time (the corpus
+    as a float64 CSR would not fit beside the engines' indexes)."""
     import torch
 
     qw = queries.to_dense(torch.float64)[torch.from_numpy(sample).to(
         queries.device)]
     qw = torch.nn.functional.pad(qw, (0, 1))  # the padding id reads 0
-    n, kk = index.terms.shape
+    n, kk = terms.shape
     out = torch.empty((n, qw.shape[0]), dtype=torch.float64,
                       device=qw.device)
     step = max(1, (1 << 26) // (qw.shape[0] * kk))
     for s in range(0, n, step):
-        t = index.terms[s:s + step].long()
-        v = index.values[s:s + step].double()
+        t = terms[s:s + step].long()
+        v = values[s:s + step].double()
         out[s:s + step] = (qw[:, t] * v).sum(-1).T
-    return out[:index.num_docs]
+    return out
+
+
+# The paper's main-path figures at serve_8m (8.8M passages, B = 500): a
+# yardstick printed beside 9d's engine searches, not a gate.
+PAPER_MS_PER_QUERY = 1.27
+PAPER_QPS = 787.0
+
+
+def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
+                    sample) -> dict:
+    """One engine of phase 9d: ``RetrievalEngine(corpus.docs,
+    RetrievalConfig(engine=name))`` built over every doc, as the quickstart
+    builds it (the corpus stays on the card: the peak holds it, the
+    oracle, the index and the search's scores and scratch); a warm-up and
+    ``rounds`` searches timed with CUDA events (median), held to float64
+    as phase 3 holds them; the engine's kernel alone on the search's
+    inputs beside its bound (bytes: ``scatter_score``'s live postings, run
+    tables, QW and scores once; ``ell_gather``'s every slot's term id, the
+    live values, QW and the scores) and HBM share; ``topk_two_stage``
+    alone on the search's scores.  Both launch counters are zeroed before
+    the build and read after the searches; the engine's kernel must have
+    been launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, RetrievalEngine
+    from repro_torch.core.topk import topk_two_stage
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+    b, k, q = sizes.queries, sizes.k, corpus.queries
+    kernels = {"scatter_score": scatter_ops, "ell_gather": ell_ops}
+    kernel = {"tiled": "scatter_score", "ell": "ell_gather"}[name]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for mod in kernels.values():
+        mod.launches = 0
+    eng, build_ms = timed(f"9d {name}: RetrievalEngine build", lambda:
+                          RetrievalEngine(corpus.docs, RetrievalConfig(
+                              engine=name, k=k), device=dev), dev)
+    out = dict(build_s=build_ms / 1e3, index_bytes=eng.index_bytes(),
+               padding_overhead=eng.padding_overhead())
+    vals, ids = eng.search(q, k=k)  # warm-up
+    sync(dev)
+    times = []
+    for _ in range(sizes.rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vals, ids = eng.search(q, k=k)
+        end.record()
+        sync(dev)
+        times.append(start.elapsed_time(end))
+    out["launches"] = {n: mod.launches for n, mod in kernels.items()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if out["launches"][kernel] <= 0:
+        raise AssertionError(f"9d {name}: {kernel} was not launched")
+    ms = float(np.median(times))
+    check_exact(f"9d {name} search", vals, ids, oracle, sample, k)
+    out.update(search_ms=ms, search_ms_all=times, us_per_query=1e3 * ms / b,
+               qps=b / ms * 1e3, overlap_f64=overlap(
+                   ids[sample], torch.topk(oracle.T, k, dim=1).indices
+                   .cpu().numpy(), k))
+    idx = eng._index
+    if name == "tiled":
+        qw = padded_queries(q, idx)
+        live = int((idx.local_doc >= 0).sum())
+        nbytes = (live * 12 + idx.num_chunks * 4 + idx.num_doc_blocks * 8
+                  + b * qw.shape[1] * 4 + b * idx.padded_docs * 4)
+        out["kernel_ms"] = event_ms(lambda: scatter_ops.scatter_score(
+            qw, **tiled_args(idx)), sizes.reps, dev)
+    else:
+        qw = q.to_dense()
+        live = int((idx.terms < sizes.vocab).sum())
+        nbytes = (idx.terms.numel() * 4 + live * 4 + b * sizes.vocab * 4
+                  + b * idx.terms.shape[0] * 4)
+        out["kernel_ms"] = event_ms(lambda: ell_ops.ell_gather(
+            qw, idx.terms, idx.values), sizes.reps, dev)
+    out.update(live_postings=live, bound_bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    out["hbm_share"] = out["bound_ms"] / out["kernel_ms"]
+    scores = eng.score(q)
+    out["topk_ms"] = event_ms(lambda: topk_two_stage(
+        scores, k, block=eng.config.topk_block), sizes.reps, dev)
+    del scores, eng, idx, qw
+    torch.cuda.empty_cache()
+    log(f"  9d {name}: build {out['build_s']!r} s, index "
+        f"{out['index_bytes']} B, padding overhead "
+        f"{out['padding_overhead']!r}; {ms!r} ms a search (CUDA events, "
+        f"median of {sizes.rounds}: {times!r}), {out['us_per_query']!r} us "
+        f"a query, {out['qps']!r} QPS (the paper: {PAPER_MS_PER_QUERY} ms "
+        f"a query, {PAPER_QPS} QPS); {kernel} alone {out['kernel_ms']!r} "
+        f"ms, bound {out['bound_ms']!r} ms ({nbytes} B), HBM share "
+        f"{out['hbm_share']!r}; topk_two_stage {out['topk_ms']!r} ms; "
+        f"launches {out['launches']}; peak {out['peak_bytes']} B of "
+        f"{torch.cuda.get_device_properties(dev).total_memory} B")
+    return out
 
 
 def serve_8m(dev, sizes: Sizes) -> dict:
     """Phase 9d: serve_8m (8,841,823 docs, B = 500, k = 1000) on one card
-    at world size 1: the corpus made on the card, the one-shard ELL index
-    built from it and the corpus freed; the ``ell`` step in f32 and in
-    bf16, each a warm-up and ``rounds`` calls timed with CUDA events
-    (median), ``ell_gather`` alone on the step's inputs beside its bound
-    (that dtype's bytes: every slot's term id, the live values, QW, the
-    scores) and its HBM share (bound over kernel time); the f32 step held
-    to float64 on ``oracle_queries`` queries as phase 3 holds it, the bf16
-    step's overlap with float64; peak device memory."""
+    at world size 1: the corpus made on the card and float64 scores of
+    ``oracle_queries`` sampled queries computed from it; the ``tiled`` and
+    ``ell`` engines over it, one at a time (:func:`serve_8m_engine`); then
+    the one-shard ELL index built from it and the corpus freed; the ``ell``
+    step in f32 and in bf16, each a warm-up and ``rounds`` calls timed with
+    CUDA events (median; ``ell_gather``'s counter zeroed before the warm-up
+    and read after the last timed call: it must have launched), the kernel
+    alone on the step's inputs beside
+    its bound (that dtype's bytes: every slot's term id, the live values,
+    QW, the scores) and its HBM share (bound over kernel time); the f32
+    step held to float64 as phase 3 holds it, the bf16 step's overlap with
+    float64; the step's peak device memory."""
     import numpy as np
     import torch
 
@@ -3716,7 +3834,6 @@ def serve_8m(dev, sizes: Sizes) -> dict:
     from repro_torch.kernels.ell_gather import ops as ell_ops
 
     n, b, k = sizes.serve_8m_docs, sizes.queries, sizes.k
-    torch.cuda.reset_peak_memory_stats(dev)
     corpus, gen_ms = timed(f"9d: corpus of {n} docs on the card",
                            lambda: make_msmarco_like(
                                n, b, vocab_size=sizes.vocab, seed=0,
@@ -3724,29 +3841,36 @@ def serve_8m(dev, sizes: Sizes) -> dict:
     nnz = int((corpus.docs.term_ids >= 0).sum())
     log(f"  9d corpus: {nnz / n!r} nnz/doc, K={corpus.docs.max_terms}, "
         f"{torch.cuda.memory_allocated(dev)} B held")
+    q = corpus.queries
+    g = torch.Generator().manual_seed(5)
+    sample = torch.randperm(b, generator=g)[
+        :sizes.oracle_queries].sort().values.numpy()
+    oracle, oracle_ms = timed("9d: float64 scores of the sampled queries",
+                              lambda: ell_f64(corpus.docs.term_ids,
+                                              corpus.docs.values, q, sample),
+                              dev)
+    out = dict(docs=n, nnz=nnz, corpus_ms=gen_ms, oracle_ms=oracle_ms)
+    out["engines"] = {name: serve_8m_engine(dev, sizes, name, corpus, oracle,
+                                            sample)
+                      for name in ("tiled", "ell")}
+    torch.cuda.reset_peak_memory_stats(dev)
     idx, build_ms = timed("9d: build_sharded_ell, 1 shard",
                           lambda: build_sharded_ell(corpus.docs, 1), dev)
-    q = corpus.queries
     del corpus
     torch.cuda.empty_cache()
     local = idx.shard(0)
     live = int((local.terms < sizes.vocab).sum())
     log(f"  9d index: terms {tuple(idx.terms.shape)}, {live} live slots, "
         f"{torch.cuda.memory_allocated(dev)} B held after the corpus went")
-    g = torch.Generator().manual_seed(5)
-    sample = torch.randperm(b, generator=g)[
-        :sizes.oracle_queries].sort().values.numpy()
-    oracle, oracle_ms = timed("9d: float64 scores of the sampled queries",
-                              lambda: ell_f64(local, q, sample), dev)
-    out = dict(docs=n, nnz=nnz, slots=int(idx.terms.numel()),
-               live_slots=live, corpus_ms=gen_ms, build_ms=build_ms,
-               oracle_ms=oracle_ms)
+    out.update(slots=int(idx.terms.numel()), live_slots=live,
+               build_ms=build_ms)
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         cast0 = tdist.cast_bytes
         step = make_serve_step(engine="ell", k=k,
                                docs_per_shard=idx.docs_per_shard,
                                compute_dtype=dtype)
+        ell_ops.launches = 0
         got = step(idx, queries=q)  # warm-up (and the one cast)
         sync(dev)
         times = []
@@ -3758,6 +3882,10 @@ def serve_8m(dev, sizes: Sizes) -> dict:
             end.record()
             sync(dev)
             times.append(start.elapsed_time(end))
+        launches = ell_ops.launches  # the step's own, before the timing
+        if launches <= 0:
+            raise AssertionError(f"9d ell {tag} step: ell_gather was not "
+                                 f"launched")
         step_ms = float(np.median(times))
         vals, ids = got[0].cpu().numpy(), got[1].cpu().numpy()
         if dtype == torch.float32:
@@ -3778,14 +3906,15 @@ def serve_8m(dev, sizes: Sizes) -> dict:
                   + b * sizes.vocab * elem + b * idx.docs_per_shard * elem)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         out[tag] = dict(step_ms=step_ms, step_ms_all=times,
-                        kernel_ms=kernel_ms, bound_ms=bound_ms,
+                        launches=launches, kernel_ms=kernel_ms,
+                        bound_ms=bound_ms,
                         bound_bytes=nbytes, hbm_share=bound_ms / kernel_ms,
                         cast_bytes=tdist.cast_bytes - cast0, **res)
         log(f"  9d ell {tag}: {step_ms!r} ms a step (CUDA events, median "
             f"of {sizes.rounds}: {times!r}); ell_gather {kernel_ms!r} ms, "
             f"bound {bound_ms!r} ms ({nbytes} B), HBM share "
             f"{bound_ms / kernel_ms!r}; index cast "
-            f"{tdist.cast_bytes - cast0} B")
+            f"{tdist.cast_bytes - cast0} B; ell_gather launches {launches}")
         del got, qw, vals_in
         torch.cuda.empty_cache()
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
@@ -5167,7 +5296,28 @@ def tp_phase(dev, sizes: Sizes) -> dict:
     """Phase 13: 13a one NCCL rank (mesh 1 x 1) bit for bit the unsharded
     qwen3-4b prefill; 13b two gloo ranks on card 0 (mesh 1 x 2) held to
     the single-rank run of the same weights; 13c the meta dry run of every
-    cell at ``quad_tp`` (the MoE cells with ``--expert-parallel`` too)."""
+    cell at ``quad_tp`` (the MoE cells with ``--expert-parallel`` too), in
+    worker processes that count while 13a and 13b run."""
+    import multiprocessing
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import all_cells
+
+    t0 = time.perf_counter()
+    jobs = [(a, s, "quad_tp", False) for a, s in all_cells()]
+    jobs += [(a, s, "quad_tp", True) for a, s in all_cells()
+             if getattr(get_arch(a).config, "moe", None) is not None]
+    pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
+    try:
+        return tp_run(dev, sizes, jobs, count_cells(pool, jobs), t0)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def tp_run(dev, sizes: Sizes, jobs: list, pending, t_jobs: float) -> dict:
+    """:func:`tp_phase` once 13c's ``jobs`` are handed to the pool
+    (``pending``, :func:`count_cells`; started at ``t_jobs``)."""
     import multiprocessing
     import shutil
     import tempfile
@@ -5175,10 +5325,8 @@ def tp_phase(dev, sizes: Sizes) -> dict:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import make_lm_batch
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.launch.cells import all_cells
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.models.transformer import TransformerLM
     from repro_torch.sharding.policies import make_policy
@@ -5403,21 +5551,16 @@ def tp_phase(dev, sizes: Sizes) -> dict:
     out["13b label"] = label
     out["13b checks"] = checks
 
-    # 13c: the meta dry run at quad_tp
+    # 13c: the meta dry run at quad_tp, counted meanwhile
     t1 = time.perf_counter()
-    jobs = [(a, s, "quad_tp", False) for a, s in all_cells()]
-    jobs += [(a, s, "quad_tp", True) for a, s in all_cells()
-             if getattr(get_arch(a).config, "moe", None) is not None]
-    pool = multiprocessing.get_context("spawn").Pool(sizes.dryrun_workers)
-    try:
-        drs = counted_cells(count_cells(pool, jobs), jobs, None)
-    finally:
-        pool.terminate()
-        pool.join()
-    out["13c seconds"] = time.perf_counter() - t1
+    drs = counted_cells(pending, jobs, None)
+    out["13c seconds"] = time.perf_counter() - t_jobs
+    out["13c wait seconds"] = time.perf_counter() - t1
     log(f"phase 13c: the meta dry run of {len(jobs)} cells at 'quad_tp' "
         f"(MoE cells with --expert-parallel as well; "
-        f"{sizes.dryrun_workers} workers, {out['13c seconds']:.3f} s)")
+        f"{sizes.dryrun_workers} workers, {out['13c seconds']:.3f} s from "
+        f"the start of phase 13, {out['13c wait seconds']:.3f} s of it "
+        f"after 13b)")
     log(f"  {'arch':<14} {'shape':<14} {'ep':>3} {'counted':>12} "
         f"{'coll B':>12} {'est peak B':>12} {'s':>6}")
     failed = [r for r in drs if "error" in r]
@@ -6469,21 +6612,28 @@ def run(dev, sizes: Sizes) -> list[dict]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"phase 9d: serve_8m, {sizes.serve_8m_docs} docs x {sizes.queries} "
-        f"queries, k={sizes.k}, world size 1: the ell step in f32 and bf16")
-    for mod in counters.values():
-        mod.launches = 0
+        f"queries, k={sizes.k}, world size 1: RetrievalEngine.search through "
+        f"tiled and ell, then the ell step in f32 and bf16")
+    # Each engine's and each step's launches are counted apart, from its
+    # first call to its last timed one, and checked there.
     big = serve_8m(dev, sizes)
-    big["launches"] = {name: mod.launches for name, mod in counters.items()}
-    log(f"  launches in phase 9d: {big['launches']}")
-    if big["launches"]["ell_gather"] <= 0:
-        raise AssertionError("ell_gather was not launched in phase 9d")
+    log(f"  launches in phase 9d: engines "
+        f"{ {n: e['launches'] for n, e in big['engines'].items()} }, ell "
+        f"steps { {t: big[t]['launches'] for t in ('float32', 'bfloat16')} }")
     big["seconds"] = time.perf_counter() - t0
     log(f"phase 9d: {big['seconds']:.3f} s")
     for row in rows:
         if row["name"] == "ell_gather":
             row["serve_8m"] = {dt: {key: big[dt][key] for key in (
-                "kernel_ms", "bound_ms", "hbm_share", "step_ms")}
+                "kernel_ms", "bound_ms", "hbm_share", "step_ms", "launches")}
                 for dt in ("float32", "bfloat16")}
+        engine = {"scatter_score": "tiled", "ell_gather": "ell"}.get(
+            row["name"])
+        if engine:
+            row["serve_8m_engine"] = {key: big["engines"][engine][key]
+                                      for key in ("kernel_ms", "bound_ms",
+                                                  "hbm_share", "search_ms",
+                                                  "launches")}
     print(json.dumps({"serve_8m": big}, default=float))
 
     # 10. the system comparison; phase 9d's data is gone

@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
-"""Phase 4's kernel times (``chip_smoke.py``) of one tree's package,
-repeated, so two commits can be timed in turns on one card.
+"""Phase 4's kernel times (``chip_smoke.py``) and the main path's
+searches of one tree's package, repeated, so two commits can be timed in
+turns on one card.
 
 At serve_1m (1,000,000 docs x 500 queries, V = 30,522, k = 1000):
 ``scatter_score`` over the ``tiled`` index and ``ell_gather`` over the
 ``ell`` index of the msmarco-like corpus, and the ``bmp_scan`` sample
 (the first 4 groups of the largest bucket of the fused engine's plan on
-the reordered topical corpus), each as ``chip_smoke.event_ms`` times it
-(CUDA events, the mean of 5 runs after a warm-up), ``--rounds`` times.
-``--src`` names the ``src`` directory whose ``repro_torch`` is timed
-(default this checkout's); the corpora, the plan and the timing are this
-checkout's ``chip_smoke.py``.  Two commits in turns, from the root of a
-checkout with one CUDA card:
+the reordered topical corpus); beside them the main path's steps,
+``RetrievalEngine.search`` through ``tiled`` and ``ell``,
+``topk_two_stage`` alone on each engine's scores and ``chunk_doc_bounds``
+alone on the ``tiled`` index.  Each is timed as ``chip_smoke.event_ms``
+times it (CUDA events, the mean of 5 runs after a warm-up), ``--rounds``
+times.  ``--src`` names the ``src`` directory whose ``repro_torch`` is
+timed (default this checkout's); the corpora, the plan and the timing are
+this checkout's ``chip_smoke.py``.  Two commits in turns, from the root of
+a checkout with one CUDA card:
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     for s in build/parent/src src src build/parent/src; do
         python3 scripts/kernel_turns.py --src $s; done
 
 Each run prints the card's name and power limit and, as its last line,
-one JSON object with its times and the SHA-256 of each kernel's first
-output (``digests``): equal digests across two trees mean the same bits.
+one JSON object with its times, each engine's build seconds and the peak
+device memory of one search (``engines``; the peak counts all the script
+holds), and the SHA-256 of each step's first output and of each engine's
+index arrays (``digests``): equal digests across two trees mean the same
+bits.
 """
 from __future__ import annotations
 
@@ -28,8 +35,19 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def digest(*arrays) -> str:
+    """SHA-256 of tensors' or numpy arrays' bytes, in order."""
+    import torch
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(torch.as_tensor(a).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def main() -> int:
@@ -46,6 +64,8 @@ def main() -> int:
     sys.path[:0] = [os.path.abspath(args.src), ROOT]
     import chip_smoke as cs
     from repro_torch.core import RetrievalConfig, RetrievalEngine, scoring
+    from repro_torch.core.index import TILED_ARRAY_FIELDS
+    from repro_torch.core.topk import topk_two_stage
     from repro_torch.data.synthetic import (
         make_msmarco_like, make_topical_corpus,
     )
@@ -58,17 +78,36 @@ def main() -> int:
     sizes, dev = cs.Sizes(), torch.device("cuda", 0)
     corpus = make_msmarco_like(sizes.docs, sizes.queries,
                                vocab_size=sizes.vocab, seed=0, device=dev)
-    tiled = RetrievalEngine(corpus.docs, RetrievalConfig(engine="tiled"),
-                            device=dev)._index
-    ell = RetrievalEngine(corpus.docs, RetrievalConfig(engine="ell"),
-                          device=dev)._index
-    qw_t = cs.padded_queries(corpus.queries, tiled)
-    qw = corpus.queries.to_dense()
+    q, engines, runs, digests = corpus.queries, {}, {}, {}
+    for name, fields in (("tiled", TILED_ARRAY_FIELDS),
+                         ("ell", ("terms", "values"))):
+        cs.sync(dev)
+        t0 = time.perf_counter()
+        eng = engines[name] = RetrievalEngine(corpus.docs, RetrievalConfig(
+            engine=name, k=sizes.k), device=dev)
+        cs.sync(dev)
+        runs[name] = {"build_s": time.perf_counter() - t0}
+        digests[f"index/{name}"] = digest(*(getattr(eng._index, f)
+                                            for f in fields))
+    tiled, ell = engines["tiled"]._index, engines["ell"]._index
+    qw_t = cs.padded_queries(q, tiled)
+    qw = q.to_dense()
     fns = {
         "scatter_score": lambda: scatter_ops.scatter_score(
             qw_t, **cs.tiled_args(tiled)),
         "ell_gather": lambda: ell_ops.ell_gather(qw, ell.terms, ell.values),
+        "chunk_doc_bounds": lambda: scatter_ops.chunk_doc_bounds(
+            tiled.local_doc, tiled.doc_block),
     }
+    for name, eng in engines.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        fns[f"search/{name}"] = lambda eng=eng: eng.search(q, k=sizes.k)
+        digests[f"search/{name}"] = digest(*fns[f"search/{name}"]())
+        runs[name]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        scores = eng.score(q)
+        fns[f"topk_two_stage/{name}"] = (
+            lambda scores=scores, eng=eng: topk_two_stage(
+                scores, sizes.k, block=eng.config.topk_block))
     topical = make_topical_corpus(sizes.docs, sizes.queries,
                                   vocab_size=sizes.vocab, seed=0, device=dev)
     idx = RetrievalEngine(topical.docs, RetrievalConfig(
@@ -84,14 +123,12 @@ def main() -> int:
         idx, qw_b, ub, [g for _, g in entries[: sizes.sample_groups]],
         min(sizes.k, idx.num_docs))
     fns["bmp_scan"] = sample[4]
-    digests = {}
     for name, fn in fns.items():
-        out = fn()
-        h = hashlib.sha256()
-        for t in out if isinstance(out, tuple) else (out,):
-            h.update(t.contiguous().cpu().numpy().tobytes())
-        digests[name] = h.hexdigest()
-        del out
+        if name not in digests:
+            out = fn()
+            digests[name] = digest(*(out if isinstance(out, tuple)
+                                     else (out,)))
+            del out
     rounds = []
     for r in range(args.rounds):
         rounds.append({name: cs.event_ms(fn, sizes.reps, dev)
@@ -100,7 +137,7 @@ def main() -> int:
     card = cs.card_line()
     print(card)
     print(json.dumps({"src": args.src, "card": card, "rounds": rounds,
-                      "digests": digests}))
+                      "engines": runs, "digests": digests}))
     return 0
 
 

@@ -174,11 +174,14 @@ def _block_chunk_runs(
     return start.to(torch.int32), count.to(torch.int32)
 
 
-def _postings(docs: SparseBatch):
-    """(term, doc, value) of every posting in doc-major, slot order — the
-    order ``repro.core.sparse.to_numpy_rows`` concatenates them in."""
-    doc, slot = torch.nonzero(docs.term_ids >= 0, as_tuple=True)
-    return docs.term_ids[doc, slot].long(), doc, docs.values[doc, slot]
+def _postings(docs: SparseBatch, start: int = 0, stop: Optional[int] = None):
+    """(term, doc, value) of every posting of rows ``[start, stop)`` in
+    doc-major, slot order — the order ``repro.core.sparse.to_numpy_rows``
+    concatenates them in."""
+    ids = docs.term_ids[start:stop]
+    doc, slot = torch.nonzero(ids >= 0, as_tuple=True)
+    return ids[doc, slot].long(), doc + start, docs.values[start:stop][
+        doc, slot]
 
 
 @dataclasses.dataclass
@@ -256,6 +259,19 @@ def build_flat_index(
     )
 
 
+# Corpus slots a step of build_tiled_index reads at once, as whole doc
+# blocks: bounds the step's per-posting scratch (about a dozen int64
+# arrays of its postings) to a slab of 2^26 slots whatever the corpus
+# (8,841,823 docs x 302 slots at serve_8m, over 2^31).
+_TILED_ROW_ELEMS = 1 << 26
+
+
+def _doc_block_ranges(docs: SparseBatch, doc_block: int, n_db: int):
+    """[first, end) doc blocks of each step of the build, in order."""
+    per = max(1, _TILED_ROW_ELEMS // max(docs.max_terms * doc_block, 1))
+    return [(s, min(s + per, n_db)) for s in range(0, n_db, per)]
+
+
 def build_tiled_index(
     docs: SparseBatch,
     term_block: int = 512,
@@ -266,9 +282,14 @@ def build_tiled_index(
 ) -> TiledIndex:
     """Bucket postings into (term_block x doc_block) tiles, pack COO chunks.
 
-    Runs on ``docs``' device.  ``bounds_format`` picks the fine bound
-    layout when ``store_term_block_max`` is set: ``"dense"`` (u8 [V, n_db])
-    or ``"csr"`` (nonzero (term, doc_block) entries only).
+    Runs on ``docs``' device, a range of whole doc blocks at a time
+    (``_TILED_ROW_ELEMS``): the chunks are sorted doc block first, so each
+    range owns one contiguous run of them.  A first pass counts each doc
+    block's chunks, the output is allocated once at its final size, and a
+    second pass sorts each range's postings into its run.
+    ``bounds_format`` picks the fine bound layout when
+    ``store_term_block_max`` is set: ``"dense"`` (u8 [V, n_db]) or
+    ``"csr"`` (nonzero (term, doc_block) entries only).
     """
     if bounds_format not in ("dense", "csr"):
         raise ValueError(
@@ -277,69 +298,81 @@ def build_tiled_index(
     dev = docs.device
     n_docs, v = docs.batch, docs.vocab_size
     i32, i64 = torch.int32, torch.int64
-    terms, doc, vals = _postings(docs)
-    db = doc // doc_block
-    tb = terms // term_block
-    # Stable sort by (doc_block, term_block): each output window is one
-    # contiguous run of chunks, and postings keep doc order within a tile.
-    key = db * (v // term_block + 2) + tb
-    key, order = torch.sort(key, stable=True)
-    terms, doc, vals, db, tb = (terms[order], doc[order], vals[order],
-                                db[order], tb[order])
-    n_postings = terms.numel()
     n_db = max(cdiv(n_docs, doc_block), 1)
+    n_tb = max(cdiv(v, term_block), 1)
+    ranges = _doc_block_ranges(docs, doc_block, n_db)
 
-    # Buckets are runs of equal key; each splits into cdiv(len, C) chunks.
-    _, bucket_len = torch.unique_consecutive(key, return_counts=True)
-    bucket_start = _exclusive_cumsum(bucket_len)
-    bucket_db = db[bucket_start]
-    bucket_chunks = (bucket_len + chunk_size - 1) // chunk_size
-    real_per_db = torch.zeros(n_db, dtype=i64, device=dev).index_add_(
-        0, bucket_db, bucket_chunks
-    )
+    # Pass 1: each doc block's chunks, cdiv(len, C) a nonempty tile.
+    real_per_db = torch.zeros(n_db, dtype=i64, device=dev)
+    for d0, d1 in ranges:
+        terms, doc, _ = _postings(docs, d0 * doc_block, d1 * doc_block)
+        tile = (doc // doc_block - d0) * n_tb + terms // term_block
+        tile_len = torch.bincount(tile, minlength=(d1 - d0) * n_tb)
+        real_per_db[d0:d1] = ((tile_len + chunk_size - 1) // chunk_size
+                              ).view(d1 - d0, n_tb).sum(dim=1)
     # A posting-free doc block gets one empty (zeroing) chunk.
     per_db = torch.where(real_per_db > 0, real_per_db, 1)
     db_start = _exclusive_cumsum(per_db)
     n_chunks = int(per_db.sum())
-    bucket_first = (db_start[bucket_db] + _exclusive_cumsum(bucket_chunks)
-                    - _exclusive_cumsum(real_per_db)[bucket_db])
-
-    bucket_of = torch.repeat_interleave(
-        torch.arange(bucket_len.numel(), device=dev), bucket_len
-    )
-    offset = torch.arange(n_postings, device=dev) - bucket_start[bucket_of]
-    chunk_of = bucket_first[bucket_of] + offset // chunk_size
-    slot_of = offset % chunk_size
 
     local_term = torch.full((n_chunks, chunk_size), chunk_size, dtype=i32,
                             device=dev)
     local_doc = torch.full((n_chunks, chunk_size), -1, dtype=i32, device=dev)
     value = torch.zeros((n_chunks, chunk_size), dtype=torch.float32,
                         device=dev)
-    local_term[chunk_of, slot_of] = (terms - tb * term_block).to(i32)
-    local_doc[chunk_of, slot_of] = (doc - db * doc_block).to(i32)
-    value[chunk_of, slot_of] = vals
-
     chunk_term_block = torch.zeros(n_chunks, dtype=i32, device=dev)
-    chunk_term_block[chunk_of] = tb.to(i32)
     chunk_doc_block = torch.repeat_interleave(
         torch.arange(n_db, dtype=i32, device=dev), per_db
     )
     chunk_first = torch.zeros(n_chunks, dtype=i32, device=dev)
     chunk_first[db_start] = 1
-    absv = vals.abs()
     tile_max = torch.zeros(n_chunks, dtype=torch.float32, device=dev)
-    tile_max.scatter_reduce_(0, chunk_of, absv, "amax")
-
     # Per-(term_block, doc_block) maxima for block-max pruning.
-    n_tb = max(cdiv(v, term_block), 1)
     block_max = torch.zeros(n_tb * n_db, dtype=torch.float32, device=dev)
-    block_max.scatter_reduce_(0, tb * n_db + db, absv, "amax")
-    block_max = block_max.view(n_tb, n_db)
+    tbm = (torch.zeros(v * n_db, dtype=torch.float32, device=dev)
+           if store_term_block_max else None)
+
+    # Pass 2: a range's postings, stably sorted by (doc_block, term_block):
+    # each bucket (a run of equal key) splits into cdiv(len, C) chunks, and
+    # postings keep doc order within a tile.
+    for d0, d1 in ranges:
+        terms, doc, vals = _postings(docs, d0 * doc_block, d1 * doc_block)
+        db = doc // doc_block
+        tb = terms // term_block
+        key = db * (v // term_block + 2) + tb
+        key, order = torch.sort(key, stable=True)
+        terms, doc, vals, db, tb = (terms[order], doc[order], vals[order],
+                                    db[order], tb[order])
+        _, bucket_len = torch.unique_consecutive(key, return_counts=True)
+        bucket_start = _exclusive_cumsum(bucket_len)
+        bucket_db = db[bucket_start]
+        bucket_chunks = (bucket_len + chunk_size - 1) // chunk_size
+        # A bucket's first chunk: its block's run start, plus the chunks of
+        # the range's earlier buckets, less those of the range's earlier
+        # blocks.
+        bucket_first = (db_start[bucket_db] + _exclusive_cumsum(bucket_chunks)
+                        - _exclusive_cumsum(real_per_db[d0:d1])[
+                            bucket_db - d0])
+        bucket_of = torch.repeat_interleave(
+            torch.arange(bucket_len.numel(), device=dev), bucket_len
+        )
+        offset = (torch.arange(terms.numel(), device=dev)
+                  - bucket_start[bucket_of])
+        chunk_of = bucket_first[bucket_of] + offset // chunk_size
+        slot_of = offset % chunk_size
+        local_term[chunk_of, slot_of] = (terms - tb * term_block).to(i32)
+        local_doc[chunk_of, slot_of] = (doc - db * doc_block).to(i32)
+        value[chunk_of, slot_of] = vals
+        chunk_term_block[chunk_of] = tb.to(i32)
+        absv = vals.abs()
+        tile_max.scatter_reduce_(0, chunk_of, absv, "amax")
+        block_max.scatter_reduce_(0, tb * n_db + db, absv, "amax")
+        if tbm is not None:
+            tbm.scatter_reduce_(0, terms * n_db + db, absv, "amax")
 
     fine = {}
-    if store_term_block_max:
-        fine = _fine_bounds(terms, db, absv, v, n_db, bounds_format)
+    if tbm is not None:
+        fine = _fine_bounds(tbm.view(v, n_db), bounds_format)
 
     return TiledIndex(
         local_term=local_term,
@@ -349,7 +382,7 @@ def build_tiled_index(
         chunk_doc_block=chunk_doc_block,
         chunk_first=chunk_first,
         tile_max=tile_max,
-        block_max=block_max,
+        block_max=block_max.view(n_tb, n_db),
         num_docs=n_docs,
         vocab_size=v,
         term_block=term_block,
@@ -362,16 +395,14 @@ def build_tiled_index(
     )
 
 
-def _fine_bounds(terms, db, absv, v: int, n_db: int,
-                 bounds_format: str) -> dict:
-    """Per-(term, doc_block) maxima, u8-quantized with round-up so the
-    dequantized bound never dips below the true max.  Float32 throughout,
-    and true division (a tensor divisor: CUDA turns division by a Python
-    scalar into a multiply by its reciprocal), as numpy computes it."""
-    dev = terms.device
-    tbm = torch.zeros(v * n_db, dtype=torch.float32, device=dev)
-    tbm.scatter_reduce_(0, terms * n_db + db, absv, "amax")
-    tbm = tbm.view(v, n_db)
+def _fine_bounds(tbm: torch.Tensor, bounds_format: str) -> dict:
+    """Per-(term, doc_block) maxima ``tbm`` [V, n_db], u8-quantized with
+    round-up so the dequantized bound never dips below the true max.
+    Float32 throughout, and true division (a tensor divisor: CUDA turns
+    division by a Python scalar into a multiply by its reciprocal), as
+    numpy computes it."""
+    dev = tbm.device
+    v = tbm.shape[0]
     row_max = tbm.max(dim=1).values
     scale = torch.where(row_max > 0, row_max, 1.0) * (1.0 + 1e-6)
     scale = scale / torch.full_like(scale, 255.0)

@@ -12,8 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.utils import cdiv
-
 NEG_INF = float("-inf")
 
 
@@ -27,25 +25,27 @@ def _by_value_then_key(x: torch.Tensor, pos: torch.Tensor, key: torch.Tensor):
     return pos.gather(-1, order)
 
 
-# Rows of a selection by position done at once: bounds its scratch (a
-# mask of the row's entries at or above its k-th value) to 2^27 entries a
-# step whatever the row length ([500, 8.8M] scores at serve_8m).
+# Rows of a selection by position done at once: bounds its scratch
+# (``torch.topk``'s contiguous copy of the rows, a mask of their entries at
+# or above the k-th value) to 2^27 entries a step whatever the row length
+# ([500, 8.8M] strided scores at serve_8m: 15 rows a step).
 _TIE_ELEMS = 1 << 27
 
 
-def _positions_at_or_above(x: torch.Tensor, kth: torch.Tensor,
-                           k: int) -> torch.Tensor:
+def _positions_at_or_above(x: torch.Tensor, k: int) -> torch.Tensor:
     """[R, k] positions of each row's top-k set, ties at the row's k-th
-    value ``kth`` [R, 1] to the lower position: every entry above it, then
-    the first entries equal to it.  Ascending positions.  One pass over the
-    rows: their entries at or above ``kth`` (about k of them a row, more
-    where the k-th value ties, as bf16 scores do in most rows), a few rows
-    at a time."""
+    value to the lower position: every entry above it, then the first
+    entries equal to it.  Ascending positions.  A few rows at a time
+    (``_TIE_ELEMS``): their k-th values by ``torch.topk``, then one pass
+    over their entries at or above them (about k a row, more where the
+    k-th value ties, as bf16 scores do in most rows)."""
     rows, n = x.shape
     out = torch.empty((rows, k), dtype=torch.long, device=x.device)
     step = max(1, _TIE_ELEMS // max(n, 1))
     for s in range(0, rows, step):
-        xs, ks = x[s:s + step], kth[s:s + step]
+        xs = x[s:s + step]
+        ks = torch.topk(xs, k, dim=-1, sorted=False).values.min(
+            dim=-1, keepdim=True).values
         r, p = (xs >= ks).nonzero(as_tuple=True)  # row-major: p ascends  # lint: disable=host-sync -- the tie repair: each row's entries at or above its k-th value, a count only the data gives
         m = xs.shape[0]
         gt = xs[r, p] > ks[r, 0]
@@ -71,16 +71,17 @@ def _topk_lower_key(scores: torch.Tensor, k: int, key=None,
     by_position = key is None
     key = (torch.arange(n, device=x.device).expand_as(x) if key is None
            else key.reshape(-1, n))
-    vals, pos = torch.topk(x, k, dim=-1, sorted=False)
-    if x.shape[0] and k and not x.is_meta:  # meta holds no value to tie
-        kth = vals.min(dim=-1, keepdim=True).values
-        if by_position:
-            # The exact set by position, tied or not: topk may have picked
-            # an arbitrary subset of a tie at the k-th value.
-            pos = _positions_at_or_above(x, kth, k)
-        else:
+    selects = x.shape[0] and k and not x.is_meta  # meta holds no value to tie
+    if by_position and selects:
+        # The exact set by position, tied or not: topk may pick an
+        # arbitrary subset of a tie at the k-th value.
+        pos = _positions_at_or_above(x, k)
+    else:
+        vals, pos = torch.topk(x, k, dim=-1, sorted=False)
+        if selects:
             # Rows where more than k entries reach the k-th value: take
             # the tie's lowest keys.
+            kth = vals.min(dim=-1, keepdim=True).values
             tied = torch.nonzero((x >= kth).sum(dim=-1) > k).squeeze(1)  # lint: disable=host-sync -- the tie repair: the rows whose k-th value ties, a count only the data gives
             if tied.numel():
                 full = torch.arange(n, device=x.device).expand(
@@ -144,31 +145,14 @@ def certify_tau(vals, k_req: int, prev=None) -> np.ndarray:
 def topk_two_stage(
     scores: torch.Tensor, k: int, block: int = 4096
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Blockwise top-k then merge: stage 1 reduces each length-``block``
-    slab to its top-k, stage 2 takes the top-k of the survivors.  Ties go
-    to the lower index in both stages: stage 1 picks each slab's exact set
-    (lowest indices among a tie at its k-th value), stage 2 breaks ties on
-    the survivors' global indices — so the result equals :func:`topk`, and
-    ``repro.core.topk.topk_two_stage``, whose stage 2 breaks ties on
-    position in stage 1's ordered output."""
-    *lead, n = scores.shape
-    k = min(k, n)
-    if n <= block:
-        return _topk_lower_key(scores, k)
-    nb = cdiv(n, block)
-    pad = nb * block - n
-    if pad:
-        scores = torch.cat(
-            [scores, scores.new_full((*lead, pad), NEG_INF)], dim=-1
-        )
-    blocked = scores.reshape(*lead, nb, block)
-    kb = min(k, block)
-    vals, idx = _topk_lower_key(blocked, kb, ordered=False)  # [..., nb, kb]
-    base = torch.arange(nb, device=scores.device)[:, None] * block
-    vals = vals.reshape(*lead, nb * kb)
-    gidx = (idx + base).reshape(*lead, nb * kb)
-    mvals, mpos = _topk_lower_key(vals, k, key=gidx)
-    return mvals, gidx.gather(-1, mpos)
+    """``repro.core.topk.topk_two_stage``'s result: the exact top-k along
+    the last axis, ties to the lower index.  JAX reduces each
+    length-``block`` slab to its top-k, then merges the survivors; here
+    ``torch.topk`` selects over a whole row of any length, so this is
+    :func:`topk` (a few rows at a time, ``_TIE_ELEMS``); slabs would only
+    add passes over the scores.  ``block`` is taken for JAX's signature
+    and changes no result."""
+    return topk(scores, k)
 
 
 def merge_topk(

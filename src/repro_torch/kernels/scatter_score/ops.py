@@ -35,18 +35,31 @@ _ARGTYPES = (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _L, _I, _P)
 
 
+# Slots chunk_doc_bounds searches at once: bounds its copy of local_doc
+# (the keys, padding made doc_block) to 2^26 slots whatever the index.
+_BOUNDS_ELEMS = 1 << 26
+
+
 def chunk_doc_bounds(local_doc: torch.Tensor, doc_block: int) -> torch.Tensor:
     """int32 [num_chunks, WARPS + 1]: ``bounds[c, w]`` is the first live
     slot of chunk ``c`` whose doc is at least ``min(w * ceil(doc_block /
     WARPS), doc_block)``, so warp ``w``'s slots are ``[bounds[c, w],
     bounds[c, w + 1])`` and ``bounds[c, WARPS]`` is the chunk's live count
-    (its live slots are a prefix in ascending doc order)."""
+    (its live slots are a prefix in ascending doc order).  A range of
+    chunks at a time (``_BOUNDS_ELEMS``), each searched into the output."""
     per = -(-doc_block // WARPS)
-    keys = torch.where(local_doc >= 0, local_doc, doc_block)
+    n_chunks, c = local_doc.shape
     edges = (torch.arange(WARPS + 1, device=local_doc.device) * per).clamp(
         max=doc_block).to(local_doc.dtype)
-    return torch.searchsorted(
-        keys, edges.expand(keys.shape[0], -1).contiguous(), out_int32=True)
+    step = max(1, _BOUNDS_ELEMS // max(c, 1))
+    out = torch.empty((n_chunks, WARPS + 1), dtype=torch.int32,
+                      device=local_doc.device)
+    for s in range(0, n_chunks, step):
+        ld = local_doc.narrow(0, s, min(step, n_chunks - s))
+        keys = torch.where(ld >= 0, ld, doc_block)
+        torch.searchsorted(keys, edges.expand(ld.shape[0], -1).contiguous(),
+                           out_int32=True, out=out.narrow(0, s, ld.shape[0]))
+    return out
 
 
 def scatter_score(

@@ -24,10 +24,11 @@ between its routes (the lane vectors a table allows) and, for unweighted
 bags, to the sequential f32 sum over l.  The comparison engines (no
 kernel of their own): ``segment`` bit for bit its CPU run, ``bcoo``
 (cuSPARSE) within TOL of its CPU run, both within 1e-5 of float64; the
-``FlatIndex`` built on the card equal to the CPU build.  The MoE layer
-(plain PyTorch) on the card within TOL of its CPU run, with the same
-expert ids and drops; the data-parallel step under an NCCL group of one
-bit for bit ``make_train_step``.  The bf16 routes of ``scatter_score``,
+``FlatIndex`` built on the card equal to the CPU build, and the
+``TiledIndex`` built in ranges of doc blocks equal to the one-shot build.
+The MoE layer (plain PyTorch) on the card within TOL of its CPU run, with
+the same expert ids and drops; the data-parallel step under an NCCL group
+of one bit for bit ``make_train_step``.  The bf16 routes of ``scatter_score``,
 ``ell_gather`` and ``bmp_scan``: bitwise the f32 route on the rounded
 inputs rounded once (the exact two), each score within one bf16 ulp of the
 plain version's; the six bf16 sharded steps on the card against the same
@@ -1137,6 +1138,43 @@ def test_flat_index_built_on_the_card_equals_the_cpu_build(cuda, pad_to):
         a, b = getattr(got, name).cpu(), getattr(want, name)
         assert a.dtype == b.dtype and torch.equal(a, b), name
     assert got.padding_overhead == want.padding_overhead
+
+
+@pytest.mark.parametrize("bounds", [None, "dense", "csr"])
+def test_ranged_tiled_build_on_the_card_equals_the_one_shot_build(
+        cuda, bounds, monkeypatch):
+    """The tiled build in ranges of doc blocks (three blocks a step, the
+    last ragged) on CUDA tensors: every field the one-shot build's on the
+    card, and the CPU build's; so are ``chunk_doc_bounds`` a few chunks a
+    step and the row-sliced top-k of the scores."""
+    from repro_torch.core import topk as ttopk
+
+    c = make_msmarco_like(4001, 8, vocab_size=5000, seed=47, device=cuda)
+    kw = dict(term_block=512, doc_block=64, chunk_size=128,
+              store_term_block_max=bounds is not None,
+              bounds_format=bounds or "dense")
+    whole = tidx.build_tiled_index(c.docs, **kw)
+    cpu = tidx.build_tiled_index(c.docs.to("cpu"), **kw)
+    bounds_whole = scatter_ops.chunk_doc_bounds(whole.local_doc, 64)
+    scores = scoring.score_tiled(c.queries, whole)
+    top_whole = ttopk.topk_two_stage(scores, 100, block=256)
+    monkeypatch.setattr(tidx, "_TILED_ROW_ELEMS",
+                        3 * 64 * c.docs.max_terms)
+    monkeypatch.setattr(scatter_ops, "_BOUNDS_ELEMS", 7 * 128)
+    monkeypatch.setattr(ttopk, "_TIE_ELEMS", 3 * 4001)
+    got = tidx.build_tiled_index(c.docs, **kw)
+    assert got.device.type == "cuda"
+    for name in tidx.TILED_ARRAY_FIELDS + tidx.TILED_OPTIONAL_ARRAY_FIELDS:
+        a, b, w = (getattr(x, name) for x in (got, whole, cpu))
+        assert (a is None) == (b is None) == (w is None), name
+        if a is not None:
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+            assert torch.equal(a.cpu(), w), name
+    assert torch.equal(scatter_ops.chunk_doc_bounds(got.local_doc, 64),
+                       bounds_whole)
+    for a, b in zip(ttopk.topk_two_stage(scores, 100, block=256),
+                    top_whole):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("engine", ["bcoo", "segment"])

@@ -92,6 +92,30 @@ def test_stream_search(corpus, engine, extra):
     np.testing.assert_allclose(pt, rt, rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("engine", ["tiled", "ell"])
+def test_search_in_bounded_ranges_matches_jax(corpus, engine, monkeypatch):
+    """The bounded steps of the serve path forced small — the index build a
+    doc block a step, ``chunk_doc_bounds`` a chunk a step, the ELL fill a
+    few rows a step and the top-k's tie repair a row or two a step — give
+    the one-step search's bits and JAX's search (slabs of 64)."""
+    from repro_torch.core import index as tidx
+    from repro_torch.core import topk as ttopk
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+    c, oracle = corpus
+    port, ref = _pair(c, engine, {}, k=40, topk_block=64)
+    want = port.search(port_batch(c.queries))
+    monkeypatch.setattr(tidx, "_TILED_ROW_ELEMS", 1)
+    monkeypatch.setattr(tidx, "_ELL_ROW_ELEMS", 3 * c.docs.term_ids.shape[1])
+    monkeypatch.setattr(scatter_ops, "_BOUNDS_ELEMS", 1)
+    monkeypatch.setattr(ttopk, "_TIE_ELEMS", 2 * 257)
+    port, _ = _pair(c, engine, {}, k=40, topk_block=64)
+    got = port.search(port_batch(c.queries))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert_same_topk(got, ref.search(c.queries), oracle)
+
+
 def test_evaluate_index_bytes_and_from_prebuilt(corpus):
     c, _ = corpus
     port, ref = _pair(c, "tiled", {})

@@ -173,6 +173,29 @@ def test_chunk_doc_bounds_equals_its_definition(tb, db, cs):
         assert got[i, 32] == n_live
 
 
+@pytest.mark.parametrize("per_step", [1, 3])
+def test_ranged_chunk_doc_bounds_equals_its_definition(per_step, monkeypatch):
+    """``chunk_doc_bounds`` a range of chunks at a time (``_BOUNDS_ELEMS``
+    lowered to one chunk a step, and to three with a ragged last step)
+    gives the one-step call's bits, which are its definition: the count
+    of each chunk's live slots below each warp's first doc."""
+    c = make_msmarco_like(130, 3, vocab_size=500, seed=7)
+    t = carry_tiled(jidx.build_tiled_index(
+        c.docs, term_block=128, doc_block=64, chunk_size=64))
+    whole = scatter_ops.chunk_doc_bounds(t.local_doc, 64)
+    monkeypatch.setattr(scatter_ops, "_BOUNDS_ELEMS", per_step * 64)
+    assert per_step == 1 or t.num_chunks % per_step  # a ragged last step
+    got = scatter_ops.chunk_doc_bounds(t.local_doc, 64)
+    assert got.dtype == torch.int32 and torch.equal(got, whole)
+    ld = t.local_doc.numpy()
+    live = (ld >= 0).sum(axis=1)
+    edges = np.minimum(np.arange(33) * 2, 64)
+    want = ((ld[:, None, :] < edges[None, :, None])
+            & (ld[:, None, :] >= 0)).sum(axis=2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy()[:, 32], live)
+
+
 def _routes(qw, packed):
     """Per tile, its [V, 128] slab for the dense route, or None for the
     sparse route: packed=None takes the dense route everywhere, from qw

@@ -92,6 +92,66 @@ def test_build_tiled_index_matches_jax(n_docs, vocab, tb, db, cs, empty,
     assert t.padding_overhead == pytest.approx(j.padding_overhead)
 
 
+def _ranges_of(blocks, db, k):
+    """``_TILED_ROW_ELEMS`` for build steps of ``blocks`` doc blocks each
+    (1 = a range boundary on every doc block)."""
+    return blocks * db * k
+
+
+@pytest.mark.parametrize("n_docs,vocab,tb,db,cs,empty", GEOMETRIES)
+@pytest.mark.parametrize("bounds", [None, "dense", "csr"])
+def test_ranged_build_tiled_index_matches_one_shot_and_jax(
+        n_docs, vocab, tb, db, cs, empty, bounds, monkeypatch):
+    """The build in ranges of whole doc blocks (the module constant lowered
+    to one block a range, and to three with a ragged last range) equals the
+    one-shot build and JAX's, field for field, bit for bit: posting-free
+    blocks keep their one empty chunk, a ragged last block, the bounds in
+    both formats."""
+    ids, vals, _ = _corpus(n_docs, vocab, seed=n_docs + 1,
+                           empty_blocks=empty, holes=True)
+    jb, tbatch = _both(ids, vals, vocab)
+    kw = dict(term_block=tb, doc_block=db, chunk_size=cs,
+              store_term_block_max=bounds is not None,
+              bounds_format=bounds or "dense")
+    j = jidx.build_tiled_index(jb, **kw)
+    whole = tidx.build_tiled_index(tbatch, **kw)
+    n_db = -(-n_docs // db)
+    assert len(tidx._doc_block_ranges(tbatch, db, n_db)) == 1
+    for blocks in (1, 3):
+        monkeypatch.setattr(tidx, "_TILED_ROW_ELEMS",
+                            _ranges_of(blocks, db, tbatch.max_terms))
+        assert len(tidx._doc_block_ranges(tbatch, db, n_db)) == \
+            -(-n_db // blocks)
+        t = tidx.build_tiled_index(tbatch, **kw)
+        _assert_tiled_equal(j, t)
+        _assert_tiled_equal(whole, t)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+def test_ranged_build_sharded_tiled_matches_jax(fmt, monkeypatch):
+    """``build_sharded_tiled`` runs each shard's build in ranges: with a
+    range boundary on every doc block, every stacked field is JAX's."""
+    from repro.core import distributed as jdist
+    from repro_torch.core import distributed as tdist
+
+    ids, vals, _ = _corpus(301, 900, seed=8, empty_blocks=((64, 96),),
+                           holes=True)
+    jb, tbatch = _both(ids, vals, 900)
+    monkeypatch.setattr(tidx, "_TILED_ROW_ELEMS", 1)
+    geo = dict(term_block=128, doc_block=32, chunk_size=64,
+               bounds_format=fmt)
+    j = jdist.build_sharded_tiled(jb, 2, **geo)
+    t = tdist.build_sharded_tiled(tbatch, 2, **geo)
+    for f in tdist.TILED_FIELDS:
+        a, b = getattr(j, f), getattr(t, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=f)
+    for f in tdist.TILED_SCALARS + ("num_shards", "num_doc_blocks"):
+        assert getattr(t, f) == getattr(j, f), f
+
+
 def test_chunks_hold_postings_in_doc_order():
     """The scatter_score kernel's invariant: within every chunk the valid
     postings' local_doc never decreases, and each doc block's run is

@@ -51,6 +51,29 @@ def test_topk_two_stage_matches_jax(n, k, block, levels):
     _eq(port, jax.lax.top_k(jnp.asarray(x), k))
 
 
+@pytest.mark.parametrize("rows,n,k,block,levels,step", [
+    (7, 1000, 100, 64, 2, 3),  # heavy ties; 7 rows in steps of 3, 3, 1
+    (5, 999, 250, 100, 5, 2),  # a short last slab in JAX; k > block
+    (4, 700, 700, 128, 3, 1),  # k == n, one row a step
+    (3, 130, 100, 64, 1, 2),  # one value: JAX's tail slab (2) < k
+])
+def test_row_sliced_topk_two_stage_matches_topk_and_jax(
+        rows, n, k, block, levels, step, monkeypatch):
+    """``topk_two_stage`` with its tie repair a few rows at a time
+    (``_TIE_ELEMS`` lowered to ``step`` rows) equals the one-step call,
+    :func:`topk` and JAX's ``topk_two_stage`` (which pads a short last
+    slab with -inf), on a strided view of wider scores as the engines pass
+    it."""
+    x = _tied((rows, n + 5), levels, seed=rows * n + k)
+    view = torch.from_numpy(x)[:, :n]  # row stride n + 5
+    whole = ttopk.topk_two_stage(view, k, block=block)
+    monkeypatch.setattr(ttopk, "_TIE_ELEMS", step * n)
+    port = ttopk.topk_two_stage(view, k, block=block)
+    _eq(port, whole)
+    _eq(port, ttopk.topk(view, k))
+    _eq(port, jtopk.topk_two_stage(jnp.asarray(x[:, :n]), k, block=block))
+
+
 def test_merge_topk_and_topk_with_ids_match_jax():
     rng = np.random.default_rng(0)
     va = np.sort(_tied((3, 20), 4, 1), axis=1)[:, ::-1].copy()

@@ -242,7 +242,8 @@ Phases (each raises on failure; the script then exits non-zero):
    (``build_sharded_tiled``'s geometry: doc_block 64, chunk 128): ``ell`` and
    ``tiled`` on phase 3's corpus, ``tiled-pruned`` (BMP sweep and
    two-pass), ``tiled-pruned-approx`` (theta 1), ``tiled-bmp-grouped``
-   and ``tiled-bmp-fused`` on phase 3b's topical corpus reordered by
+   (on the 16 sampled queries alone: a cut of depth) and
+   ``tiled-bmp-fused`` on phase 3b's topical corpus reordered by
    ``df-signature``; each held to the single-index ``RetrievalEngine`` of
    the same engine at that geometry (ids tie-aware, values within 1e-6
    relative, tau equal) and to float64 as in phase 3; ms a step beside
@@ -252,34 +253,47 @@ Phases (each raises on failure; the script then exits non-zero):
    with float64 >= BF16_OVERLAP_MIN and scores within BF16_RTOL of it; the
    bf16 ``ell`` and ``tiled`` steps within one bf16 ulp of each other, the
    exact pruned steps the bf16 ``tiled`` step's bits on the topical
-   corpus; the index cast once (``distributed.cast_bytes``); each
+   corpus (on the same queries); the index cast once (``distributed.cast_bytes``); each
    kernel's bf16 route launched.  9b: ``ell`` and ``tiled-bmp-fused`` under
    an NCCL process group of one (``tcp://127.0.0.1``) give 9a's bits.
    9c: ``repro_torch.launch.serve.main`` at ``--docs 1000000 --batch 500
    --vocab 30522 --k 1000`` for ``--engine ell``, ``--engine
-   tiled-bmp-fused`` and ``--sched --max-batch 128``: ms a batch, us a
-   query, and the full batch's overlap with the float64 top-k (``ell``
-   1.0000 as printed, the others at least 0.999).  A ``{"sharded":
+   tiled-bmp-fused`` and ``--sched --max-batch 128 --batch 256`` (a cut
+   of depth: 256 of the 500 requests, two micro-batches after the one of
+   the warm-up): ms a batch, us a query, and the full batch's overlap
+   with the float64 top-k (``ell`` 1.0000 as printed, the others at least
+   0.999).  A ``{"sharded":
    {...}}`` line holds the numbers.
 9d. serve_8m (``src/repro_torch/configs/gpusparse.py:58``: 8,841,823
    docs, B = 500, k = 1000) on one card, with phase 9's data freed: the
    corpus made on the card and the float64 scores of 16 sampled queries
    computed from it; then the paper's main path, ``RetrievalEngine(docs,
-   RetrievalConfig(engine=...)).search`` for ``"tiled"`` and ``"ell"``,
-   one at a time, each freed before the next (both counters zeroed before
-   the build and read after the searches; the engine's kernel must be
-   launched): build s, index bytes and padding overhead (the paper's Table
-   6), a warm-up and 5 searches timed with CUDA events (median), ms a
-   search, us a query and QPS beside the paper's 1.27 ms a query and 787
-   QPS (a yardstick, not a gate), exact against float64 as phase 3, the
-   kernel alone on the search's inputs beside its bound and HBM share,
-   the top-k alone, peak device memory; then the one-shard ELL index, the
-   corpus freed, and the ``ell`` step in f32 and bf16 (each dtype's
-   ``ell_gather`` launches counted from its warm-up to its last timed
-   call and must be more than 0), timed the same way, ``ell_gather``
-   alone beside its bound (that dtype's bytes) and HBM share, the f32 step
-   exact against float64
-   as phase 3, the bf16 step's overlap with float64, peak device memory.
+   RetrievalConfig(engine=...)).search`` for ``"tiled"``, ``"ell"`` and
+   ``"tiled-pruned"`` with ``traversal="two-pass"`` (and
+   ``query_chunk=250``, the config's score-buffer bound), one at a time, each
+   freed before the next (both counters zeroed before the build and read
+   after the searches; the engine's kernel must be launched): build s,
+   index bytes and padding overhead (the paper's Table 6), a warm-up and 5
+   searches timed with CUDA events (median), ms a search, us a query and
+   QPS beside the paper's 1.27 ms a query and 787 QPS (a yardstick, not a
+   gate), exact against float64 as phase 3, peak device memory; for the
+   exact engines the kernel alone on the search's inputs beside its bound
+   and HBM share and the top-k alone, for the two-pass engine each query
+   chunk's ``PruneStats`` and its ``scatter_score`` calls timed inside a
+   search beside their bound; then the sharded ``tiled`` step over
+   ``build_sharded_tiled(docs, 1)`` (doc_block 64, chunk 128: its build
+   s, index bytes and the build's peak above the corpus) in f32 and bf16,
+   each dtype's ``scatter_score`` launches counted from its warm-up to its
+   last timed call (more than 0), timed the same way, ``scatter_score``
+   alone beside its bound (that dtype's bytes) and HBM share, the f32
+   step exact against float64, the bf16 step's overlap with float64, peak
+   device memory; then the one-shard ELL index, the corpus freed, and the
+   ``ell`` step in f32 and bf16 (each dtype's ``ell_gather`` launches
+   counted the same way and more than 0), timed the same way,
+   ``ell_gather`` alone beside its bound (that dtype's bytes) and HBM
+   share, the f32 step exact against float64 as phase 3, the bf16 step's
+   overlap with float64 and within one bf16 ulp of the bf16 ``tiled``
+   step (as 9a holds them), peak device memory.
    A ``{"serve_8m": {...}}`` line holds the numbers.
 
 10. The paper's system comparison, with phase 9's data freed (the
@@ -479,6 +493,7 @@ STEP_RTOL = 1e-6
 BF16_KERNEL_TOL = 2.0 ** -7
 BF16_RTOL = (1 + 2.0 ** -8) ** 3 - 1 + 1e-5
 BF16_OVERLAP_MIN = 0.95
+DTYPE_TAGS = ("float32", "bfloat16")  # the sharded steps' compute dtypes
 # flash_attention in f32: atol = rtol = 2e-5, the JAX package's bar for the
 # kernel (tests/test_kernels.py::test_flash_attention_sweep).  In bf16 the
 # kernel and its plain version both compute in f32 and round once to bf16,
@@ -650,13 +665,19 @@ class Sizes:
     sched_deadline_s: float = 0.5
     state_rounds: int = 3  # 8a: rounds after a warm-up
     # Sharded serving (phase 9): launch.serve's rounds after its warm-up
-    # (--sched drains the queue once, after one micro-batch).
+    # (--sched drains the queue once, after one micro-batch, of
+    # sched_requests requests: 500 cut to 256, two micro-batches).
     serve_rounds: int = 1
+    sched_requests: int = 256
     # Phase 9d: serve_8m, the paper's corpus size and the repo's own shape
-    # (src/repro_torch/configs/gpusparse.py:58), on one card: the tiled and
-    # ell engines' searches, then the ell step in f32 and bf16, a warm-up
-    # and 5 rounds each.
+    # (src/repro_torch/configs/gpusparse.py:58), on one card: the tiled,
+    # ell and two-pass tiled-pruned engines' searches, then the tiled and
+    # ell steps in f32 and bf16, a warm-up and 5 rounds each.  The
+    # two-pass engine scores query chunks of 250, the config's own
+    # score-buffer bound cut 512 -> 250: two [500, N] f32 buffers beside
+    # the corpus and the index would leave about 2 GB of the card.
     serve_8m_docs: int = 8_841_823
+    serve_8m_query_chunk: int = 250
     # The system comparison (phase 10).  10a is serve_1m; 10b the paper's
     # Table 2 at its own size (benchmarks/table2_systems.py:18, the
     # corpus of benchmarks/common.py: V = 4,096, seed 0); 10c WAND and BMW
@@ -3522,7 +3543,7 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
         clock = KernelClock()
         with clock:
             got, ms = host_rounds(label, lambda: step(idx, queries=queries),
-                                  rounds, dev, b)
+                                  rounds, dev, queries.batch)
         per = {key: t / (rounds + 1) for key, t in clock.ms(dev).items()}
         for key, n in clock.launches.items():
             bf16_launches[key] = bf16_launches.get(key, 0) + n
@@ -3606,28 +3627,39 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     tiled_b, _ = host_rounds("9a pruned: bf16 tiled step on the topical "
                              "corpus", lambda: step_of("tiled", idx, None, bf)(
                                  idx, queries=tq), 0, dev, b)
+    # The grouped engine serves the sampled queries alone (a cut of depth:
+    # its one-row sweeps took ~18 s a call at B = 500), held to the bf16
+    # tiled step on the same rows.
+    sampled, at_rows = subset(tq, t_sample), np.arange(len(t_sample))
     for name, extra in (("tiled-pruned", {}),
                         ("tiled-pruned", {"traversal": "two-pass"}),
                         ("tiled-pruned-approx", {}),
                         ("tiled-bmp-grouped", {}), ("tiled-bmp-fused", {})):
         label = f"9a {name}{' two-pass' if extra else ''}"
-        got, got_b, nums = both(label, name, idx, tq, 0, extra,
+        qs, smp, want_b = tq, t_sample, tiled_b
+        if name == "tiled-bmp-grouped":
+            qs, smp = sampled, at_rows
+            want_b, _ = host_rounds(
+                f"{label}: bf16 tiled step on the sampled queries",
+                lambda: step_of("tiled", idx, None, bf)(idx, queries=qs), 0,
+                dev, qs.batch)
+        got, got_b, nums = both(label, name, idx, qs, 0, extra,
                                 first_bf16=False)
         eng = RetrievalEngine.from_prebuilt(
             docs, RetrievalConfig(engine=name, k=k, obs=None, **geo,
                                   **extra), single._index, device=dev)
         want, eng_ms = host_rounds(
             f"{label}: RetrievalEngine.search at the sharded geometry",
-            lambda: eng.search(tq, k=k, return_tau=True), 0, dev, b)
-        out[label] = dict(search_ms=eng_ms, **nums, **same_step(
-            f"{label}: step vs engine", got, want))
+            lambda: eng.search(qs, k=k, return_tau=True), 0, dev, qs.batch)
+        out[label] = dict(search_ms=eng_ms, queries=qs.batch, **nums,
+                          **same_step(f"{label}: step vs engine", got, want))
         check_exact(f"{label} step", got[0].cpu().numpy(),
-                    got[1].cpu().numpy(), t_oracle, t_sample, k)
+                    got[1].cpu().numpy(), t_oracle, smp, k)
         out[label].update(check_bf16_exact(
             f"{label} bf16 step", got_b[0].cpu().numpy(),
-            got_b[1].cpu().numpy(), t_oracle, t_sample, k))
+            got_b[1].cpu().numpy(), t_oracle, smp, k))
         if name != "tiled-pruned-approx":
-            same = all(torch.equal(a, w) for a, w in zip(got_b, tiled_b))
+            same = all(torch.equal(a, w) for a, w in zip(got_b, want_b))
             log(f"  {label} bf16: the bf16 tiled step's values, ids and tau "
                 f"bitwise: {same}")
             if not same:
@@ -3676,7 +3708,8 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     for label, flags, floor in (
             ("ell", ["--engine", "ell"], 0.99995),
             ("tiled-bmp-fused", ["--engine", "tiled-bmp-fused"], OVERLAP_MIN),
-            ("sched", ["--sched", "--max-batch", str(sizes.sched_batch)],
+            ("sched", ["--sched", "--max-batch", str(sizes.sched_batch),
+                       "--batch", str(sizes.sched_requests)],
              OVERLAP_MIN)):
         t0 = time.perf_counter()
         res = serve_mod.main(base + flags)
@@ -3719,19 +3752,24 @@ PAPER_QPS = 787.0
 
 
 def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
-                    sample) -> dict:
+                    sample, extra=None) -> dict:
     """One engine of phase 9d: ``RetrievalEngine(corpus.docs,
-    RetrievalConfig(engine=name))`` built over every doc, as the quickstart
-    builds it (the corpus stays on the card: the peak holds it, the
-    oracle, the index and the search's scores and scratch); a warm-up and
-    ``rounds`` searches timed with CUDA events (median), held to float64
-    as phase 3 holds them; the engine's kernel alone on the search's
-    inputs beside its bound (bytes: ``scatter_score``'s live postings, run
-    tables, QW and scores once; ``ell_gather``'s every slot's term id, the
-    live values, QW and the scores) and HBM share; ``topk_two_stage``
-    alone on the search's scores.  Both launch counters are zeroed before
-    the build and read after the searches; the engine's kernel must have
-    been launched."""
+    RetrievalConfig(engine=name, **extra))`` built over every doc, as the
+    quickstart builds it (the corpus stays on the card: the peak holds it,
+    the oracle unless it was handed over on the host, the index and the
+    search's scores and scratch); a warm-up
+    and ``rounds`` searches timed with CUDA events (median), held to
+    float64 as phase 3 holds them.  An exact engine's kernel alone on the
+    search's inputs beside its bound (bytes: ``scatter_score``'s live
+    postings, run tables, QW and scores once; ``ell_gather``'s every
+    slot's term id, the live values, QW and the scores) and HBM share;
+    ``topk_two_stage`` alone on the search's scores.  A pruned engine's
+    ``prune_stats`` of each query chunk instead, and its ``scatter_score``
+    calls timed inside one more search (:class:`KernelClock`: both passes
+    of every query chunk) beside their bound (each pass's QW, scores and
+    run tables, the scored chunks' share of the live postings).  Both
+    launch counters are zeroed before the build and read after the timed
+    searches; the engine's kernel must have been launched."""
     import numpy as np
     import torch
 
@@ -3741,15 +3779,18 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
     from repro_torch.kernels.scatter_score import ops as scatter_ops
 
     b, k, q = sizes.queries, sizes.k, corpus.queries
+    extra = extra or {}
+    label = name + (f" {extra['traversal']}" if "traversal" in extra else "")
     kernels = {"scatter_score": scatter_ops, "ell_gather": ell_ops}
-    kernel = {"tiled": "scatter_score", "ell": "ell_gather"}[name]
+    kernel = {"tiled": "scatter_score", "ell": "ell_gather",
+              "tiled-pruned": "scatter_score"}[name]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     for mod in kernels.values():
         mod.launches = 0
-    eng, build_ms = timed(f"9d {name}: RetrievalEngine build", lambda:
+    eng, build_ms = timed(f"9d {label}: RetrievalEngine build", lambda:
                           RetrievalEngine(corpus.docs, RetrievalConfig(
-                              engine=name, k=k), device=dev), dev)
+                              engine=name, k=k, **extra), device=dev), dev)
     out = dict(build_s=build_ms / 1e3, index_bytes=eng.index_bytes(),
                padding_overhead=eng.padding_overhead())
     vals, ids = eng.search(q, k=k)  # warm-up
@@ -3766,13 +3807,60 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
     out["launches"] = {n: mod.launches for n, mod in kernels.items()}
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     if out["launches"][kernel] <= 0:
-        raise AssertionError(f"9d {name}: {kernel} was not launched")
+        raise AssertionError(f"9d {label}: {kernel} was not launched")
     ms = float(np.median(times))
-    check_exact(f"9d {name} search", vals, ids, oracle, sample, k)
+    check_exact(f"9d {label} search", vals, ids, oracle, sample, k)
     out.update(search_ms=ms, search_ms_all=times, us_per_query=1e3 * ms / b,
                qps=b / ms * 1e3, overlap_f64=overlap(
                    ids[sample], torch.topk(oracle.T, k, dim=1).indices
                    .cpu().numpy(), k))
+    if eng.spec.pruned:
+        clock = KernelClock()
+        with clock:
+            eng.search(q, k=k)
+        out["kernel_ms"] = clock.ms(dev)["scatter_score/float32"]
+        out["kernel_launches"] = clock.launches[("scatter_score",
+                                                 "float32")]
+        idx, qc = eng._index, eng.config.query_chunk
+        live = int((idx.local_doc >= 0).sum())
+        v_pad = -(-idx.vocab_size // idx.term_block) * idx.term_block
+        stats, nbytes = [], 0
+        for r0 in range(0, b, qc):
+            bc = min(qc, b - r0)
+            st = eng.prune_stats(q.slice_rows(r0, bc))
+            stats.append(st)
+            nbytes += (2 * (bc * v_pad * 4 + bc * idx.padded_docs * 4
+                            + idx.num_chunks * 4 + idx.num_doc_blocks * 8)
+                       + live * 12 * st.chunks_scored // st.chunks_total)
+        out.update(query_chunk=qc, live_postings=live, bound_bytes=nbytes,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   prune_stats=[dict(vars(st),
+                                     block_skip_frac=st.block_skip_frac,
+                                     chunk_skip_frac=st.chunk_skip_frac)
+                                for st in stats],
+                   block_skip_frac=1 - sum(st.blocks_scored for st in stats)
+                   / sum(st.num_doc_blocks for st in stats),
+                   chunk_skip_frac=1 - sum(st.chunks_scored for st in stats)
+                   / sum(st.chunks_total for st in stats))
+        out["hbm_share"] = out["bound_ms"] / out["kernel_ms"]
+        del eng, idx
+        torch.cuda.empty_cache()
+        log(f"  9d {label}: build {out['build_s']!r} s, index "
+            f"{out['index_bytes']} B; {ms!r} ms a search (CUDA events, "
+            f"median of {sizes.rounds}: {times!r}), {out['us_per_query']!r} "
+            f"us a query, {out['qps']!r} QPS; query chunks of {qc}: "
+            + "; ".join(
+                f"blocks seeded {st.blocks_seeded}, scored "
+                f"{st.blocks_scored} of {st.num_doc_blocks} (skip "
+                f"{st.block_skip_frac!r}), chunks scored {st.chunks_scored} "
+                f"of {st.chunks_total} (skip {st.chunk_skip_frac!r})"
+                for st in stats)
+            + f"; scatter_score {out['kernel_ms']!r} ms a search in "
+            f"{out['kernel_launches']} launches, bound {out['bound_ms']!r} "
+            f"ms ({nbytes} B), HBM share {out['hbm_share']!r}; launches "
+            f"{out['launches']}; peak {out['peak_bytes']} B of "
+            f"{torch.cuda.get_device_properties(dev).total_memory} B")
+        return out
     idx = eng._index
     if name == "tiled":
         qw = padded_queries(q, idx)
@@ -3809,20 +3897,125 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
     return out
 
 
+def serve_8m_tiled_step(dev, sizes: Sizes, corpus, oracle, sample):
+    """9d's sharded ``tiled`` step, the paper's document-sharded exact
+    retrieval at world size 1: ``build_sharded_tiled(corpus.docs, 1)`` at
+    JAX's defaults (doc_block 64, chunk 128) from the corpus on the card,
+    the build's own peak above what was held before it; then
+    ``make_serve_step(engine="tiled")`` in f32 and in bf16, each a warm-up
+    and ``rounds`` calls timed with CUDA events (median; ``scatter_score``'s
+    counter zeroed before the warm-up and read after the last timed call:
+    it must have launched); ``scatter_score`` alone on the step's inputs
+    beside its bound (that dtype's bytes: each live posting's local term,
+    doc and value, the chunks' term blocks, the block runs, QW and the
+    scores once) and its HBM share; the f32 step held to float64 as phase
+    3 holds it, the bf16 step's overlap with float64; the steps' peak.
+    Returns (the numbers, the bf16 step's result)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import (
+        build_sharded_tiled, make_serve_step,
+    )
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+    b, k, q = sizes.queries, sizes.k, corpus.queries
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    idx, build_ms = timed("9d: build_sharded_tiled, 1 shard",
+                          lambda: build_sharded_tiled(corpus.docs, 1), dev)
+    build_peak = torch.cuda.max_memory_allocated(dev) - held
+    index_bytes = sum(t.numel() * t.element_size()
+                      for t in vars(idx).values() if torch.is_tensor(t))
+    local = idx.shard(0)
+    live = int(torch.count_nonzero(local.local_doc >= 0))
+    out = dict(build_s=build_ms / 1e3, index_bytes=index_bytes,
+               build_peak_above_held=build_peak, held_before_build=held,
+               chunks=local.num_chunks, live_postings=live)
+    log(f"  9d tiled step index: {local.num_chunks} chunks of "
+        f"{idx.chunk_size}, {live} live postings, {index_bytes} B; the "
+        f"build's peak {out['build_peak_above_held']} B above the "
+        f"{held} B held before it")
+    torch.cuda.reset_peak_memory_stats(dev)
+    got_bf16 = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        step = make_serve_step(engine="tiled", k=k,
+                               docs_per_shard=idx.docs_per_shard,
+                               geometry=idx.geometry(), compute_dtype=dtype)
+        scatter_ops.launches = 0
+        got = step(idx, queries=q)  # warm-up (and the one cast)
+        sync(dev)
+        times = []
+        for _ in range(sizes.rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = step(idx, queries=q)
+            end.record()
+            sync(dev)
+            times.append(start.elapsed_time(end))
+        launches = scatter_ops.launches  # the step's own, before the timing
+        if launches <= 0:
+            raise AssertionError(f"9d tiled {tag} step: scatter_score was "
+                                 f"not launched")
+        step_ms = float(np.median(times))
+        vals, ids = got[0].cpu().numpy(), got[1].cpu().numpy()
+        if dtype == torch.float32:
+            check_exact("9d tiled f32 step", vals, ids, oracle, sample, k)
+            res = {"overlap_f64": overlap(ids[sample], torch.topk(
+                oracle.T, k, dim=1).indices.cpu().numpy(), k)}
+        else:
+            res = check_bf16_exact("9d tiled bf16 step", vals, ids, oracle,
+                                   sample, k)
+            got_bf16 = got
+        sh = idx.shard(0, dtype)
+        qw = padded_queries(q, sh).to(dtype)
+        kernel_ms = event_ms(lambda: scatter_ops.scatter_score(
+            qw, **tiled_args(sh)), sizes.reps, dev)
+        elem = qw.element_size()
+        nbytes = (live * (8 + elem) + sh.num_chunks * 4
+                  + sh.num_doc_blocks * 8 + b * qw.shape[1] * elem
+                  + b * sh.padded_docs * elem)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[tag] = dict(step_ms=step_ms, step_ms_all=times,
+                        us_per_query=1e3 * step_ms / b,
+                        qps=b / step_ms * 1e3, launches=launches,
+                        kernel_ms=kernel_ms, bound_ms=bound_ms,
+                        bound_bytes=nbytes, hbm_share=bound_ms / kernel_ms,
+                        **res)
+        log(f"  9d tiled {tag}: {step_ms!r} ms a step (CUDA events, median "
+            f"of {sizes.rounds}: {times!r}), {b / step_ms * 1e3!r} QPS; "
+            f"scatter_score {kernel_ms!r} ms, bound {bound_ms!r} ms "
+            f"({nbytes} B), HBM share {bound_ms / kernel_ms!r}; "
+            f"scatter_score launches {launches}")
+        del got, qw, sh
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"  9d tiled steps' peak device memory: {out['peak_bytes']} B")
+    del idx, local
+    torch.cuda.empty_cache()
+    return out, got_bf16
+
+
 def serve_8m(dev, sizes: Sizes) -> dict:
     """Phase 9d: serve_8m (8,841,823 docs, B = 500, k = 1000) on one card
     at world size 1: the corpus made on the card and float64 scores of
-    ``oracle_queries`` sampled queries computed from it; the ``tiled`` and
-    ``ell`` engines over it, one at a time (:func:`serve_8m_engine`); then
-    the one-shard ELL index built from it and the corpus freed; the ``ell``
-    step in f32 and in bf16, each a warm-up and ``rounds`` calls timed with
-    CUDA events (median; ``ell_gather``'s counter zeroed before the warm-up
-    and read after the last timed call: it must have launched), the kernel
-    alone on the step's inputs beside
-    its bound (that dtype's bytes: every slot's term id, the live values,
-    QW, the scores) and its HBM share (bound over kernel time); the f32
-    step held to float64 as phase 3 holds it, the bf16 step's overlap with
-    float64; the step's peak device memory."""
+    ``oracle_queries`` sampled queries computed from it; the ``tiled``,
+    ``ell`` and two-pass ``tiled-pruned`` engines over it, one at a time
+    (:func:`serve_8m_engine`); the sharded ``tiled`` step in f32 and bf16
+    (:func:`serve_8m_tiled_step`); then the one-shard ELL index built from
+    it and the corpus freed; the ``ell`` step in f32 and in bf16, each a
+    warm-up and ``rounds`` calls timed with CUDA events (median;
+    ``ell_gather``'s counter zeroed before the warm-up and read after the
+    last timed call: it must have launched), the kernel alone on the
+    step's inputs beside its bound (that dtype's bytes: every slot's term
+    id, the live values, QW, the scores) and its HBM share (bound over
+    kernel time); the f32 step held to float64 as phase 3 holds it, the
+    bf16 step's overlap with float64 and its values within one bf16 ulp
+    of the bf16 ``tiled`` step's (as 9a holds them); the step's peak
+    device memory."""
     import numpy as np
     import torch
 
@@ -3853,6 +4046,15 @@ def serve_8m(dev, sizes: Sizes) -> dict:
     out["engines"] = {name: serve_8m_engine(dev, sizes, name, corpus, oracle,
                                             sample)
                       for name in ("tiled", "ell")}
+    # The two-pass engine at B = 500 leaves about 2 GB of the card beside
+    # the corpus and its index: it scores query chunks of
+    # sizes.serve_8m_query_chunk.
+    out["engines"]["tiled-pruned two-pass"] = serve_8m_engine(
+        dev, sizes, "tiled-pruned", corpus, oracle, sample,
+        extra={"traversal": "two-pass",
+               "query_chunk": sizes.serve_8m_query_chunk})
+    out["tiled_step"], tiled_bf16 = serve_8m_tiled_step(dev, sizes, corpus,
+                                                        oracle, sample)
     torch.cuda.reset_peak_memory_stats(dev)
     idx, build_ms = timed("9d: build_sharded_ell, 1 shard",
                           lambda: build_sharded_ell(corpus.docs, 1), dev)
@@ -3896,6 +4098,8 @@ def serve_8m(dev, sizes: Sizes) -> dict:
         else:
             res = check_bf16_exact("9d ell bf16 step", vals, ids, oracle,
                                    sample, k)
+            res["vs_tiled_step"] = same_bf16_topk(
+                "9d bf16: ell step vs tiled step", got, tiled_bf16)
         qw = q.to_dense().to(dtype)
         vals_in = idx.shard(0, dtype).values
         kernel_ms = event_ms(lambda: ell_ops.ell_gather(qw, local.terms,
@@ -6613,20 +6817,23 @@ def run(dev, sizes: Sizes) -> list[dict]:
     t0 = time.perf_counter()
     log(f"phase 9d: serve_8m, {sizes.serve_8m_docs} docs x {sizes.queries} "
         f"queries, k={sizes.k}, world size 1: RetrievalEngine.search through "
-        f"tiled and ell, then the ell step in f32 and bf16")
+        f"tiled, ell and tiled-pruned two-pass, then the tiled and ell steps "
+        f"in f32 and bf16")
     # Each engine's and each step's launches are counted apart, from its
     # first call to its last timed one, and checked there.
     big = serve_8m(dev, sizes)
     log(f"  launches in phase 9d: engines "
-        f"{ {n: e['launches'] for n, e in big['engines'].items()} }, ell "
-        f"steps { {t: big[t]['launches'] for t in ('float32', 'bfloat16')} }")
+        f"{ {n: e['launches'] for n, e in big['engines'].items()} }, tiled "
+        f"steps "
+        f"{ {t: big['tiled_step'][t]['launches'] for t in DTYPE_TAGS} }, "
+        f"ell steps { {t: big[t]['launches'] for t in DTYPE_TAGS} }")
     big["seconds"] = time.perf_counter() - t0
     log(f"phase 9d: {big['seconds']:.3f} s")
     for row in rows:
         if row["name"] == "ell_gather":
             row["serve_8m"] = {dt: {key: big[dt][key] for key in (
                 "kernel_ms", "bound_ms", "hbm_share", "step_ms", "launches")}
-                for dt in ("float32", "bfloat16")}
+                for dt in DTYPE_TAGS}
         engine = {"scatter_score": "tiled", "ell_gather": "ell"}.get(
             row["name"])
         if engine:
@@ -6634,6 +6841,17 @@ def run(dev, sizes: Sizes) -> list[dict]:
                                       for key in ("kernel_ms", "bound_ms",
                                                   "hbm_share", "search_ms",
                                                   "launches")}
+        if row["name"] == "scatter_score":
+            row["serve_8m_step"] = {dt: {key: big["tiled_step"][dt][key]
+                                         for key in ("kernel_ms", "bound_ms",
+                                                     "hbm_share", "step_ms",
+                                                     "launches")}
+                                    for dt in DTYPE_TAGS}
+            row["serve_8m_two_pass"] = {
+                key: big["engines"]["tiled-pruned two-pass"][key]
+                for key in ("kernel_ms", "bound_ms", "hbm_share",
+                            "search_ms", "launches", "block_skip_frac",
+                            "chunk_skip_frac")}
     print(json.dumps({"serve_8m": big}, default=float))
 
     # 10. the system comparison; phase 9d's data is gone

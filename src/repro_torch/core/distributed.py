@@ -61,8 +61,8 @@ from repro_torch.core import registry, scoring
 from repro_torch.core import topk as topk_mod
 from repro_torch.core.engine import RetrievalConfig
 from repro_torch.core.index import (
-    EllIndex, TiledIndex, _block_chunk_runs, build_tiled_index,
-    fill_ell_rows, shard_docs,
+    EllIndex, TiledIndex, _block_chunk_runs, _TiledBuild, fill_block_max,
+    fill_ell_rows,
 )
 from repro_torch.core.sparse import SparseBatch
 from repro_torch.kernels.ell_gather import ops as ell_ops
@@ -152,19 +152,6 @@ class ShardedEllIndex(_Stacked):
                         self.docs_per_shard, self.vocab_size)
 
 
-def _shard_block_max(shard: SparseBatch, term_block: int,
-                     doc_block: int) -> torch.Tensor:
-    """[n_tb, n_db] per-tile max |value| of one shard's docs."""
-    n_tb = max(cdiv(shard.vocab_size, term_block), 1)
-    n_db = max(cdiv(shard.batch, doc_block), 1)
-    rows, cols = torch.nonzero(shard.term_ids >= 0, as_tuple=True)
-    cell = (shard.term_ids[rows, cols].long() // term_block) * n_db \
-        + rows // doc_block
-    out = torch.zeros(n_tb * n_db, dtype=torch.float32, device=shard.device)
-    out.scatter_reduce_(0, cell, shard.values[rows, cols].abs(), "amax")
-    return out.view(n_tb, n_db)
-
-
 def _require_sparse_batch(docs) -> None:
     """The sharded build functions take a concrete corpus, never a Retriever: a
     store-backed Retriever's corpus lives on disk, and reading it is the
@@ -228,8 +215,11 @@ def snapshot_paged(retriever) -> tuple[SparseBatch, np.ndarray]:
             np.concatenate(gid_rows))
 
 
-def _stack(parts: list) -> torch.Tensor:
-    return parts[0][None] if len(parts) == 1 else torch.stack(parts)
+def _shard_rows(docs: SparseBatch, per: int, shard: int) -> SparseBatch:
+    """Shard ``shard``'s rows of ``docs``, a view: ``per`` rows from
+    ``shard * per``, fewer for a short last shard (none past the end)."""
+    start = shard * per
+    return docs.slice_rows(start, max(min(per, docs.batch - start), 0))
 
 
 def build_sharded_ell(
@@ -244,7 +234,8 @@ def build_sharded_ell(
     ``docs``' device: each shard's ELL rows (left-packed term lists),
     padded with term ``vocab_size`` and value 0 to the widest doc's K.
     The rows go straight from ``docs`` into the stacked arrays, a bounded
-    number at a time: the corpus and the index are all it holds."""
+    number at a time, and so do ``store_block_max``'s per-tile maxima: the
+    corpus and the index are all it holds."""
     _require_sparse_batch(docs)
     per = cdiv(docs.batch, num_shards)
     v = docs.vocab_size
@@ -254,15 +245,17 @@ def build_sharded_ell(
                        device=docs.device)
     vals = torch.zeros((num_shards, per, k), dtype=torch.float32,
                        device=docs.device)
-    for si in range(num_shards):
-        start = si * per
-        rows = max(min(per, docs.batch - start), 0)
-        fill_ell_rows(docs.slice_rows(start, rows), terms[si], vals[si])
     block_max = None
     if store_block_max:
-        block_max = _stack([
-            _shard_block_max(shard_docs(docs, num_shards, s)[0], term_block,
-                             doc_block) for s in range(num_shards)])
+        block_max = torch.zeros(
+            (num_shards, max(cdiv(v, term_block), 1),
+             max(cdiv(per, doc_block), 1)),
+            dtype=torch.float32, device=docs.device)
+    for si in range(num_shards):
+        rows = _shard_rows(docs, per, si)
+        fill_ell_rows(rows, terms[si], vals[si])
+        if block_max is not None:
+            fill_block_max(rows, term_block, doc_block, block_max[si])
     return ShardedEllIndex(terms, vals, per, docs.batch, v,
                            block_max=block_max, term_block=term_block,
                            doc_block=doc_block)
@@ -388,56 +381,63 @@ def build_sharded_tiled(
     """Each shard's ``build_tiled_index`` with fine bounds, on ``docs``'
     device, its chunk arrays padded at the tail to the most chunks of any
     shard and stacked.  The defaults are JAX ``build_sharded_tiled``'s, not
-    ``RetrievalConfig``'s."""
+    ``RetrievalConfig``'s.
+
+    Built in place, with no copy of the corpus or of the index: each
+    shard's rows are a view of ``docs`` (a short last shard's padding rows
+    are empty docs), every shard's count pass runs first (so the chunk and
+    CSR widths are known), the stacked arrays are allocated once holding
+    their pad values, and each shard's fill pass writes its own row
+    (:class:`~repro_torch.core.index._TiledBuild`)."""
     _require_sparse_batch(docs)
-    shards = [shard_docs(docs, num_shards, s)[0] for s in range(num_shards)]
-    built = [
-        build_tiled_index(s, term_block=term_block, doc_block=doc_block,
-                          chunk_size=chunk_size, store_term_block_max=True,
-                          bounds_format=bounds_format)
-        for s in shards
-    ]
-    c_n = max(b.num_chunks for b in built)
-
-    def pad(arr, n, fill):
-        if arr.shape[0] == n:
-            return arr
-        tail = arr.new_full((n - arr.shape[0],) + tuple(arr.shape[1:]), fill)
-        return torch.cat([arr, tail])
-
-    def chunks(field, fill):
-        return _stack([pad(getattr(b, field), c_n, fill) for b in built])
-
-    def whole(field):
-        return _stack([getattr(b, field) for b in built])
-
+    per = cdiv(docs.batch, num_shards)
+    dev, v = docs.device, docs.vocab_size
+    i32 = torch.int32
+    builds = [_TiledBuild(_shard_rows(docs, per, s), per, term_block,
+                          doc_block, chunk_size, bounds_format)
+              for s in range(num_shards)]
+    c_n = max(b.n_chunks for b in builds)
+    shape = (num_shards, c_n, chunk_size)
+    local_term = torch.full(shape, chunk_size, dtype=i32, device=dev)
+    local_doc = torch.full(shape, -1, dtype=i32, device=dev)
+    value = torch.zeros(shape, dtype=torch.float32, device=dev)
+    chunk_term_block = torch.zeros(shape[:2], dtype=i32, device=dev)
+    chunk_doc_block = torch.zeros(shape[:2], dtype=i32, device=dev)
     fine = dict(term_block_max_q=None, csr_row_cap=0)
     if bounds_format == "csr":
-        nnz_max = max(max(int(b.tbm_cols.shape[0]) for b in built), 1)
-        row_cap = max(max(int(torch.diff(b.tbm_indptr).max())
-                          if b.tbm_indptr.shape[0] > 1 else 0
-                          for b in built), 1)
-        fine = dict(
-            term_block_max_q=None, tbm_indptr=whole("tbm_indptr"),
-            tbm_cols=_stack([pad(b.tbm_cols, nnz_max, 0) for b in built]),
-            tbm_vals_q=_stack([pad(b.tbm_vals_q, nnz_max, 0)
-                               for b in built]),
-            csr_row_cap=row_cap,
+        # Each shard's nonzeros padded to the largest shard's count: the
+        # pad entries sit beyond indptr[V], never addressed.
+        indptr = torch.stack([b.bound_indptr for b in builds])
+        nnz_max = max(int(indptr[:, -1].max()), 1)
+        row_cap = int(torch.diff(indptr, dim=1).max()) if v else 0
+        fine.update(
+            tbm_indptr=indptr.to(i32),
+            tbm_cols=torch.zeros((num_shards, nnz_max), dtype=i32,
+                                 device=dev),
+            tbm_vals_q=torch.zeros((num_shards, nnz_max),
+                                   dtype=torch.uint8, device=dev),
+            csr_row_cap=max(row_cap, 1),
         )
     else:
-        fine["term_block_max_q"] = whole("term_block_max_q")
+        fine["term_block_max_q"] = torch.zeros(
+            (num_shards, v, builds[0].n_db), dtype=torch.uint8, device=dev)
+    for s, b in enumerate(builds):
+        bounds = ((fine["tbm_cols"][s], fine["tbm_vals_q"][s])
+                  if bounds_format == "csr" else fine["term_block_max_q"][s])
+        b.fill(local_term[s], local_doc[s], value[s], chunk_term_block[s],
+               bounds=bounds)
+        chunk_doc_block[s, :b.n_chunks] = b.chunk_doc_block()
     return ShardedTiledIndex(
-        local_term=chunks("local_term", chunk_size),
-        local_doc=chunks("local_doc", -1),
-        value=chunks("value", 0.0),
-        chunk_term_block=chunks("chunk_term_block", 0),
-        chunk_doc_block=chunks("chunk_doc_block", 0),
-        term_block_scale=whole("term_block_scale"),
-        block_chunk_start=whole("block_chunk_start"),
-        block_chunk_count=whole("block_chunk_count"),
-        docs_per_shard=shards[0].batch, num_docs=docs.batch,
-        vocab_size=docs.vocab_size, term_block=term_block,
-        doc_block=doc_block, chunk_size=chunk_size,
+        local_term=local_term,
+        local_doc=local_doc,
+        value=value,
+        chunk_term_block=chunk_term_block,
+        chunk_doc_block=chunk_doc_block,
+        term_block_scale=torch.stack([b.stored_scale() for b in builds]),
+        block_chunk_start=torch.stack([b.db_start.to(i32) for b in builds]),
+        block_chunk_count=torch.stack([b.per_db.to(i32) for b in builds]),
+        docs_per_shard=per, num_docs=docs.batch, vocab_size=v,
+        term_block=term_block, doc_block=doc_block, chunk_size=chunk_size,
         bounds_format=bounds_format, **fine,
     )
 

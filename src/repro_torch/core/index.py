@@ -264,12 +264,197 @@ def build_flat_index(
 # arrays of its postings) to a slab of 2^26 slots whatever the corpus
 # (8,841,823 docs x 302 slots at serve_8m, over 2^31).
 _TILED_ROW_ELEMS = 1 << 26
+# Entries of a step's fine-bound slab ([V, its doc blocks] f32 maxima and
+# their quantization's temporaries), where the build stores fine bounds:
+# 2^26 whatever n_db (30,522 x 138,154 at serve_8m's sharded geometry,
+# 16.9 GB as one f32 matrix).
+_BOUND_ELEMS = 1 << 26
 
 
-def _doc_block_ranges(docs: SparseBatch, doc_block: int, n_db: int):
-    """[first, end) doc blocks of each step of the build, in order."""
+def _doc_block_ranges(docs: SparseBatch, doc_block: int, n_db: int,
+                      vocab: int = 0):
+    """[first, end) doc blocks of each step of the build, in order; with
+    ``vocab`` (fine bounds stored) each step's [vocab, blocks] slab also
+    stays within ``_BOUND_ELEMS``."""
     per = max(1, _TILED_ROW_ELEMS // max(docs.max_terms * doc_block, 1))
+    if vocab:
+        per = min(per, max(1, _BOUND_ELEMS // vocab))
     return [(s, min(s + per, n_db)) for s in range(0, n_db, per)]
+
+
+def _bound_slab(terms, doc, vals, v: int, doc_block: int, d0: int,
+                d1: int) -> torch.Tensor:
+    """f32 [V, d1 - d0]: each (term, doc block)'s max |value| among the
+    postings of doc blocks [d0, d1), 0 where it has none."""
+    slab = torch.zeros(v * (d1 - d0), dtype=torch.float32, device=vals.device)
+    slab.scatter_reduce_(0, terms * (d1 - d0) + doc // doc_block - d0,
+                         vals.abs(), "amax")
+    return slab.view(v, d1 - d0)
+
+
+def _bound_scale(row_max: torch.Tensor) -> torch.Tensor:
+    """Each term's quantization step from its largest |value| (1 for a
+    term with none).  Float32, and true division (a tensor divisor: CUDA
+    turns division by a Python scalar into a multiply by its reciprocal),
+    as numpy computes it."""
+    scale = torch.where(row_max > 0, row_max, 1.0) * (1.0 + 1e-6)
+    return scale / torch.full_like(scale, 255.0)
+
+
+def _quantize_bounds(slab: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """u8 [V, w] of the maxima ``slab`` over the steps ``scale`` [V],
+    rounding up (floor + 1, at most 255; 0 where the max is 0) so that the
+    dequantized bound never dips below the true max."""
+    q = slab / scale[:, None]
+    q.floor_().add_(1.0).clamp_(max=255.0)
+    return q.masked_fill_(~(slab > 0), 0.0).to(torch.uint8)
+
+
+class _TiledBuild:
+    """The two passes of a tiled build over ``docs``' rows taken as
+    ``num_docs`` docs (rows past ``docs.batch`` are empty docs, as a short
+    last shard's padding rows are), a range of whole doc blocks at a time
+    (``_doc_block_ranges``): the chunks are sorted doc block first, so
+    each range owns one contiguous run of them.
+
+    The constructor is the count pass: each doc block's chunks (``cdiv(len,
+    C)`` a nonempty tile; a posting-free block gets one empty zeroing
+    chunk) and, with ``bounds_format`` set, each term's largest |value|
+    (its fine-bound scale: the max over doc blocks of the per-block
+    maxima, which a max gives exactly) and for ``"csr"`` each term's count
+    of nonzero bounds (``bound_indptr``).  :meth:`fill` is the second
+    pass, into outputs the caller allocated once at their final size."""
+
+    def __init__(self, docs: SparseBatch, num_docs: int, term_block: int,
+                 doc_block: int, chunk_size: int,
+                 bounds_format: Optional[str] = None):
+        if bounds_format not in (None, "dense", "csr"):
+            raise ValueError(
+                f"unknown bounds_format {bounds_format!r}; use 'dense' or "
+                "'csr'"
+            )
+        self.docs, self.bounds_format = docs, bounds_format
+        self.term_block, self.doc_block = term_block, doc_block
+        self.chunk_size = chunk_size
+        dev, v = docs.device, docs.vocab_size
+        i64 = torch.int64
+        self.n_db = n_db = max(cdiv(num_docs, doc_block), 1)
+        self.n_tb = n_tb = max(cdiv(v, term_block), 1)
+        self.ranges = _doc_block_ranges(docs, doc_block, n_db,
+                                        v if bounds_format else 0)
+        real_per_db = torch.zeros(n_db, dtype=i64, device=dev)
+        row_max = (torch.zeros(v, dtype=torch.float32, device=dev)
+                   if bounds_format else None)
+        nnz = (torch.zeros(v, dtype=i64, device=dev)
+               if bounds_format == "csr" else None)
+        for d0, d1 in self.ranges:
+            terms, doc, vals = _postings(docs, d0 * doc_block, d1 * doc_block)
+            tile = (doc // doc_block - d0) * n_tb + terms // term_block
+            tile_len = torch.bincount(tile, minlength=(d1 - d0) * n_tb)
+            real_per_db[d0:d1] = ((tile_len + chunk_size - 1) // chunk_size
+                                  ).view(d1 - d0, n_tb).sum(dim=1)
+            if row_max is not None:
+                row_max.scatter_reduce_(0, terms, vals.abs(), "amax")
+            if nnz is not None:
+                nnz += (_bound_slab(terms, doc, vals, v, doc_block, d0, d1)
+                        > 0).sum(dim=1)
+        self.real_per_db = real_per_db
+        self.per_db = torch.where(real_per_db > 0, real_per_db, 1)
+        self.db_start = _exclusive_cumsum(self.per_db)
+        self.n_chunks = int(self.per_db.sum())
+        self.scale = None if row_max is None else _bound_scale(row_max)
+        self.bound_indptr = None
+        if nnz is not None:
+            self.bound_indptr = torch.zeros(v + 1, dtype=i64, device=dev)
+            self.bound_indptr[1:] = torch.cumsum(nnz, 0)
+
+    def stored_scale(self) -> torch.Tensor:
+        """``term_block_scale``: the step bumped up one ulp, so that the
+        dequantized bound cannot round below the true maximum."""
+        return torch.nextafter(self.scale,
+                               torch.full_like(self.scale, float("inf")))
+
+    def chunk_doc_block(self) -> torch.Tensor:
+        """int32 [n_chunks]: each chunk's doc block."""
+        return torch.repeat_interleave(
+            torch.arange(self.n_db, dtype=torch.int32,
+                         device=self.per_db.device), self.per_db)
+
+    def fill(self, local_term, local_doc, value, chunk_term_block,
+             tile_max=None, block_max=None, bounds=None) -> None:
+        """The second pass: each range's postings, stably sorted by
+        (doc_block, term_block), into the first ``n_chunks`` rows of
+        ``local_term``/``local_doc``/``value`` [>= n_chunks, C] and
+        ``chunk_term_block``, which hold their pad values already: each
+        bucket (a run of equal key) splits into cdiv(len, C) chunks, and
+        postings keep doc order within a tile.  Where given, ``tile_max``
+        [n_chunks] and ``block_max`` [n_tb * n_db] (zeros) take amax
+        scatters, and ``bounds`` the fine bounds: u8 [V, n_db] (zeros) for
+        ``"dense"``, the CSR's ``(cols, vals_q)`` (at least
+        ``bound_indptr[-1]`` long) for ``"csr"``, row-major."""
+        docs, n_db, v = self.docs, self.n_db, self.docs.vocab_size
+        term_block, doc_block = self.term_block, self.doc_block
+        chunk_size = self.chunk_size
+        dev = docs.device
+        i32 = torch.int32
+        cursor = (None if self.bound_indptr is None
+                  else self.bound_indptr[:-1].clone())
+        for d0, d1 in self.ranges:
+            terms, doc, vals = _postings(docs, d0 * doc_block, d1 * doc_block)
+            if bounds is not None:
+                self._fill_bounds(bounds, cursor, _quantize_bounds(
+                    _bound_slab(terms, doc, vals, v, doc_block, d0, d1),
+                    self.scale), d0, d1)
+            db = doc // doc_block
+            tb = terms // term_block
+            key = db * (v // term_block + 2) + tb
+            key, order = torch.sort(key, stable=True)
+            terms, doc, vals, db, tb = (terms[order], doc[order], vals[order],
+                                        db[order], tb[order])
+            _, bucket_len = torch.unique_consecutive(key, return_counts=True)
+            bucket_start = _exclusive_cumsum(bucket_len)
+            bucket_db = db[bucket_start]
+            bucket_chunks = (bucket_len + chunk_size - 1) // chunk_size
+            # A bucket's first chunk: its block's run start, plus the
+            # chunks of the range's earlier buckets, less those of the
+            # range's earlier blocks.
+            bucket_first = (self.db_start[bucket_db]
+                            + _exclusive_cumsum(bucket_chunks)
+                            - _exclusive_cumsum(self.real_per_db[d0:d1])[
+                                bucket_db - d0])
+            bucket_of = torch.repeat_interleave(
+                torch.arange(bucket_len.numel(), device=dev), bucket_len
+            )
+            offset = (torch.arange(terms.numel(), device=dev)
+                      - bucket_start[bucket_of])
+            chunk_of = bucket_first[bucket_of] + offset // chunk_size
+            slot_of = offset % chunk_size
+            local_term[chunk_of, slot_of] = (terms - tb * term_block).to(i32)
+            local_doc[chunk_of, slot_of] = (doc - db * doc_block).to(i32)
+            value[chunk_of, slot_of] = vals
+            chunk_term_block[chunk_of] = tb.to(i32)
+            absv = vals.abs()
+            if tile_max is not None:
+                tile_max.scatter_reduce_(0, chunk_of, absv, "amax")
+            if block_max is not None:
+                block_max.scatter_reduce_(0, tb * n_db + db, absv, "amax")
+
+    def _fill_bounds(self, bounds, cursor, q, d0: int, d1: int) -> None:
+        """Doc blocks [d0, d1)'s quantized bounds ``q`` [V, d1 - d0] into
+        ``bounds``; CSR entries go after each row's earlier ranges'
+        (``cursor``, advanced here), so each row's columns ascend."""
+        if self.bounds_format == "dense":
+            bounds[:, d0:d1] = q
+            return
+        cols, vals_q = bounds
+        rows_nz, cols_nz = torch.nonzero(q, as_tuple=True)  # row-major
+        count = torch.bincount(rows_nz, minlength=q.shape[0])
+        rank = (torch.arange(rows_nz.numel(), device=q.device)
+                - _exclusive_cumsum(count)[rows_nz])
+        pos = cursor[rows_nz] + rank
+        cols[pos] = (cols_nz + d0).to(torch.int32)
+        vals_q[pos] = q[rows_nz, cols_nz]
+        cursor += count
 
 
 def build_tiled_index(
@@ -283,10 +468,11 @@ def build_tiled_index(
     """Bucket postings into (term_block x doc_block) tiles, pack COO chunks.
 
     Runs on ``docs``' device, a range of whole doc blocks at a time
-    (``_TILED_ROW_ELEMS``): the chunks are sorted doc block first, so each
-    range owns one contiguous run of them.  A first pass counts each doc
-    block's chunks, the output is allocated once at its final size, and a
-    second pass sorts each range's postings into its run.
+    (``_TILED_ROW_ELEMS``, and ``_BOUND_ELEMS`` with fine bounds): a
+    first pass counts each doc block's chunks (and the fine bounds' scale
+    and CSR row lengths), the output is allocated once at its final size,
+    and a second pass sorts each range's postings into its run and
+    quantizes the range's fine bounds into place (:class:`_TiledBuild`).
     ``bounds_format`` picks the fine bound layout when
     ``store_term_block_max`` is set: ``"dense"`` (u8 [V, n_db]) or
     ``"csr"`` (nonzero (term, doc_block) entries only).
@@ -296,24 +482,11 @@ def build_tiled_index(
             f"unknown bounds_format {bounds_format!r}; use 'dense' or 'csr'"
         )
     dev = docs.device
-    n_docs, v = docs.batch, docs.vocab_size
-    i32, i64 = torch.int32, torch.int64
-    n_db = max(cdiv(n_docs, doc_block), 1)
-    n_tb = max(cdiv(v, term_block), 1)
-    ranges = _doc_block_ranges(docs, doc_block, n_db)
-
-    # Pass 1: each doc block's chunks, cdiv(len, C) a nonempty tile.
-    real_per_db = torch.zeros(n_db, dtype=i64, device=dev)
-    for d0, d1 in ranges:
-        terms, doc, _ = _postings(docs, d0 * doc_block, d1 * doc_block)
-        tile = (doc // doc_block - d0) * n_tb + terms // term_block
-        tile_len = torch.bincount(tile, minlength=(d1 - d0) * n_tb)
-        real_per_db[d0:d1] = ((tile_len + chunk_size - 1) // chunk_size
-                              ).view(d1 - d0, n_tb).sum(dim=1)
-    # A posting-free doc block gets one empty (zeroing) chunk.
-    per_db = torch.where(real_per_db > 0, real_per_db, 1)
-    db_start = _exclusive_cumsum(per_db)
-    n_chunks = int(per_db.sum())
+    v = docs.vocab_size
+    i32 = torch.int32
+    build = _TiledBuild(docs, docs.batch, term_block, doc_block, chunk_size,
+                        bounds_format if store_term_block_max else None)
+    n_chunks, n_db, n_tb = build.n_chunks, build.n_db, build.n_tb
 
     local_term = torch.full((n_chunks, chunk_size), chunk_size, dtype=i32,
                             device=dev)
@@ -321,109 +494,45 @@ def build_tiled_index(
     value = torch.zeros((n_chunks, chunk_size), dtype=torch.float32,
                         device=dev)
     chunk_term_block = torch.zeros(n_chunks, dtype=i32, device=dev)
-    chunk_doc_block = torch.repeat_interleave(
-        torch.arange(n_db, dtype=i32, device=dev), per_db
-    )
     chunk_first = torch.zeros(n_chunks, dtype=i32, device=dev)
-    chunk_first[db_start] = 1
+    chunk_first[build.db_start] = 1
     tile_max = torch.zeros(n_chunks, dtype=torch.float32, device=dev)
     # Per-(term_block, doc_block) maxima for block-max pruning.
     block_max = torch.zeros(n_tb * n_db, dtype=torch.float32, device=dev)
-    tbm = (torch.zeros(v * n_db, dtype=torch.float32, device=dev)
-           if store_term_block_max else None)
-
-    # Pass 2: a range's postings, stably sorted by (doc_block, term_block):
-    # each bucket (a run of equal key) splits into cdiv(len, C) chunks, and
-    # postings keep doc order within a tile.
-    for d0, d1 in ranges:
-        terms, doc, vals = _postings(docs, d0 * doc_block, d1 * doc_block)
-        db = doc // doc_block
-        tb = terms // term_block
-        key = db * (v // term_block + 2) + tb
-        key, order = torch.sort(key, stable=True)
-        terms, doc, vals, db, tb = (terms[order], doc[order], vals[order],
-                                    db[order], tb[order])
-        _, bucket_len = torch.unique_consecutive(key, return_counts=True)
-        bucket_start = _exclusive_cumsum(bucket_len)
-        bucket_db = db[bucket_start]
-        bucket_chunks = (bucket_len + chunk_size - 1) // chunk_size
-        # A bucket's first chunk: its block's run start, plus the chunks of
-        # the range's earlier buckets, less those of the range's earlier
-        # blocks.
-        bucket_first = (db_start[bucket_db] + _exclusive_cumsum(bucket_chunks)
-                        - _exclusive_cumsum(real_per_db[d0:d1])[
-                            bucket_db - d0])
-        bucket_of = torch.repeat_interleave(
-            torch.arange(bucket_len.numel(), device=dev), bucket_len
-        )
-        offset = (torch.arange(terms.numel(), device=dev)
-                  - bucket_start[bucket_of])
-        chunk_of = bucket_first[bucket_of] + offset // chunk_size
-        slot_of = offset % chunk_size
-        local_term[chunk_of, slot_of] = (terms - tb * term_block).to(i32)
-        local_doc[chunk_of, slot_of] = (doc - db * doc_block).to(i32)
-        value[chunk_of, slot_of] = vals
-        chunk_term_block[chunk_of] = tb.to(i32)
-        absv = vals.abs()
-        tile_max.scatter_reduce_(0, chunk_of, absv, "amax")
-        block_max.scatter_reduce_(0, tb * n_db + db, absv, "amax")
-        if tbm is not None:
-            tbm.scatter_reduce_(0, terms * n_db + db, absv, "amax")
-
-    fine = {}
-    if tbm is not None:
-        fine = _fine_bounds(tbm.view(v, n_db), bounds_format)
+    fine, bounds = {}, None
+    if store_term_block_max:
+        fine["term_block_scale"] = build.stored_scale()
+        if bounds_format == "csr":
+            nnz = int(build.bound_indptr[-1])
+            bounds = (torch.zeros(nnz, dtype=i32, device=dev),
+                      torch.zeros(nnz, dtype=torch.uint8, device=dev))
+            fine.update(tbm_indptr=build.bound_indptr.to(i32),
+                        tbm_cols=bounds[0], tbm_vals_q=bounds[1])
+        else:
+            bounds = fine["term_block_max_q"] = torch.zeros(
+                (v, n_db), dtype=torch.uint8, device=dev)
+    build.fill(local_term, local_doc, value, chunk_term_block,
+               tile_max=tile_max, block_max=block_max, bounds=bounds)
 
     return TiledIndex(
         local_term=local_term,
         local_doc=local_doc,
         value=value,
         chunk_term_block=chunk_term_block,
-        chunk_doc_block=chunk_doc_block,
+        chunk_doc_block=build.chunk_doc_block(),
         chunk_first=chunk_first,
         tile_max=tile_max,
         block_max=block_max.view(n_tb, n_db),
-        num_docs=n_docs,
+        num_docs=docs.batch,
         vocab_size=v,
         term_block=term_block,
         doc_block=doc_block,
         chunk_size=chunk_size,
         bounds_format=bounds_format,
-        block_chunk_start=db_start.to(i32),
-        block_chunk_count=per_db.to(i32),
+        block_chunk_start=build.db_start.to(i32),
+        block_chunk_count=build.per_db.to(i32),
         **fine,
     )
-
-
-def _fine_bounds(tbm: torch.Tensor, bounds_format: str) -> dict:
-    """Per-(term, doc_block) maxima ``tbm`` [V, n_db], u8-quantized with
-    round-up so the dequantized bound never dips below the true max.
-    Float32 throughout, and true division (a tensor divisor: CUDA turns
-    division by a Python scalar into a multiply by its reciprocal), as
-    numpy computes it."""
-    dev = tbm.device
-    v = tbm.shape[0]
-    row_max = tbm.max(dim=1).values
-    scale = torch.where(row_max > 0, row_max, 1.0) * (1.0 + 1e-6)
-    scale = scale / torch.full_like(scale, 255.0)
-    q = torch.minimum(torch.floor(tbm / scale[:, None]) + 1.0,
-                      torch.full_like(tbm, 255.0))
-    dense_q = torch.where(tbm > 0, q, 0.0).to(torch.uint8)
-    # One-ulp upward bump so the dequantized bound cannot round below the
-    # true maximum.
-    out = {"term_block_scale": torch.nextafter(
-        scale, torch.full_like(scale, float("inf"))
-    )}
-    if bounds_format == "csr":
-        rows_nz, cols_nz = torch.nonzero(dense_q, as_tuple=True)
-        indptr = torch.zeros(v + 1, dtype=torch.int64, device=dev)
-        indptr[1:] = torch.cumsum(torch.bincount(rows_nz, minlength=v), 0)
-        out.update(tbm_indptr=indptr.to(torch.int32),
-                   tbm_cols=cols_nz.to(torch.int32),
-                   tbm_vals_q=dense_q[rows_nz, cols_nz])
-    else:
-        out["term_block_max_q"] = dense_q
-    return out
 
 
 @dataclasses.dataclass
@@ -470,6 +579,20 @@ def fill_ell_rows(docs: SparseBatch, terms: torch.Tensor,
         vals = vals.gather(1, order)[:, :width]
         terms[s:e, :width] = torch.where(ids >= 0, ids, v).to(torch.int32)
         values[s:e, :width] = torch.where(ids >= 0, vals, 0.0)
+
+
+def fill_block_max(docs: SparseBatch, term_block: int, doc_block: int,
+                   out: torch.Tensor) -> None:
+    """Take ``out`` [n_tb, n_db] (zeros) to the per-(term_block,
+    doc_block) max |value| of ``docs``' rows, ``_ELL_ROW_ELEMS`` slots a
+    step (amax scatters: the whole-batch result)."""
+    flat = out.view(-1)
+    step = max(1, _ELL_ROW_ELEMS // max(docs.max_terms, 1))
+    for s in range(0, docs.batch, step):
+        terms, doc, vals = _postings(docs, s, s + step)
+        flat.scatter_reduce_(
+            0, terms // term_block * out.shape[1] + doc // doc_block,
+            vals.abs(), "amax")
 
 
 def build_ell_index(

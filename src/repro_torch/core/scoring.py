@@ -55,6 +55,7 @@ engine keeps the exact top-k of these scores, ties to the lower id.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -224,43 +225,129 @@ def query_block_mass(qw: torch.Tensor, term_block: int) -> torch.Tensor:
     return qw.abs().reshape(b, v_pad // term_block, term_block).sum(dim=2)
 
 
-def _csr_bound_rows(q_ids: torch.Tensor, index: TiledIndex) -> torch.Tensor:
-    """[B, K, n_db] f32 quantized fine-bound rows of the query's terms,
-    scattered on the device from CSR storage: the same entries the dense
-    gather ``term_block_max_q[ids]`` gives, and the full [V, n_db] matrix
-    never materializes (a CSR row holds each doc block at most once)."""
-    b, kq = q_ids.shape
-    n_db = index.num_doc_blocks
-    indptr = index.tbm_indptr.long()
-    ids = q_ids.clamp(0, indptr.numel() - 2).long().reshape(-1)
-    start = indptr[ids]
-    length = indptr[ids + 1] - start
-    rows = torch.zeros((b * kq, n_db), dtype=torch.float32,
-                       device=q_ids.device)
-    owner = torch.repeat_interleave(
-        torch.arange(b * kq, device=q_ids.device), length
-    )
-    first = torch.cumsum(length, 0) - length
-    pos = start[owner] + torch.arange(owner.numel(), device=q_ids.device) \
-        - first[owner]
-    rows[owner, index.tbm_cols[pos].long()] = index.tbm_vals_q[pos].float()
-    return rows.reshape(b, kq, n_db)
+# Entries of a step of the fine bounds: ranges of at most 2^25 / B doc
+# blocks (a [B, doc blocks] step; its float64 temporaries are a few times
+# that), and in each range groups of query terms whose u8 [B, terms, doc
+# blocks] rows hold at most 2^25 entries, so that the [B, K, n_db] bound
+# rows never materialize (500 x ~100 x 34,539 f32 at serve_8m, 6.9 GB).
+_BOUND_ROW_ELEMS = 1 << 25
+
+# A query whose weights |q_t| * scale_t sum below 2^20 times its smallest
+# nonzero one adds each term's product g * w (g a u8 bound) to the f32
+# bound exactly in float64: a step's addends are multiples of ulp(w) and
+# ulp(acc), each at least 2^-24 of its value, and acc < 2^28 w and g * w <
+# 2^28 acc keep the sum under 2^53 of the smaller, so one rounding of the
+# float64 sum to f32 is the FMA's.  Synthetic queries stay under ~8,300
+# (serve_1m's msmarco-like corpus).
+_EXACT_SUM_RATIO = float(1 << 20)
 
 
-def _fine_bound_rows(queries: SparseBatch, index: TiledIndex):
-    """(rows [B, K, n_db] f32 quantized bounds, w [B, K] |q| * scale): the
-    operands of the fine bound and the per-term seed pick.  Dense storage
-    is a device gather, CSR storage a device scatter of the same
-    entries."""
+def _fma_nonneg(a: torch.Tensor, b: torch.Tensor,
+                c: torch.Tensor) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once, as a fused multiply-add gives it,
+    for nonnegative operands (``a`` u8 or f32, ``b`` and ``c`` f32): the
+    product is exact in float64 (at most 48 bits), the sum is rounded to
+    odd there (the sign of its exact error by Fast2Sum, the larger addend
+    first), and rounding that once to f32 is correct (53 >= 24 + 2
+    bits).  Ten elementwise passes, each operand widened where it is
+    read."""
+    p = a * b.double()
+    s = p + c
+    hi, lo = torch.maximum(p, c), torch.minimum(p, c)
+    d = s - hi  # exact; the error is lo - d, also exact
+    # Positive s: truncated toward zero, then the last bit set where the
+    # sum was inexact.
+    bits = (s.view(torch.int64) - (lo < d).view(torch.uint8)) \
+        | (lo != d).view(torch.uint8)
+    return bits.view(torch.float64).float()
+
+
+def _bound_rows_at(index: TiledIndex, ids: torch.Tensor, d0: int,
+                   d1: int) -> torch.Tensor:
+    """u8 [*ids.shape, d1 - d0]: the quantized fine bounds of each term of
+    ``ids`` over doc blocks [d0, d1).  Dense storage is a gather; CSR
+    storage a gather of each row's entries at a fixed width (a row holds
+    each doc block at most once, so at most n_db entries: no host sync)
+    scattered into place, those outside the range into a spare column
+    dropped after."""
+    if index.term_block_max_q is not None:
+        return index.term_block_max_q[ids, d0:d1]
+    flat, dev = ids.reshape(-1), ids.device
+    n = flat.shape[0]
+    rows = torch.zeros((n, d1 - d0 + 1), dtype=torch.uint8, device=dev)
+    width = min(index.num_doc_blocks, index.tbm_cols.numel())
+    if width > 0:
+        indptr = index.tbm_indptr.long()
+        start = indptr[flat]
+        j = torch.arange(width, device=dev)
+        live = j < (indptr[flat + 1] - start)[:, None]
+        pos = torch.where(live, start[:, None] + j, 0)
+        cols = index.tbm_cols[pos].long() - d0
+        cols = torch.where(live & (cols >= 0) & (cols < d1 - d0), cols,
+                           d1 - d0)
+        rows[torch.arange(n, device=dev)[:, None], cols] = \
+            index.tbm_vals_q[pos]
+    return rows[:, :-1].reshape(*ids.shape, d1 - d0)
+
+
+def _fine_bounds(queries: SparseBatch, index: TiledIndex,
+                 seeds: bool = False):
+    """``(ub [B, n_db] f32, term_seeds [B, K] or None)`` from the fine
+    bounds (either format): each doc block's bound ``sum_t |q_t| *
+    scale_t * bound_q[t, db]`` summed over the query's terms in their
+    order, each term's product added with one rounding, and with
+    ``seeds`` each term's peak-contribution block (the first argmax over
+    doc blocks of ``|q_t| * scale_t * bound_q[t, :]``).  A range of doc
+    blocks and a group of terms at a time (``_BOUND_ROW_ELEMS``): the
+    rows never materialize whole, and every entry has the same bits
+    whatever the ranges and the device.  A step is one float64
+    ``addcmul_`` into the f32 sum where every query's weights keep it
+    exact (``_EXACT_SUM_RATIO``; one host read a call), else the FMA
+    emulated (:func:`_fma_nonneg`): the same bits.  That order is the one
+    JAX's ``einsum`` takes on the CPU (a GEMM accumulating with FMAs); a
+    one-shot ``torch.einsum`` gives it on the CPU too, but cuBLAS's picks
+    its kernel by shape and differs by up to 10 ulps in some
+    (``scripts/kernel_turns.py``'s ``bounds`` block)."""
     q_ids = queries.term_ids
     scale = index.term_block_scale
     ids = q_ids.clamp(0, scale.shape[0] - 1).long()
-    if index.term_block_max_q is not None:
-        rows = index.term_block_max_q[ids].float()
-    else:
-        rows = _csr_bound_rows(q_ids, index)
     w = torch.where(q_ids >= 0, queries.values.abs(), 0.0) * scale[ids]
-    return rows, w
+    w64 = w.double()
+    smallest = torch.where(w > 0, w64, torch.inf).amin(dim=1)
+    exact_sum = bool(  # lint: disable=host-sync -- one read a call picks the one-pass sum (every query's weights keep it exact) or the emulated FMA
+        (w64.sum(dim=1) < _EXACT_SUM_RATIO * smallest).all())
+    b, kq = ids.shape
+    n_db = index.num_doc_blocks
+    dev = w.device
+    peak = term_seeds = None
+    if seeds:
+        peak = torch.full((b, kq), NEG_INF, dtype=torch.float32, device=dev)
+        term_seeds = torch.zeros((b, kq), dtype=torch.int64, device=dev)
+    parts = []
+    step = max(1, _BOUND_ROW_ELEMS // max(b, 1))
+    for d0 in range(0, n_db, step):
+        d1 = min(d0 + step, n_db)
+        acc = torch.zeros((b, d1 - d0), dtype=torch.float32, device=dev)
+        group = max(1, _BOUND_ROW_ELEMS // max(b * (d1 - d0), 1))
+        for t0 in range(0, kq, group):
+            t1 = min(t0 + group, kq)
+            rows = _bound_rows_at(index, ids[:, t0:t1], d0, d1)
+            for t in range(t0, t1):
+                if exact_sum:
+                    acc.addcmul_(rows[:, t - t0], w64[:, t:t + 1])
+                else:
+                    acc = _fma_nonneg(rows[:, t - t0], w[:, t:t + 1], acc)
+            if seeds:
+                # Strictly above: an earlier range keeps a tie (argmax's
+                # first maximum).
+                m, arg = (rows * w[:, t0:t1, None]).max(dim=2)
+                better = m > peak[:, t0:t1]
+                peak[:, t0:t1] = torch.where(better, m, peak[:, t0:t1])
+                term_seeds[:, t0:t1] = torch.where(
+                    better, arg + d0, term_seeds[:, t0:t1])
+        parts.append(acc)
+    ub = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+    return ub, term_seeds
 
 
 def block_upper_bounds(queries: SparseBatch, index: TiledIndex,
@@ -268,11 +355,11 @@ def block_upper_bounds(queries: SparseBatch, index: TiledIndex,
     """[B, num_doc_blocks] per-query score upper bound of every doc block
     (the pruned engines' ``bounds`` seam): ``sum_t |q_t| * bound[t, db]``
     over the fine per-(term, doc_block) maxima where the index stores them
-    (either format), else the tile-level ``query_block_mass @
-    block_max``.  Both dominate every true doc score in the block."""
+    (either format; :func:`_fine_bounds`), else the tile-level
+    ``query_block_mass @ block_max``.  Both dominate every true doc score
+    in the block."""
     if index.has_fine_bounds:
-        rows, w = _fine_bound_rows(queries, index)
-        return torch.einsum("bkd,bk->bd", rows, w)
+        return _fine_bounds(queries, index)[0]
     if qw is None:
         qw = _pad_queries_to_term_blocks(queries, index)
     return query_block_mass(qw.float(), index.term_block) @ index.block_max
@@ -347,8 +434,10 @@ def _pruned_passes(qw, index: TiledIndex, ub, term_seeds, alive_doc, *,
     """Two-pass pruned scoring core -> ``(masked scores [B, num_docs],
     seeded_any, scored_any, chunks_scored_mask)``; pruned and deleted docs
     are ``-inf``.  Deleted docs never seed tau.  The passes score disjoint
-    blocks, so pass 2 is merged into pass 1 by block: every kept block
-    carries exactly ``score_tiled``'s scores."""
+    blocks, so pass 2 is merged into pass 1's buffer by block, in place:
+    every kept block carries exactly ``score_tiled``'s scores, and two
+    [B, n_pad] buffers are the most that live at once.  The result is a
+    view of pass 1's buffer."""
     b, n_db = ub.shape
     n_docs, d_blk = index.num_docs, index.doc_block
     # Pass 1 — seed: each query's top-m blocks by bound (lax.top_k's tie
@@ -359,22 +448,21 @@ def _pruned_passes(qw, index: TiledIndex, ub, term_seeds, alive_doc, *,
     if term_seeds is not None:
         seeded.scatter_(1, term_seeds, True)
     seeded_any = seeded.any(dim=0)
-    scores1 = _score_blocks(qw, index, seeded_any)
-    masked1 = torch.where(_doc_mask(seeded_any, d_blk, n_docs, alive_doc),
-                          scores1[:, :n_docs], NEG_INF)
-    tau = topk_mod.partial_topk_threshold(masked1, k_eff).float()
-    del masked1
+    out = _score_blocks(qw, index, seeded_any)[:, :n_docs]
+    # Only seeded, live docs keep their scores (which are the output's
+    # there): the k-th best of them is tau.
+    out.masked_fill_(~_doc_mask(seeded_any, d_blk, n_docs, alive_doc),
+                     NEG_INF)
+    tau = topk_mod.partial_topk_threshold(out, k_eff).float()
     # Pass 2 — every unseeded block some query's bound can still beat tau
     # with (>=, and the margin keeps near-ties and the scores' roundings).
-    margin = _prune_margin(tau, scores1.dtype)
+    margin = _prune_margin(tau, out.dtype)
     needed_any = (ub >= (tau - margin)[:, None]).any(dim=0) & ~seeded_any
     scores2 = _score_blocks(qw, index, needed_any)
-    scores = torch.where(seeded_any.repeat_interleave(d_blk)[None, :],
-                         scores1, scores2)
-    del scores1, scores2
+    torch.where(_doc_mask(needed_any, d_blk, n_docs, alive_doc),
+                scores2[:, :n_docs], out, out=out)
+    del scores2
     scored_any = seeded_any | needed_any
-    out = torch.where(_doc_mask(scored_any, d_blk, n_docs, alive_doc),
-                      scores[:, :n_docs], NEG_INF)
     return out, seeded_any, scored_any, \
         scored_any[index.chunk_doc_block.long()]
 
@@ -399,11 +487,8 @@ def score_tiled_pruned(queries: SparseBatch, index: TiledIndex, k: int,
     m = prune_seed_count(index.num_docs, index.doc_block, k, seed_blocks)
     term_seeds = None
     if index.has_fine_bounds:
-        # One rows build feeds the bound and the seed pick.
-        rows, w = _fine_bound_rows(queries, index)
-        ub = torch.einsum("bkd,bk->bd", rows, w)
-        term_seeds = (w[..., None] * rows).argmax(dim=-1)
-        del rows
+        # One pass over the bound rows feeds the bound and the seed pick.
+        ub, term_seeds = _fine_bounds(queries, index, seeds=True)
     else:
         ub = block_upper_bounds(queries, index, qw=qw)
     out, seeded_any, scored_any, chunks_mask = _pruned_passes(
@@ -699,3 +784,37 @@ def score_tiled_bmp_grouped(queries: SparseBatch, index: TiledIndex, k: int,
     group (:func:`repro.core.scoring.score_tiled_bmp_grouped`); the
     keywords and returns of :func:`grouped_sweeps`."""
     return grouped_sweeps(queries, index, k, stacked=False, **kw)
+
+
+def score_with_engine(engine: str, queries: SparseBatch, docs: SparseBatch,
+                      index=None, k: int = 10,
+                      theta: float = 1.0) -> torch.Tensor:
+    """Deprecated string dispatcher — use :mod:`repro_torch.core.registry`
+    (``get_engine(name).score``) or :class:`repro_torch.core.session.
+    Retriever` (:func:`repro.core.scoring.score_with_engine`).
+
+    Routed through the registry on the batches' device: ``k`` only affects
+    the pruned engines, whose output masks documents provably outside the
+    top-``k`` to ``-inf``, and ``theta`` only an engine that honours it.
+    The two-pass-capable pruned engine seeds and sweeps; every other
+    pruned engine is a BMP traversal.  ``index`` is built from ``docs``
+    unless it is of the engine's index type.
+    """
+    warnings.warn(
+        "score_with_engine is deprecated; dispatch through "
+        "repro_torch.core.registry.get_engine or "
+        "repro_torch.core.session.Retriever",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.core import registry
+    from repro_torch.core.engine import RetrievalConfig
+
+    spec = registry.get_engine(engine)  # unknown names list the registry
+    cfg = RetrievalConfig(
+        engine=engine, k=k,
+        theta=theta if spec.supports_theta else 1.0,
+        traversal="two-pass" if spec.supports_two_pass else "bmp",
+    )
+    if spec.index_type is None or not isinstance(index, spec.index_type):
+        index = spec.build_index(docs, cfg)
+    return spec.score(queries, index, cfg, k=k)

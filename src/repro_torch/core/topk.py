@@ -102,9 +102,17 @@ def partial_topk_threshold(scores: torch.Tensor, k: int) -> torch.Tensor:
     """Per-row k-th best score over a subset of the collection (others
     masked to ``-inf``): at least k documents score ``>=`` it, so a
     document provably below it cannot enter the exact top-k
-    (:func:`repro.core.topk.partial_topk_threshold`)."""
-    k = min(k, scores.shape[-1])
-    return torch.topk(scores, k, dim=-1).values[..., -1]
+    (:func:`repro.core.topk.partial_topk_threshold`).  A few rows at a
+    time (``_TIE_ELEMS``), so that ``torch.topk``'s contiguous copy of
+    strided rows stays that size."""
+    *lead, n = scores.shape
+    k = min(k, n)
+    x = scores.reshape(-1, n)
+    out = torch.empty(x.shape[0], dtype=scores.dtype, device=scores.device)
+    step = max(1, _TIE_ELEMS // max(n, 1))
+    for s in range(0, x.shape[0], step):
+        out[s:s + step] = torch.topk(x[s:s + step], k, dim=-1).values[:, -1]
+    return out.reshape(lead)
 
 
 def update_topk_heap(heap_vals: torch.Tensor, new_vals: torch.Tensor,

@@ -24,8 +24,11 @@ between its routes (the lane vectors a table allows) and, for unweighted
 bags, to the sequential f32 sum over l.  The comparison engines (no
 kernel of their own): ``segment`` bit for bit its CPU run, ``bcoo``
 (cuSPARSE) within TOL of its CPU run, both within 1e-5 of float64; the
-``FlatIndex`` built on the card equal to the CPU build, and the
-``TiledIndex`` built in ranges of doc blocks equal to the one-shot build.
+``FlatIndex`` built on the card equal to the CPU build, the
+``TiledIndex`` built in ranges of doc blocks equal to the one-shot build,
+``build_sharded_tiled`` each shard's one-shot build with its memory above
+the corpus held to the index plus one range's scratch, and the two-pass
+engine with its bounds in ranges bit for bit the one-range call.
 The MoE layer (plain PyTorch) on the card within TOL of its CPU run, with
 the same expert ids and drops; the data-parallel step under an NCCL group
 of one bit for bit ``make_train_step``.  The bf16 routes of ``scatter_score``,
@@ -1174,6 +1177,99 @@ def test_ranged_tiled_build_on_the_card_equals_the_one_shot_build(
                        bounds_whole)
     for a, b in zip(ttopk.topk_two_stage(scores, 100, block=256),
                     top_whole):
+        assert torch.equal(a, b)
+
+
+def test_bounded_sharded_tiled_build_on_the_card_equals_each_shards_build(
+        cuda, monkeypatch):
+    """``build_sharded_tiled`` at about 1M docs and S = 4 (V = 30,522, a
+    short last shard), its ranges cut to 2^22 corpus slots and 2^22
+    fine-bound entries: the device memory it allocates above the corpus
+    stays within the index's bytes plus one range's scratch (a dozen
+    int64 arrays of 2^22 postings and a few f32 copies of a 2^22-entry
+    bound slab: 512 MiB), and every shard's row equals the one-shot
+    ``build_tiled_index`` of that shard's ``shard_docs`` copy, its pad
+    chunks and bounds as the sharded layout pads them."""
+    from repro_torch.core import distributed as tdist
+
+    c = make_msmarco_like(1_000_003, 4, seed=53, device=cuda)
+    monkeypatch.setattr(tidx, "_TILED_ROW_ELEMS", 1 << 22)
+    monkeypatch.setattr(tidx, "_BOUND_ELEMS", 1 << 22)
+    torch.cuda.synchronize(cuda)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    idx = tdist.build_sharded_tiled(c.docs, 4)
+    torch.cuda.synchronize(cuda)
+    above = torch.cuda.max_memory_allocated(cuda) - held
+    index_bytes = sum(t.numel() * t.element_size()
+                      for t in vars(idx).values() if torch.is_tensor(t))
+    assert above <= index_bytes + (512 << 20), (above, index_bytes)
+    geo = dict(term_block=512, doc_block=64, chunk_size=128)
+    for s in range(4):
+        one = tidx.build_tiled_index(tidx.shard_docs(c.docs, 4, s)[0],
+                                     store_term_block_max=True, **geo)
+        n = one.num_chunks
+        for name in ("local_term", "local_doc", "value", "chunk_term_block",
+                     "chunk_doc_block"):
+            got = getattr(idx, name)[s]
+            assert torch.equal(got[:n], getattr(one, name)), name
+        assert not (idx.local_doc[s, n:] >= 0).any()
+        for name in ("term_block_max_q", "term_block_scale",
+                     "block_chunk_start", "block_chunk_count"):
+            assert torch.equal(getattr(idx, name)[s], getattr(one, name)), \
+                name
+        del one
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+def test_two_pass_with_bounds_in_ranges_on_the_card_gives_one_range_bits(
+        cuda, fmt, monkeypatch):
+    """The two-pass engine on the card with its bound rows built one and
+    seven doc blocks at a time (``_BOUND_ROW_ELEMS``): the bounds and the
+    term seeds, the scores (``-inf`` included), ``PruneStats`` and the
+    top-k bit for bit the one-range call's, the bounds and seeds bit for
+    bit the CPU's and those of the emulated FMA (``_EXACT_SUM_RATIO``
+    0), and the top-k ``score_tiled``'s, over a reordered topical corpus
+    of 50K docs with deleted docs."""
+    from repro_torch.core import topk as ttopk
+
+    c = make_topical_corpus(50_000, 4, vocab_size=1500, num_topics=6,
+                            topic_vocab=150, query_terms=8, seed=5,
+                            device=cuda)
+    docs, _ = tidx.reorder_docs(c.docs, method="df-signature")
+    kw = dict(term_block=256, doc_block=32, chunk_size=128,
+              store_term_block_max=True, bounds_format=fmt)
+    t = tidx.build_tiled_index(docs, **kw)
+    q = c.queries
+    deleted = torch.zeros(50_000, dtype=torch.bool, device=cuda)
+    deleted[::997] = True
+    one = scoring.score_tiled_pruned(q, t, 10, return_stats=True,
+                                     deleted_mask=deleted)
+    one_bounds = scoring._fine_bounds(q, t, seeds=True)
+    one_top = ttopk.topk(one[0], 10)
+    st = one[1]  # some blocks seed, some are swept, the rest skipped
+    assert 0 < st.blocks_seeded < st.blocks_scored < st.num_doc_blocks
+    for blocks in (1, 7):
+        monkeypatch.setattr(scoring, "_BOUND_ROW_ELEMS", blocks * q.batch)
+        for a, b in zip(scoring._fine_bounds(q, t, seeds=True), one_bounds):
+            assert torch.equal(a, b)
+        out, st = scoring.score_tiled_pruned(q, t, 10, return_stats=True,
+                                             deleted_mask=deleted)
+        assert torch.equal(out, one[0]) and st == one[1]
+        for a, b in zip(ttopk.topk(out, 10), one_top):
+            assert torch.equal(a, b)
+    cpu = scoring._fine_bounds(q.to("cpu"), tidx.build_tiled_index(
+        docs.to("cpu"), **kw), seeds=True)
+    for a, b in zip(one_bounds, cpu):
+        assert torch.equal(a.cpu(), b)
+    # The emulated FMA, forced, gives the one-pass sum's bits.
+    monkeypatch.setattr(scoring, "_EXACT_SUM_RATIO", 0.0)
+    for a, b in zip(scoring._fine_bounds(q, t, seeds=True), one_bounds):
+        assert torch.equal(a, b)
+    exact = scoring.score_tiled(q, t).masked_fill(deleted[None, :],
+                                                  float("-inf"))
+    for a, b in zip(one_top, ttopk.topk(exact, 10)):
         assert torch.equal(a, b)
 
 

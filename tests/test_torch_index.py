@@ -265,3 +265,161 @@ def test_ell_index_from_numpy_round_trips():
     np.testing.assert_array_equal(t.terms.numpy(), np.asarray(j.terms))
     np.testing.assert_array_equal(t.values.numpy(), np.asarray(j.values))
     assert (t.num_docs, t.vocab_size) == (j.num_docs, j.vocab_size)
+
+
+# -- the bounded sharded build and the fine bounds by ranges ----------------
+
+
+def _one_shot_fine_bounds(tbm: torch.Tensor, bounds_format: str) -> dict:
+    """The fine bounds of a whole [V, n_db] f32 maxima matrix in one step,
+    as the build computed them before it quantized a range of doc blocks
+    at a time: the reference the ranged build is held to."""
+    v = tbm.shape[0]
+    row_max = tbm.max(dim=1).values
+    scale = torch.where(row_max > 0, row_max, 1.0) * (1.0 + 1e-6)
+    scale = scale / torch.full_like(scale, 255.0)
+    q = torch.minimum(torch.floor(tbm / scale[:, None]) + 1.0,
+                      torch.full_like(tbm, 255.0))
+    dense_q = torch.where(tbm > 0, q, 0.0).to(torch.uint8)
+    out = {"term_block_scale": torch.nextafter(
+        scale, torch.full_like(scale, float("inf")))}
+    if bounds_format == "csr":
+        rows_nz, cols_nz = torch.nonzero(dense_q, as_tuple=True)
+        indptr = torch.zeros(v + 1, dtype=torch.int64)
+        indptr[1:] = torch.cumsum(torch.bincount(rows_nz, minlength=v), 0)
+        out.update(tbm_indptr=indptr.to(torch.int32),
+                   tbm_cols=cols_nz.to(torch.int32),
+                   tbm_vals_q=dense_q[rows_nz, cols_nz])
+    else:
+        out["term_block_max_q"] = dense_q
+    return out
+
+
+def _tbm(ids, vals, vocab, doc_block):
+    """f32 [V, n_db]: each (term, doc block)'s max |value|."""
+    n_db = -(-ids.shape[0] // doc_block)
+    out = np.zeros((vocab, n_db), np.float32)
+    r, s = np.nonzero(ids >= 0)
+    np.maximum.at(out, (ids[r, s], r // doc_block), np.abs(vals[r, s]))
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_fine_bounds_by_ranges_match_one_shot_and_jax(fmt, blocks,
+                                                      monkeypatch):
+    """The fine bounds quantized a range of doc blocks at a time
+    (``_BOUND_ELEMS`` lowered to one and to three blocks a range) equal
+    the one-shot quantization of the whole [V, n_db] maxima and JAX's, in
+    both formats: a term with no postings (scale 1.0), an all-zero column
+    (a posting-free doc block) and a ragged last block included."""
+    vocab, db = 700, 32
+    ids, vals, _ = _corpus(333, vocab, seed=21, empty_blocks=((64, 96),),
+                           holes=True)
+    ids[ids == 5] = -1  # term 5 has no postings
+    vals[ids < 0] = 0.0
+    jb, tbatch = _both(ids, vals, vocab)
+    kw = dict(term_block=128, doc_block=db, chunk_size=64,
+              store_term_block_max=True, bounds_format=fmt)
+    j = jidx.build_tiled_index(jb, **kw)
+    monkeypatch.setattr(tidx, "_BOUND_ELEMS", blocks * vocab)
+    n_db = -(-333 // db)
+    assert len(tidx._doc_block_ranges(tbatch, db, n_db, vocab)) == \
+        -(-n_db // blocks)
+    t = tidx.build_tiled_index(tbatch, **kw)
+    _assert_tiled_equal(j, t)
+    tbm = _tbm(ids, vals, vocab, db)
+    assert not tbm[5].any() and not tbm[:, 2].any()
+    want = _one_shot_fine_bounds(tbm, fmt)
+    assert t.term_block_scale[5] == torch.nextafter(
+        torch.tensor(1.0 * (1.0 + 1e-6)) / 255.0, torch.tensor(np.inf))
+    for name, a in want.items():
+        b = getattr(t, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _stacked_one_shot(tbatch, shards, geo):
+    """Today's sharded layout from each ``shard_docs`` copy's one-shot
+    build, padded at the tail and stacked: the reference of the bounded
+    sharded build."""
+    built = [tidx.build_tiled_index(tidx.shard_docs(tbatch, shards, s)[0],
+                                    store_term_block_max=True, **geo)
+             for s in range(shards)]
+    c_n = max(b.num_chunks for b in built)
+    fills = dict(local_term=geo["chunk_size"], local_doc=-1, value=0.0,
+                 chunk_term_block=0, chunk_doc_block=0)
+    out = {}
+    for name, fill in fills.items():
+        out[name] = torch.stack([torch.cat([
+            getattr(b, name), getattr(b, name).new_full(
+                (c_n - b.num_chunks,) + getattr(b, name).shape[1:], fill)])
+            for b in built])
+    for name in ("term_block_scale", "block_chunk_start",
+                 "block_chunk_count", "term_block_max_q", "tbm_indptr"):
+        if getattr(built[0], name) is not None:
+            out[name] = torch.stack([getattr(b, name) for b in built])
+    if geo["bounds_format"] == "csr":
+        nnz = max(max(b.tbm_cols.numel() for b in built), 1)
+        for name in ("tbm_cols", "tbm_vals_q"):
+            out[name] = torch.stack([torch.cat([getattr(b, name), getattr(
+                b, name).new_zeros(nnz - getattr(b, name).numel())])
+                for b in built])
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("shards", [1, 2, 3])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_bounded_build_sharded_tiled_matches_jax(fmt, shards, blocks,
+                                                 monkeypatch):
+    """``build_sharded_tiled`` counts every shard, allocates the stacked
+    arrays once and fills each shard's row from a view of the corpus: at
+    S = 1, 2 and 3 (302 docs: a ragged last shard, and at S = 3 one with
+    padding rows), with ranges of one and three doc blocks forced through
+    ``_BOUND_ELEMS``, every stacked field equals JAX's
+    ``build_sharded_tiled`` and the padded stack of each shard's one-shot
+    build."""
+    from repro.core import distributed as jdist
+    from repro_torch.core import distributed as tdist
+
+    vocab = 900
+    ids, vals, _ = _corpus(302, vocab, seed=8, empty_blocks=((64, 96),),
+                           holes=True)
+    jb, tbatch = _both(ids, vals, vocab)
+    geo = dict(term_block=128, doc_block=32, chunk_size=64,
+               bounds_format=fmt)
+    j = jdist.build_sharded_tiled(jb, shards, **geo)
+    want = _stacked_one_shot(tbatch, shards, geo)
+    monkeypatch.setattr(tidx, "_BOUND_ELEMS", blocks * vocab)
+    t = tdist.build_sharded_tiled(tbatch, shards, **geo)
+    for f in tdist.TILED_FIELDS:
+        a, b = getattr(j, f), getattr(t, f)
+        assert (a is None) == (b is None) == (f not in want), f
+        if a is not None:
+            assert b.dtype == want[f].dtype, f
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=f)
+            assert torch.equal(b, want[f]), f
+    for f in tdist.TILED_SCALARS + ("num_shards", "num_doc_blocks"):
+        assert getattr(t, f) == getattr(j, f), f
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3])
+def test_build_sharded_ell_block_max_matches_jax(shards, monkeypatch):
+    """``build_sharded_ell(store_block_max=True)`` takes each shard's
+    per-tile maxima from row views a few rows at a time (``_ELL_ROW_ELEMS``
+    lowered to 7 rows a step): every field JAX's."""
+    from repro.core import distributed as jdist
+    from repro_torch.core import distributed as tdist
+
+    ids, vals, _ = _corpus(302, 900, seed=12, empty_blocks=((64, 96),),
+                           holes=True)
+    jb, tbatch = _both(ids, vals, 900)
+    monkeypatch.setattr(tidx, "_ELL_ROW_ELEMS", 7 * tbatch.max_terms)
+    kw = dict(store_block_max=True, term_block=128, doc_block=32)
+    j = jdist.build_sharded_ell(jb, shards, **kw)
+    t = tdist.build_sharded_ell(tbatch, shards, **kw)
+    for f in ("terms", "values", "block_max"):
+        a, b = np.asarray(getattr(j, f)), getattr(t, f).numpy()
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(b, a, err_msg=f)

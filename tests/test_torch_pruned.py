@@ -28,6 +28,7 @@ from repro_torch.core import engine as teng
 from repro_torch.core import index as tidx
 from repro_torch.core import scoring as tscoring
 from repro_torch.core import topk as ttopk
+from repro_torch.core.sparse import SparseBatch
 from repro_torch.data import synthetic as tsyn
 
 GEOM = dict(term_block=256, doc_block=16, chunk_size=32,
@@ -202,3 +203,135 @@ def test_evaluate_reports_recall_vs_exact_for_theta(corpus):
     assert set(got) == set(want) and "recall_vs_exact@5" in got
     for key in want:
         assert got[key] == pytest.approx(want[key])
+
+
+@pytest.mark.parametrize("fmt", ["dense", "csr"])
+@pytest.mark.parametrize("deleted", [False, True])
+def test_two_pass_with_bounds_in_ranges_matches_one_shot_and_jax(
+        fmt, deleted, monkeypatch):
+    """The two-pass engine with its bound rows built a few doc blocks at a
+    time (``_BOUND_ROW_ELEMS`` lowered to one and to three blocks a range
+    at B = 6; the three-block ranges through the emulated FMA, forced by
+    ``_EXACT_SUM_RATIO`` 0): the bounds and the term seeds bit for bit the one-shot
+    ``einsum`` and ``argmax`` over the whole [B, K, n_db] rows and JAX's
+    bounds; the scores (their ``-inf`` too) and ``PruneStats`` bit for bit
+    the one-range call; and against JAX's ``score_tiled_pruned``: the same
+    ``-inf`` positions, scores within rtol 1e-5 / atol 1e-6, equal stats,
+    the same top-k (tie-aware) and tau within the same tolerance (the f32
+    scores sum in another order); with and without deleted docs."""
+    # Short queries over a small-vocabulary topical corpus: some blocks
+    # seed tau, some are swept in pass 2, the rest are skipped.
+    c = jsyn.make_topical_corpus(2001, 6, vocab_size=1500, num_topics=6,
+                                 topic_vocab=150, seed=5, query_terms=8)
+    k = 8
+    jdocs, _ = jidx.reorder_docs(c.docs, method="df-signature")
+    oracle = jscoring.score_dense_f64(c.queries, jdocs)
+    kw = dict(term_block=256, doc_block=16, chunk_size=32,
+              store_term_block_max=True)
+    j = jidx.build_tiled_index(jdocs, bounds_format=fmt, **kw)
+    t = tidx.build_tiled_index(port_batch(jdocs), bounds_format=fmt, **kw)
+    dense = tidx.build_tiled_index(port_batch(jdocs), **kw)
+    q = port_batch(c.queries)
+    mask = None
+    if deleted:
+        mask = np.zeros(jdocs.batch, bool)
+        mask[[0, 3, 17, 500, 1000, 2000]] = True
+
+    ids = q.term_ids.clamp(min=0).long()
+    rows = dense.term_block_max_q[ids].float()
+    w = torch.where(q.term_ids >= 0, q.values.abs(), 0.0) * \
+        dense.term_block_scale[ids]
+    one_ub = torch.einsum("bkd,bk->bd", rows, w)
+    one_seeds = (w[..., None] * rows).argmax(dim=-1)
+    np.testing.assert_array_equal(
+        one_ub.numpy(), np.asarray(jscoring.block_upper_bounds(c.queries, j)))
+    one = tscoring.score_tiled_pruned(q, t, k, return_stats=True,
+                                      deleted_mask=mask)
+    st = one[1]
+    assert 0 < st.blocks_seeded < st.blocks_scored < st.num_doc_blocks
+    for blocks, ratio in ((1, tscoring._EXACT_SUM_RATIO), (3, 0.0)):
+        # ratio 0: the emulated FMA, forced
+        monkeypatch.setattr(tscoring, "_BOUND_ROW_ELEMS", blocks * q.batch)
+        monkeypatch.setattr(tscoring, "_EXACT_SUM_RATIO", ratio)
+        ub, seeds = tscoring._fine_bounds(q, t, seeds=True)
+        assert torch.equal(ub, one_ub) and torch.equal(seeds, one_seeds)
+        assert torch.equal(tscoring.block_upper_bounds(q, t), one_ub)
+        out, st = tscoring.score_tiled_pruned(q, t, k, return_stats=True,
+                                              deleted_mask=mask)
+        assert torch.equal(out, one[0]) and st == one[1]
+
+    jout, jst = jscoring.score_tiled_pruned(c.queries, j, k,
+                                            return_stats=True,
+                                            deleted_mask=mask)
+    assert _stats(one[1]) == _stats(jst)
+    got, want = one[0].numpy(), np.asarray(jout)
+    skipped = np.isneginf(want)
+    np.testing.assert_array_equal(np.isneginf(got), skipped)
+    np.testing.assert_allclose(got[~skipped], want[~skipped], rtol=RTOL,
+                               atol=ATOL)
+    pv, pi = ttopk.topk(one[0], k)
+    rv, ri = jtopk.topk_two_stage(jnp.asarray(want), k)
+    pv, pi, rv, ri = (np.asarray(x) for x in (pv, pi, rv, ri))
+    scores = np.asarray(oracle)
+    if deleted:
+        scores = np.where(mask[None, :], -np.inf, scores)
+    assert_same_topk((pv, np.where(np.isfinite(pv), pi, -1)),
+                     (rv, np.where(np.isfinite(rv), ri, -1)), scores)
+    np.testing.assert_allclose(pv[:, -1], rv[:, -1], rtol=RTOL,
+                               atol=ATOL)  # tau
+
+
+def test_fine_bounds_sum_in_one_pass_only_where_exact(monkeypatch):
+    """A query whose weights span more than ``_EXACT_SUM_RATIO`` takes the
+    emulated FMA: bounds 1 (weight 1) and 205 (weight 5,237,765 x 2^-54)
+    in one doc block sum to 1 + 2^-23, the FMA's rounding of 1 + 2^-24 +
+    2^-54, where one float64 sum rounded to f32 gives 1 (the one-pass
+    step, forced, shows it); a query of close weights sums in one pass,
+    the emulated FMA's bits."""
+    def index(bound, scale):
+        z = torch.zeros((1, 1), dtype=torch.int32)
+        return tidx.TiledIndex(
+            local_term=z, local_doc=z, value=torch.zeros((1, 1)),
+            chunk_term_block=z[0], chunk_doc_block=z[0], chunk_first=None,
+            tile_max=None, block_max=None, num_docs=16, vocab_size=2,
+            term_block=2, doc_block=16, chunk_size=1,
+            term_block_max_q=torch.tensor([[1], [bound]], dtype=torch.uint8),
+            term_block_scale=torch.tensor([1.0, scale]))
+
+    q = SparseBatch(torch.tensor([[0, 1]], dtype=torch.int32),
+                    torch.tensor([[1.0, 1.0]]), 2)
+    far, near = index(205, 5237765 * 2.0 ** -54), index(205, 0.3)
+    assert tscoring._fine_bounds(q, far)[0].item() == 1 + 2.0 ** -23
+    assert tscoring._fine_bounds(q, near)[0].item() == np.float32(
+        1.0 + 205 * np.float64(np.float32(0.3)))
+    monkeypatch.setattr(tscoring, "_EXACT_SUM_RATIO", float("inf"))
+    assert tscoring._fine_bounds(q, far)[0].item() == 1.0
+
+
+def test_fma_nonneg_rounds_once():
+    """``scoring._fma_nonneg`` is ``a * b + c`` rounded once to f32, held
+    to exact rational arithmetic on random nonnegative f32 triples over a
+    wide exponent range and on a double-rounding case: 205 x (5,237,765 x
+    2^-54) + 1 = 1 + 2^-24 + 2^-54, just above the midpoint between 1 and
+    1 + 2^-23, which a float64 sum rounds to the midpoint and then to 1."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(3)
+    n = 4000
+    a = rng.integers(0, 256, n).astype(np.float32)
+    b = (rng.random(n) * 2.0 ** rng.integers(-40, 10, n)).astype(np.float32)
+    c = (rng.random(n) * 2.0 ** rng.integers(-40, 20, n)).astype(np.float32)
+    a[0], b[0], c[0] = 205.0, np.float32(5237765 * 2.0 ** -54), 1.0
+    got = tscoring._fma_nonneg(torch.from_numpy(a), torch.from_numpy(b),
+                               torch.from_numpy(c)).numpy()
+    assert got[0] == np.float32(1 + 2.0 ** -23)
+    assert np.float32(np.float64(c[0]) + np.float64(a[0]) * b[0]) == 1.0
+    for x, y, z, g in zip(a.tolist(), b.tolist(), c.tolist(), got.tolist()):
+        exact = Fraction(x) * Fraction(y) + Fraction(z)
+        lo = np.float32(float(exact))  # the nearest f64, then f32
+        cands = {lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(0))}
+        best = min(cands, key=lambda f: (abs(Fraction(float(f)) - exact),
+                                         int(np.float32(f).view(np.int32))
+                                         & 1))
+        assert g == best, (x, y, z, g, best)

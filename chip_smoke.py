@@ -256,45 +256,71 @@ Phases (each raises on failure; the script then exits non-zero):
    corpus (on the same queries); the index cast once (``distributed.cast_bytes``); each
    kernel's bf16 route launched.  9b: ``ell`` and ``tiled-bmp-fused`` under
    an NCCL process group of one (``tcp://127.0.0.1``) give 9a's bits.
-   9c: ``repro_torch.launch.serve.main`` at ``--docs 1000000 --batch 500
-   --vocab 30522 --k 1000`` for ``--engine ell``, ``--engine
-   tiled-bmp-fused`` and ``--sched --max-batch 128 --batch 256`` (a cut
-   of depth: 256 of the 500 requests, two micro-batches after the one of
-   the warm-up): ms a batch, us a query, and the full batch's overlap
-   with the float64 top-k (``ell`` 1.0000 as printed, the others at least
-   0.999).  A ``{"sharded":
-   {...}}`` line holds the numbers.
 9d. serve_8m (``src/repro_torch/configs/gpusparse.py:58``: 8,841,823
    docs, B = 500, k = 1000) on one card, with phase 9's data freed: the
-   corpus made on the card and the float64 scores of 16 sampled queries
-   computed from it; then the paper's main path, ``RetrievalEngine(docs,
-   RetrievalConfig(engine=...)).search`` for ``"tiled"``, ``"ell"`` and
-   ``"tiled-pruned"`` with ``traversal="two-pass"`` (and
-   ``query_chunk=250``, the config's score-buffer bound), one at a time, each
-   freed before the next (both counters zeroed before the build and read
-   after the searches; the engine's kernel must be launched): build s,
-   index bytes and padding overhead (the paper's Table 6), a warm-up and 5
-   searches timed with CUDA events (median), ms a search, us a query and
-   QPS beside the paper's 1.27 ms a query and 787 QPS (a yardstick, not a
-   gate), exact against float64 as phase 3, peak device memory; for the
-   exact engines the kernel alone on the search's inputs beside its bound
-   and HBM share and the top-k alone, for the two-pass engine each query
-   chunk's ``PruneStats`` and its ``scatter_score`` calls timed inside a
-   search beside their bound; then the sharded ``tiled`` step over
-   ``build_sharded_tiled(docs, 1)`` (doc_block 64, chunk 128: its build
-   s, index bytes and the build's peak above the corpus) in f32 and bf16,
-   each dtype's ``scatter_score`` launches counted from its warm-up to its
-   last timed call (more than 0), timed the same way, ``scatter_score``
-   alone beside its bound (that dtype's bytes) and HBM share, the f32
-   step exact against float64, the bf16 step's overlap with float64, peak
-   device memory; then the one-shard ELL index, the corpus freed, and the
+   corpus made on the card, the float64 scores of 16 sampled queries
+   computed from it and the float64 top-100 of its first 64 queries
+   (``scoring.topk_f64``, a range of docs at a time); then the paper's
+   main path, ``RetrievalEngine(docs, RetrievalConfig(engine=...)).search``
+   for ``"tiled"``, ``"ell"`` and ``"tiled-pruned"`` with
+   ``traversal="two-pass"`` (and ``query_chunk=250``, the config's
+   score-buffer bound), one at a time, each freed before the next (both
+   counters zeroed before the build and read after the searches; the
+   engine's kernel must be launched): build s, index bytes and padding
+   overhead (the paper's Table 6), a warm-up and 5 searches timed with
+   CUDA events (median), ms a search, us a query and QPS beside the
+   paper's 1.27 ms a query and 787 QPS (a yardstick, not a gate), exact
+   against float64 as phase 3, peak device memory; for the exact engines
+   the kernel alone on the search's inputs beside its bound and HBM share
+   and the top-k alone, for the two-pass engine each query chunk's
+   ``PruneStats`` and its ``scatter_score`` calls timed inside a search
+   beside their bound.  Then the four BMP traversals at Table 11's
+   regime (B = 64, k = 100: at B = 500 / k = 1000 this corpus prunes
+   nothing), built as the quickstart builds them at the engine defaults
+   (doc_block 256, chunk 512), one at a time with the corpus held:
+   ``tiled-pruned`` (BMP sweep), ``tiled-pruned-approx`` at theta 0.8
+   (its recall@100 against the exact ids printed), ``tiled-bmp-grouped``
+   (one launch a group: on the first ``bmp_grouped_rows`` queries, a cut
+   of depth) and ``tiled-bmp-fused``: build s, index bytes, a warm-up and
+   the timed searches (5, or 1 where a search takes over 2 s), CUDA
+   events, median; ``bmp_scan``'s launches (more than 0); ``PruneStats``,
+   the grouped and fused engines' ``SchedStats`` and the host planner's
+   ms; every ``bmp_scan`` launch of one call alone beside the bound of
+   the work its data needs (each launch's kept chunk lines once); the
+   exact engines against the float64 top-100 and the ``tiled`` engine's
+   top-100 on the same queries (ids tie-aware, values within 1e-6
+   relative, as 9a holds them; whether bitwise printed); peak device
+   memory.
+   Then the one-shard tiled index (``build_sharded_tiled(docs, 1)``:
+   doc_block 64, chunk 128; its build s, index bytes and the build's peak
+   above what is held) and the one-shard ELL index, the corpus freed; the
    ``ell`` step in f32 and bf16 (each dtype's ``ell_gather`` launches
-   counted the same way and more than 0), timed the same way,
-   ``ell_gather`` alone beside its bound (that dtype's bytes) and HBM
-   share, the f32 step exact against float64 as phase 3, the bf16 step's
-   overlap with float64 and within one bf16 ulp of the bf16 ``tiled``
-   step (as 9a holds them), peak device memory.
+   counted from its warm-up to its last timed call, more than 0), timed
+   the same way, ``ell_gather`` alone beside its bound (that dtype's
+   bytes) and HBM share, the f32 step exact against float64 as phase 3,
+   the bf16 step's overlap with float64, peak device memory; the ELL
+   index freed; the sharded ``tiled`` step in f32 and bf16 the same way
+   (``scatter_score`` alone beside its bound), the bf16 ``ell`` step
+   within one bf16 ulp of the bf16 ``tiled`` step (as 9a holds them);
+   then the sharded two-pass step (``make_serve_step(cfg=RetrievalConfig(
+   engine="tiled-pruned", traversal="two-pass"))``, f32, B = 500, k =
+   1000): timed the same way, ``scatter_score``'s launches (more than 0)
+   and its time in a step beside its bound, ``PruneStats``, exact
+   against float64, peak device memory.
    A ``{"serve_8m": {...}}`` line holds the numbers.
+9c. ``repro_torch.launch.serve.main`` at serve_8m, with 9d's data freed:
+   ``--docs 8841823 --vocab 30522`` and ``--engine ell --batch 500 --k
+   1000``; ``--engine tiled-bmp-fused --batch 64 --k 100``; ``--sched``
+   at k = 100 (``serve_8m_sched_requests`` requests in EDF micro-batches
+   of ``serve_8m_sched_batch`` through the sharded ``tiled-bmp-grouped``
+   step).  Each run makes its corpus, builds its one-shard index
+   (``build_sharded_tiled``'s defaults for the BMP modes: doc_block 64,
+   chunk 128, dense bounds), serves, drops the index and checks the whole
+   batch against the float64 top-k a range of docs at a time: ms a batch,
+   us a query, the overlap (``ell`` 1.0000 as printed, the BMP modes at
+   least 0.999), the run's and its oracle's seconds, its kernel's
+   launches (more than 0) and peak device memory.  The ``{"sharded":
+   {...}}`` line, printed after 9c, holds phase 9's and 9c's numbers.
 
 10. The paper's system comparison, with phase 9's data freed (the
    counters of ``scatter_score``, ``ell_gather`` and the ``segment``
@@ -664,11 +690,9 @@ class Sizes:
     sched_replays: int = 4
     sched_deadline_s: float = 0.5
     state_rounds: int = 3  # 8a: rounds after a warm-up
-    # Sharded serving (phase 9): launch.serve's rounds after its warm-up
-    # (--sched drains the queue once, after one micro-batch, of
-    # sched_requests requests: 500 cut to 256, two micro-batches).
+    # The serve driver (phase 9c, at serve_8m): launch.serve's rounds after
+    # its warm-up (--sched drains the queue once, after one micro-batch).
     serve_rounds: int = 1
-    sched_requests: int = 256
     # Phase 9d: serve_8m, the paper's corpus size and the repo's own shape
     # (src/repro_torch/configs/gpusparse.py:58), on one card: the tiled,
     # ell and two-pass tiled-pruned engines' searches, then the tiled and
@@ -678,6 +702,25 @@ class Sizes:
     # the corpus and the index would leave about 2 GB of the card.
     serve_8m_docs: int = 8_841_823
     serve_8m_query_chunk: int = 250
+    # 9d's BMP traversals and 9c's BMP modes at Table 11's regime
+    # (benchmarks/table11_pruning.py:105, "the paper regime"): the first
+    # bmp_queries of serve_8m's queries, k = bmp_k, theta 0.8 for the
+    # approximate engine.  At B = 500 / k = 1000 serve_8m's corpus prunes
+    # nothing (the two-pass engine skips no block there), so a sweep would
+    # visit every block.  A call slower than bmp_long_ms is timed once
+    # after its warm-up, else rounds times.  The grouped engine (one launch
+    # a group) runs on the first bmp_grouped_rows queries, a cut of depth
+    # as 9a's: at 64 it formed 64 one-row groups, 12.6 s a call on one
+    # H100.
+    bmp_queries: int = 64
+    bmp_k: int = 100
+    bmp_theta: float = 0.8
+    bmp_grouped_rows: int = 16
+    bmp_long_ms: float = 2000.0
+    # 9c: launch.serve at serve_8m; --sched drains serve_8m_sched_requests
+    # requests in micro-batches of serve_8m_sched_batch.
+    serve_8m_sched_requests: int = 64
+    serve_8m_sched_batch: int = 16
     # The system comparison (phase 10).  10a is serve_1m; 10b the paper's
     # Table 2 at its own size (benchmarks/table2_systems.py:18, the
     # corpus of benchmarks/common.py: V = 4,096, seed 0); 10c WAND and BMW
@@ -779,7 +822,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# The script's clock: each phase's header carries the seconds since import,
+# so that one run's log gives every phase's share of the time limit.
+STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f" [{time.perf_counter() - STARTED:.1f} s into the run]"
     print(msg, flush=True)
 
 
@@ -804,6 +854,22 @@ def event_ms(fn, reps: int, dev) -> float:
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn, dev) -> float:
+    """ms of one run of ``fn()``, timed with CUDA events, no warm-up: for a
+    plain version that the caller has just run on the same inputs (to
+    hold a kernel to it), so that the run is warm."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(dev)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return start.elapsed_time(end)
 
 
 def padded_queries(queries, index):
@@ -1613,13 +1679,15 @@ def head_row(dev, sizes: Sizes, enc_run: dict, err: float) -> dict:
     return row
 
 
-def sweep_work(idx, qw, launch, got, k_eff) -> dict:
-    """What one ``bmp_sweep`` launch had to do, from its fetch sets and
-    inputs.  ``bytes``: each input read once and each output written once
-    -- the distinct chunk lines (8 B a slot and the value: 12 B in f32, 10
-    in bf16) that some group of the launch
-    demanded in a term block holding a nonzero weight of that group (a line
-    of any other term block adds 0 to every score), each read once for the
+def sweep_work(idx, qw_g, got, k_eff) -> dict:
+    """What one ``bmp_sweep`` launch had to do, from its fetch sets
+    (``got``: its outputs, or at least their block and chunk sets at 2 and
+    3) and its stacked query weights ``qw_g`` [G, b, V_pad].  ``bytes``:
+    each input read once and each output written once -- the distinct
+    chunk lines (8 B a slot and the value: 12 B in f32, 10 in bf16) that
+    some group of the launch demanded in a term block holding a nonzero
+    weight of that group (a line of any other term block adds 0 to every
+    score), each read once for the
     whole launch, the query weights read once, the scored windows and the
     heaps written once; ``bytes_all_lines`` the same over every distinct
     demanded line.  ``flops``: 2 x live postings of each group's kept lines
@@ -1630,10 +1698,9 @@ def sweep_work(idx, qw, launch, got, k_eff) -> dict:
 
     from repro_torch.kernels.bmp_scan import ops as bmp_ops
 
-    sel = launch[0]
-    gs, rows = sel.shape
+    gs, rows, v_pad = qw_g.shape
     bsc, csc = got[2].bool(), got[3].bool()
-    tbnz = bmp_ops.term_block_mask(bmp_ops.nonzero_terms(qw[sel]),
+    tbnz = bmp_ops.term_block_mask(bmp_ops.nonzero_terms(qw_g),
                                    idx.term_block).bool()
     kept = csc & tbnz[:, idx.chunk_term_block.long()]
     live = (idx.local_doc >= 0).sum(dim=1).double()
@@ -1643,7 +1710,7 @@ def sweep_work(idx, qw, launch, got, k_eff) -> dict:
     distinct, distinct_kept = int(csc.any(0).sum()), int(kept.any(0).sum())
     rest = (int(bsc.sum()) * rows * idx.doc_block * 4  # windows written
             + gs * rows * k_eff * 4  # heaps written
-            + gs * rows * qw.shape[1] * qw.element_size())  # weights read
+            + gs * rows * v_pad * qw_g.element_size())  # weights read
     line = idx.chunk_size * (8 + idx.value.element_size())
     del kept, tbnz
     torch.cuda.empty_cache()
@@ -1734,12 +1801,12 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
     plain = (lambda: [bmp_sweep_ref(qw[sel_full[g]], order[g], us[g], tau[g],
                                     *tiled_runs(idx), None, **kw)
                       for g in range(sel_full.shape[0])])
-    plain_ms = event_ms(plain, 1, dev)
+    plain_ms = once_ms(plain, dev)  # check_sweep ran these groups
     # The least the data needs: a chunk line of a term block without a
     # nonzero weight of the group adds 0 to every score, so only the other
     # lines count, each once a launch (the bound over every demanded line
     # is logged beside it).
-    work = sweep_work(idx, qw, sample, got, k_eff)
+    work = sweep_work(idx, qw[sample[0]], got, k_eff)
     bound_ms, bound_by = sweep_bound(work)
     row = {
         "name": "bmp_scan", "route": "cuda",
@@ -1757,10 +1824,11 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
                   work, line))
     log(work_line(f"bmp_scan on the {launches[single][0].shape[0]} one-row "
                   f"groups", single_ms,
-                  sweep_work(idx, qw, launches[single], outs[single], k_eff),
+                  sweep_work(idx, qw[launches[single][0]], outs[single],
+                             k_eff),
                   line))
     # Launch by launch: a call's bound is the sum of its launches' bounds.
-    whole = [sweep_work(idx, qw, launch, out, k_eff)
+    whole = [sweep_work(idx, qw[launch[0]], out, k_eff)
              for launch, out in zip(launches, outs)]
     del outs
     log(work_line(f"bmp_scan, every launch of one search call "
@@ -1786,12 +1854,12 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
     # The plain version on the sample's first group only (a host loop of
     # ~3,500 steps, ~3 s a group): the time budget of the script.
     sel_b, order_b, us_b, tau_b, _, kw_b = sample_b
-    plain_b = event_ms(lambda: bmp_sweep_ref(
+    plain_b = once_ms(lambda: bmp_sweep_ref(
         qw_b[sel_b[0]], order_b[0], us_b[0], tau_b[0], *tiled_runs(idx_b),
-        None, **kw_b), 1, dev)
+        None, **kw_b), dev)  # check_sweep ran this group
     launches_b = sweep_launches(idx_b, qw_b, ub, plan.groups, k_eff)
     all_b = event_ms(lambda: [launch[4]() for launch in launches_b], 1, dev)
-    work_b = sweep_work(idx_b, qw_b, sample_b, got_b, k_eff)
+    work_b = sweep_work(idx_b, qw_b[sample_b[0]], got_b, k_eff)
     bound_b, by_b = sweep_bound(work_b)
     row["bf16"] = dict(ms=ms_b, plain_ms_first_group=plain_b,
                        bound_ms=bound_b, bound_by=by_b, library_ms=None,
@@ -1805,7 +1873,7 @@ def bmp_row(dev, sizes: Sizes, main, err: float) -> dict:
     # A bf16 call's bound, reckoned as the f32 call's: each launch's kept
     # bf16 lines once, summed over the call's launches.
     outs_b = [launch[4]() for launch in launches_b]
-    whole_b = [sweep_work(idx_b, qw_b, launch, out, k_eff)
+    whole_b = [sweep_work(idx_b, qw_b[launch[0]], out, k_eff)
                for launch, out in zip(launches_b, outs_b)]
     del outs_b
     call_b = {key: sum(w[key] for w in whole_b) for key in whole_b[0]}
@@ -3503,8 +3571,9 @@ def check_bf16_exact(name: str, vals, ids, oracle, sample, k: int) -> dict:
 
 def serve_sharded(dev, sizes: Sizes) -> dict:
     """Phase 9: the sharded serve step at world size 1 for each engine, in
-    f32 and bf16 (9a), the collective path under an NCCL group of one (9b),
-    and ``repro_torch.launch.serve`` at serve_1m (9c)."""
+    f32 and bf16 (9a), and the collective path under an NCCL group of one
+    (9b); 9c, the serve driver, runs at serve_8m after 9d
+    (:func:`serve_driver_8m`)."""
     import socket
 
     import numpy as np
@@ -3520,7 +3589,6 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     from repro_torch.data.synthetic import (
         make_msmarco_like, make_topical_corpus,
     )
-    from repro_torch.launch import serve as serve_mod
 
     k, b = sizes.k, sizes.queries
     bf = torch.bfloat16
@@ -3701,25 +3769,59 @@ def serve_sharded(dev, sizes: Sizes) -> dict:
     del keep, corpus, q, tq, docs, idx, got, want
     torch.cuda.empty_cache()
 
-    # 9c. the serve driver at serve_1m
-    base = ["--docs", str(sizes.docs), "--batch", str(b), "--vocab",
-            str(sizes.vocab), "--k", str(k), "--rounds",
-            str(sizes.serve_rounds)]
-    for label, flags, floor in (
-            ("ell", ["--engine", "ell"], 0.99995),
-            ("tiled-bmp-fused", ["--engine", "tiled-bmp-fused"], OVERLAP_MIN),
-            ("sched", ["--sched", "--max-batch", str(sizes.sched_batch),
-                       "--batch", str(sizes.sched_requests)],
-             OVERLAP_MIN)):
+    return out
+
+
+def serve_driver_8m(dev, sizes: Sizes) -> dict:
+    """Phase 9c: ``repro_torch.launch.serve.main`` at serve_8m, as a user
+    runs it (``--docs 8841823 --vocab 30522``, one shard): ``--engine ell
+    --batch 500 --k 1000``; ``--engine tiled-bmp-fused`` and ``--sched``
+    (EDF micro-batches of ``serve_8m_sched_batch`` through the sharded
+    ``tiled-bmp-grouped`` step, ``serve_8m_sched_requests`` requests) at
+    Table 11's B = 64 and k = 100 over ``build_sharded_tiled``'s defaults
+    (doc_block 64, chunk 128, dense bounds).  Each run makes its corpus
+    on the card and checks its batch against the ranged float64 oracle
+    (``scoring.topk_f64``); ms a batch, us a query, the overlap (``ell`` at
+    least 0.99995, the BMP modes OVERLAP_MIN), the run's seconds, its
+    kernel's launches (counter zeroed before the run, more than 0) and
+    its peak device memory."""
+    import torch
+
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+    from repro_torch.kernels.ell_gather import ops as ell_ops
+    from repro_torch.launch import serve as serve_mod
+
+    base = ["--docs", str(sizes.serve_8m_docs), "--vocab", str(sizes.vocab),
+            "--rounds", str(sizes.serve_rounds)]
+    bmp = ["--batch", str(sizes.bmp_queries), "--k", str(sizes.bmp_k)]
+    out = {}
+    for label, flags, floor, mod in (
+            ("ell", ["--engine", "ell", "--batch", str(sizes.queries), "--k",
+                     str(sizes.k)], 0.99995, ell_ops),
+            ("tiled-bmp-fused", ["--engine", "tiled-bmp-fused"] + bmp,
+             OVERLAP_MIN, bmp_ops),
+            ("sched", ["--sched", "--max-batch",
+                       str(sizes.serve_8m_sched_batch), "--batch",
+                       str(sizes.serve_8m_sched_requests), "--k",
+                       str(sizes.bmp_k)], OVERLAP_MIN, bmp_ops)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mod.launches = 0
         t0 = time.perf_counter()
         res = serve_mod.main(base + flags)
+        res.update(seconds=time.perf_counter() - t0, launches=mod.launches,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
         log(f"  9c {label}: {res['ms_per_batch']!r} ms/batch, "
             f"{res['us_per_query']!r} us/query, overlap {res['overlap']!r} "
-            f"(the run {time.perf_counter() - t0:.3f} s)")
+            f"(the run {res['seconds']!r} s, its float64 oracle "
+            f"{res['oracle_s']!r} s); {mod.NAME} launches "
+            f"{res['launches']}; peak {res['peak_bytes']} B")
         if res["overlap"] < floor:  # 0.99995 prints as 1.0000
             raise AssertionError(f"9c {label}: overlap {res['overlap']}")
+        if res["launches"] <= 0:
+            raise AssertionError(f"9c {label}: {mod.NAME} was not launched")
         out[f"9c {label}"] = res
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3752,7 +3854,7 @@ PAPER_QPS = 787.0
 
 
 def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
-                    sample, extra=None) -> dict:
+                    sample, extra=None, small=None) -> dict:
     """One engine of phase 9d: ``RetrievalEngine(corpus.docs,
     RetrievalConfig(engine=name, **extra))`` built over every doc, as the
     quickstart builds it (the corpus stays on the card: the peak holds it,
@@ -3769,7 +3871,10 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
     of every query chunk) beside their bound (each pass's QW, scores and
     run tables, the scored chunks' share of the live postings).  Both
     launch counters are zeroed before the build and read after the timed
-    searches; the engine's kernel must have been launched."""
+    searches; the engine's kernel must have been launched.  ``small``
+    (a query batch) is searched once more at ``bmp_k``: its top-k, the
+    exact reference of the BMP engines, comes back under
+    ``small_topk``."""
     import numpy as np
     import torch
 
@@ -3810,6 +3915,8 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
         raise AssertionError(f"9d {label}: {kernel} was not launched")
     ms = float(np.median(times))
     check_exact(f"9d {label} search", vals, ids, oracle, sample, k)
+    if small is not None:
+        out["small_topk"] = eng.search(small, k=sizes.bmp_k)
     out.update(search_ms=ms, search_ms_all=times, us_per_query=1e3 * ms / b,
                qps=b / ms * 1e3, overlap_f64=overlap(
                    ids[sample], torch.topk(oracle.T, k, dim=1).indices
@@ -3897,46 +4004,208 @@ def serve_8m_engine(dev, sizes: Sizes, name: str, corpus, oracle,
     return out
 
 
-def serve_8m_tiled_step(dev, sizes: Sizes, corpus, oracle, sample):
-    """9d's sharded ``tiled`` step, the paper's document-sharded exact
-    retrieval at world size 1: ``build_sharded_tiled(corpus.docs, 1)`` at
-    JAX's defaults (doc_block 64, chunk 128) from the corpus on the card,
-    the build's own peak above what was held before it; then
-    ``make_serve_step(engine="tiled")`` in f32 and in bf16, each a warm-up
-    and ``rounds`` calls timed with CUDA events (median; ``scatter_score``'s
-    counter zeroed before the warm-up and read after the last timed call:
-    it must have launched); ``scatter_score`` alone on the step's inputs
-    beside its bound (that dtype's bytes: each live posting's local term,
-    doc and value, the chunks' term blocks, the block runs, QW and the
-    scores once) and its HBM share; the f32 step held to float64 as phase
-    3 holds it, the bf16 step's overlap with float64; the steps' peak.
-    Returns (the numbers, the bf16 step's result)."""
+def check_topk_f64(name: str, vals, ids, want, k: int) -> dict:
+    """A top-k (values, ids) against the float64 top-k ``want`` of the same
+    queries (``scoring.topk_f64``): overlap@k >= OVERLAP_MIN, every id
+    real, and the values rank by rank within SCORE_RTOL of float64's (an
+    exact top-k's sorted scores are float64's sorted scores, each rounded
+    once to f32)."""
+    import numpy as np
+
+    w_vals, w_ids = (np.asarray(x) for x in want)
+    ov = overlap(ids, w_ids, k)
+    rel = float(np.max(np.abs(vals - w_vals)
+                       / np.maximum(np.abs(w_vals), 1e-30)))
+    log(f"  {name}: overlap@{k} vs f64 = {ov!r}, max rel score err = {rel!r}")
+    if not np.all(ids >= 0):
+        raise AssertionError(f"{name}: missing ids in the top-{k}")
+    if ov < OVERLAP_MIN or rel > SCORE_RTOL:
+        raise AssertionError(f"{name}: not exact (overlap {ov}, rel {rel})")
+    return {"overlap_f64": ov, "max_rel_f64": rel}
+
+
+def time_planner(queries, index, cfg) -> dict:
+    """The demand planner on the host over ``queries``' block bounds on the
+    tiled ``index``: ``plan_micro_batches`` with ``index``'s chunk counts
+    at ``cfg``'s knobs, then ``demand_signatures`` alone (its full-row
+    argsort), each timed once on the host's clock."""
+    from repro_torch.core import scoring
+    from repro_torch.sched import planner
+
+    ub = scoring.block_upper_bounds(queries, index).cpu().numpy()
+    cost = index.block_chunk_count.cpu().numpy()
+    t0 = time.perf_counter()
+    plan = planner.plan_micro_batches(
+        ub, cost, top_m=cfg.sched_top_m, max_group=cfg.sched_max_group,
+        min_share=cfg.sched_min_share)
+    plan_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    planner.demand_signatures(ub, top_m=cfg.sched_top_m)
+    return dict(bounds_shape=list(ub.shape), groups=plan.num_groups,
+                planner_ms=plan_ms,
+                signatures_ms=1e3 * (time.perf_counter() - t0))
+
+
+def serve_8m_bmp(dev, sizes: Sizes, label: str, name: str, extra: dict,
+                 corpus, queries, oracle, exact) -> dict:
+    """One BMP traversal of phase 9d over serve_8m at Table 11's regime:
+    ``RetrievalEngine(corpus.docs, RetrievalConfig(engine=name, k=bmp_k,
+    **extra))`` at the engine defaults (doc_block 256, chunk 512, dense
+    fine bounds), as the quickstart builds it, the corpus held.  Build s
+    and index bytes.  The warm-up is the engine's stats call over
+    ``queries`` (``prune_stats``; the grouped and fused engines'
+    ``grouped_sweeps(return_stats=True)``, whose ``SchedStats`` give the
+    groups, launches and padded rows), timed with CUDA events, with every
+    ``bmp_scan`` launch in it timed with CUDA events too
+    (:class:`KernelClock`) and its fetch sets kept: the time inside the
+    kernel beside the bound of the work its data needs
+    (:func:`sweep_work`: each launch's kept chunk lines once, summed over
+    the call's launches).  Then ``rounds`` searches timed with CUDA events
+    (one where the warm-up took over ``bmp_long_ms``), median;
+    ``bmp_scan``'s launches in those searches alone, the counter zeroed
+    after the stats call (more than 0; the stats call's own launches are
+    ``kernel_launches``).  An exact engine is held to the float64 top-k
+    ``oracle`` (:func:`check_topk_f64`) and to the exact ``tiled``
+    engine's top-k ``exact`` (ids tie-aware, values within STEP_RTOL);
+    the approximate one prints its recall against ``exact``.  The demand
+    planner on the host over ``queries``' bounds (:func:`time_planner`).
+    Peak device memory from the build on."""
     import numpy as np
     import torch
 
-    from repro_torch.core.distributed import (
-        build_sharded_tiled, make_serve_step,
-    )
+    from repro_torch.core import RetrievalConfig, RetrievalEngine, scoring
+    from repro_torch.kernels.bmp_scan import ops as bmp_ops
+
+    k, b = sizes.bmp_k, queries.batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = RetrievalConfig(engine=name, k=k, obs=None, **extra)
+    eng, build_ms = timed(f"9d {label}: RetrievalEngine build", lambda:
+                          RetrievalEngine(corpus.docs, cfg, device=dev), dev)
+    idx = eng._index
+    out = dict(queries=b, k=k, build_s=build_ms / 1e3,
+               index_bytes=eng.index_bytes())
+    grouped = name in ("tiled-bmp-grouped", "tiled-bmp-fused")
+    clock, launched = KernelClock(), []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with clock:
+        inner = bmp_ops.bmp_sweep
+
+        def kept(qw_g, *args, **kw):
+            got = inner(qw_g, *args, **kw)
+            launched.append((qw_g, got))
+            return got
+
+        bmp_ops.bmp_sweep = kept
+        try:
+            start.record()
+            if grouped:
+                _, st = scoring.grouped_sweeps(
+                    queries, idx, k, stacked=name == "tiled-bmp-fused",
+                    return_stats=True)
+                pst = st.union
+            else:
+                pst = eng.prune_stats(queries)
+            end.record()
+            sync(dev)
+        finally:
+            bmp_ops.bmp_sweep = inner
+    first = start.elapsed_time(end)
+    kernel_ms = clock.ms(dev)["bmp_scan/float32"]
+    whole = []
+    for qw_g, got in launched:
+        whole.append(sweep_work(idx, qw_g, got, k))
+    del launched
+    work = {key: sum(w[key] for w in whole) for key in whole[0]}
+    bound_ms, bound_by = sweep_bound(work)
+    out.update(kernel_ms=kernel_ms, kernel_launches=len(whole),
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_bytes=work["bytes"],
+               prune_stats=dict(vars(pst), block_skip_frac=pst.block_skip_frac,
+                                chunk_skip_frac=pst.chunk_skip_frac))
+    if grouped:
+        sizes_ = np.bincount(np.asarray(st.group_sizes))
+        out["sched_stats"] = dict(
+            groups=st.num_groups, launches=st.launches,
+            group_sizes={int(s): int(c) for s, c in enumerate(sizes_) if c},
+            padded_rows=sum(st.padded_group_sizes),
+            chunk_work=st.chunk_work, padded_chunk_work=st.padded_chunk_work)
+    rounds = sizes.rounds if first < sizes.bmp_long_ms else 1
+    times = []
+    bmp_ops.launches = 0  # the main path's count: the timed searches only
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vals, ids = eng.search(queries, k=k)
+        end.record()
+        sync(dev)
+        times.append(start.elapsed_time(end))
+    out["launches"] = bmp_ops.launches
+    if out["launches"] <= 0:
+        raise AssertionError(f"9d {label}: RetrievalEngine.search did not "
+                             f"launch bmp_scan")
+    ms = float(np.median(times))
+    out.update(warmup_ms=first, search_ms=ms, search_ms_all=times,
+               us_per_query=1e3 * ms / b, qps=b / ms * 1e3)
+    if eng.spec.supports_theta and cfg.theta < 1.0:
+        out["recall_vs_exact"] = overlap(ids, exact[1], k)
+        log(f"  9d {label}: recall@{k} against the exact tiled engine "
+            f"{out['recall_vs_exact']!r}")
+    else:
+        out.update(check_topk_f64(f"9d {label} search", vals, ids, oracle,
+                                  k))
+        out.update(same_results(f"9d {label} vs the tiled engine",
+                                (vals, ids), exact, rtol=STEP_RTOL))
+    out.update(time_planner(queries, idx, cfg))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    sched = out.get("sched_stats")
+    log(f"  9d {label}: build {out['build_s']!r} s, index "
+        f"{out['index_bytes']} B; {ms!r} ms a search of {b} queries at k = "
+        f"{k} (CUDA events, median of {rounds}: {times!r}; the warm-up, a "
+        f"stats call, {first!r}), {out['us_per_query']!r} us a query; "
+        f"PruneStats {out['prune_stats']}"
+        + (f"; SchedStats {sched}" if sched else "")
+        + f"; planner {out['planner_ms']!r} ms on the host "
+        f"(demand_signatures {out['signatures_ms']!r} ms) over "
+        f"{out['bounds_shape']} bounds; bmp_scan launches "
+        f"{out['launches']} in the timed searches ("
+        f"{out['kernel_launches']} in the stats call); "
+        f"peak {out['peak_bytes']} B of "
+        f"{torch.cuda.get_device_properties(dev).total_memory} B")
+    log(work_line(f"9d {label}: bmp_scan in the stats call ({len(whole)} "
+                  f"launches, CUDA events; bytes and flops summed over its "
+                  f"launches)", kernel_ms, work, idx.chunk_size * 12))
+    del eng, idx
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_8m_tiled_step(dev, sizes: Sizes, idx, queries, oracle, sample):
+    """9d's sharded ``tiled`` step, the paper's document-sharded exact
+    retrieval at world size 1, over ``idx`` (``build_sharded_tiled(docs,
+    1)`` at JAX's defaults: doc_block 64, chunk 128):
+    ``make_serve_step(engine="tiled")`` in f32 and in bf16, each a warm-up
+    and ``rounds`` calls timed with CUDA events (median;
+    ``scatter_score``'s counter zeroed before the warm-up and read after
+    the last timed call: it must have launched); ``scatter_score`` alone
+    on the step's inputs beside its bound (that dtype's bytes: each live
+    posting's local term, doc and value, the chunks' term blocks, the
+    block runs, QW and the scores once) and its HBM share; the f32 step
+    held to float64 as phase 3 holds it, the bf16 step's overlap with
+    float64; the steps' peak.  Returns (the numbers, the bf16 step's
+    result)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import make_serve_step
     from repro_torch.kernels.scatter_score import ops as scatter_ops
 
-    b, k, q = sizes.queries, sizes.k, corpus.queries
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    idx, build_ms = timed("9d: build_sharded_tiled, 1 shard",
-                          lambda: build_sharded_tiled(corpus.docs, 1), dev)
-    build_peak = torch.cuda.max_memory_allocated(dev) - held
-    index_bytes = sum(t.numel() * t.element_size()
-                      for t in vars(idx).values() if torch.is_tensor(t))
+    b, k, q = sizes.queries, sizes.k, queries
     local = idx.shard(0)
     live = int(torch.count_nonzero(local.local_doc >= 0))
-    out = dict(build_s=build_ms / 1e3, index_bytes=index_bytes,
-               build_peak_above_held=build_peak, held_before_build=held,
-               chunks=local.num_chunks, live_postings=live)
-    log(f"  9d tiled step index: {local.num_chunks} chunks of "
-        f"{idx.chunk_size}, {live} live postings, {index_bytes} B; the "
-        f"build's peak {out['build_peak_above_held']} B above the "
-        f"{held} B held before it")
+    out = dict(chunks=local.num_chunks, live_postings=live)
     torch.cuda.reset_peak_memory_stats(dev)
     got_bf16 = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -3994,35 +4263,147 @@ def serve_8m_tiled_step(dev, sizes: Sizes, corpus, oracle, sample):
         torch.cuda.empty_cache()
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     log(f"  9d tiled steps' peak device memory: {out['peak_bytes']} B")
-    del idx, local
-    torch.cuda.empty_cache()
     return out, got_bf16
+
+
+def serve_8m_two_pass_step(dev, sizes: Sizes, idx, queries, oracle,
+                           sample) -> dict:
+    """9d's sharded two-pass step: ``make_serve_step(cfg=RetrievalConfig(
+    engine="tiled-pruned", traversal="two-pass"))`` over the one-shard
+    tiled index ``idx`` (doc_block 64, chunk 128; its bf16 cast dropped)
+    in f32 at B = 500, k = 1000, with the corpus freed (its two [B, N]
+    buffers, the corpus and the index would not fit the card together):
+    a warm-up (its ``scatter_score`` calls timed with CUDA events,
+    :class:`KernelClock`) and ``rounds`` steps timed as the ``tiled`` step
+    is (median), ``scatter_score``'s launches from the warm-up to the last
+    timed step (more than 0), the step exact against float64 as phase 3,
+    ``PruneStats`` of one more pass over the shard, the kernel's bound
+    (each pass's QW, scores and run tables, the scored chunks' share of
+    the live postings) and the step's peak."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import RetrievalConfig, scoring
+    from repro_torch.core.distributed import make_serve_step
+    from repro_torch.kernels.scatter_score import ops as scatter_ops
+
+    b, k = sizes.queries, sizes.k
+    idx.casts.clear()  # the bf16 steps' values: not read here
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_serve_step(
+        cfg=RetrievalConfig(engine="tiled-pruned", k=k, traversal="two-pass",
+                            obs=None),
+        docs_per_shard=idx.docs_per_shard, geometry=idx.geometry())
+    scatter_ops.launches = 0
+    clock = KernelClock()
+    with clock:
+        got = step(idx, queries=queries)  # warm-up
+    kernel_ms = clock.ms(dev)["scatter_score/float32"]
+    kernel_launches = clock.launches[("scatter_score", "float32")]
+    times = []
+    for _ in range(sizes.rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = step(idx, queries=queries)
+        end.record()
+        sync(dev)
+        times.append(start.elapsed_time(end))
+    launches = scatter_ops.launches
+    if launches <= 0:
+        raise AssertionError("9d two-pass step: scatter_score was not "
+                             "launched")
+    step_ms = float(np.median(times))
+    vals, ids = got[0].cpu().numpy(), got[1].cpu().numpy()
+    del got
+    check_exact("9d two-pass f32 step", vals, ids, oracle, sample, k)
+    local = idx.shard(0)
+    _, st = scoring.score_tiled_pruned(queries, local, k, return_stats=True)
+    live = int(torch.count_nonzero(local.local_doc >= 0))
+    v_pad = local.num_term_blocks * local.term_block
+    nbytes = (2 * (b * v_pad * 4 + b * local.padded_docs * 4
+                   + local.num_chunks * 4 + local.num_doc_blocks * 8)
+              + live * 12 * st.chunks_scored // st.chunks_total)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = dict(step_ms=step_ms, step_ms_all=times,
+               us_per_query=1e3 * step_ms / b, qps=b / step_ms * 1e3,
+               launches=launches, kernel_ms=kernel_ms,
+               kernel_launches=kernel_launches, bound_ms=bound_ms,
+               bound_bytes=nbytes, hbm_share=bound_ms / kernel_ms,
+               overlap_f64=overlap(ids[sample], torch.topk(
+                   oracle.T, k, dim=1).indices.cpu().numpy(), k),
+               prune_stats=dict(vars(st), block_skip_frac=st.block_skip_frac,
+                                chunk_skip_frac=st.chunk_skip_frac),
+               block_skip_frac=st.block_skip_frac,
+               chunk_skip_frac=st.chunk_skip_frac,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    log(f"  9d two-pass f32 step: {step_ms!r} ms a step (CUDA events, "
+        f"median of {sizes.rounds}: {times!r}), {b / step_ms * 1e3!r} QPS; "
+        f"blocks seeded {st.blocks_seeded}, scored {st.blocks_scored} of "
+        f"{st.num_doc_blocks} (skip {st.block_skip_frac!r}), chunks scored "
+        f"{st.chunks_scored} of {st.chunks_total} (skip "
+        f"{st.chunk_skip_frac!r}); scatter_score {kernel_ms!r} ms in the "
+        f"warm-up's {kernel_launches} launches, bound {bound_ms!r} ms "
+        f"({nbytes} B), HBM share {out['hbm_share']!r}; scatter_score "
+        f"launches {launches}; peak {out['peak_bytes']} B")
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_planner(sizes: Sizes, idx, queries) -> dict:
+    """The demand planner on the host at the sharded geometry
+    (:func:`time_planner` over the one-shard tiled index ``idx``, doc_block
+    64, on the first ``bmp_queries`` queries at the engine's default
+    knobs): the plan that 9c's fused and ``--sched`` batches make each
+    step (``core.distributed.demand_plan`` at one shard)."""
+    from repro_torch.core import RetrievalConfig
+
+    out = time_planner(queries.slice_rows(0, sizes.bmp_queries),
+                       idx.shard(0), RetrievalConfig())
+    log(f"  9d planner at doc_block {idx.doc_block}: plan_micro_batches "
+        f"{out['planner_ms']!r} ms on the host over {out['bounds_shape']} "
+        f"bounds ({out['groups']} groups); demand_signatures, timed alone, "
+        f"{out['signatures_ms']!r} ms")
+    return out
 
 
 def serve_8m(dev, sizes: Sizes) -> dict:
     """Phase 9d: serve_8m (8,841,823 docs, B = 500, k = 1000) on one card
-    at world size 1: the corpus made on the card and float64 scores of
-    ``oracle_queries`` sampled queries computed from it; the ``tiled``,
+    at world size 1: the corpus made on the card, float64 scores of
+    ``oracle_queries`` sampled queries computed from it and the float64
+    top-``bmp_k`` of its first ``bmp_queries`` queries
+    (``scoring.topk_f64``, a range of docs at a time); the ``tiled``,
     ``ell`` and two-pass ``tiled-pruned`` engines over it, one at a time
-    (:func:`serve_8m_engine`); the sharded ``tiled`` step in f32 and bf16
-    (:func:`serve_8m_tiled_step`); then the one-shard ELL index built from
-    it and the corpus freed; the ``ell`` step in f32 and in bf16, each a
-    warm-up and ``rounds`` calls timed with CUDA events (median;
-    ``ell_gather``'s counter zeroed before the warm-up and read after the
-    last timed call: it must have launched), the kernel alone on the
-    step's inputs beside its bound (that dtype's bytes: every slot's term
-    id, the live values, QW, the scores) and its HBM share (bound over
-    kernel time); the f32 step held to float64 as phase 3 holds it, the
-    bf16 step's overlap with float64 and its values within one bf16 ulp
-    of the bf16 ``tiled`` step's (as 9a holds them); the step's peak
-    device memory."""
+    (:func:`serve_8m_engine`); the four BMP traversals at Table 11's
+    regime (:func:`serve_8m_bmp`: ``tiled-pruned`` and
+    ``tiled-pruned-approx`` at theta ``bmp_theta`` on the first
+    ``bmp_queries`` queries, ``tiled-bmp-grouped`` on the first
+    ``bmp_grouped_rows``, ``tiled-bmp-fused``), one at a time; then the
+    one-shard tiled index (its build's peak above what is held) and the
+    one-shard ELL index built from the corpus, and the corpus freed; the
+    ``ell`` step in f32 and in bf16, each a warm-up and ``rounds`` calls
+    timed with CUDA events (median; ``ell_gather``'s counter zeroed before
+    the warm-up and read after the last timed call: it must have
+    launched), the kernel alone on the step's inputs beside its bound
+    (that dtype's bytes: every slot's term id, the live values, QW, the
+    scores) and its HBM share (bound over kernel time); the f32 step held
+    to float64 as phase 3 holds it, the bf16 step's overlap with float64;
+    the steps' peak device memory; then the ELL index freed, the sharded
+    ``tiled`` step in f32 and bf16 (:func:`serve_8m_tiled_step`; the bf16
+    ``ell`` step within one bf16 ulp of the bf16 ``tiled`` step's, as 9a
+    holds them), the sharded two-pass step
+    (:func:`serve_8m_two_pass_step`) and the demand planner on the host at
+    the sharded geometry (:func:`sharded_planner`)."""
     import numpy as np
     import torch
 
     from repro_torch.core import distributed as tdist
     from repro_torch.core.distributed import (
-        build_sharded_ell, make_serve_step,
+        build_sharded_ell, build_sharded_tiled, make_serve_step,
     )
+    from repro_torch.core.scoring import topk_f64
     from repro_torch.data.synthetic import make_msmarco_like
     from repro_torch.kernels.ell_gather import ops as ell_ops
 
@@ -4042,10 +4423,24 @@ def serve_8m(dev, sizes: Sizes) -> dict:
                               lambda: ell_f64(corpus.docs.term_ids,
                                               corpus.docs.values, q, sample),
                               dev)
-    out = dict(docs=n, nnz=nnz, corpus_ms=gen_ms, oracle_ms=oracle_ms)
-    out["engines"] = {name: serve_8m_engine(dev, sizes, name, corpus, oracle,
-                                            sample)
-                      for name in ("tiled", "ell")}
+    small = q.slice_rows(0, sizes.bmp_queries)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    small_f64, small_f64_ms = timed(
+        f"9d: float64 top-{sizes.bmp_k} of the first {sizes.bmp_queries} "
+        f"queries (scoring.topk_f64, a range of docs at a time)",
+        lambda: tuple(x.cpu().numpy()
+                      for x in topk_f64(small, corpus.docs, sizes.bmp_k)),
+        dev)
+    out = dict(docs=n, nnz=nnz, corpus_ms=gen_ms, oracle_ms=oracle_ms,
+               small_f64_ms=small_f64_ms,
+               small_f64_peak_above_held=torch.cuda.max_memory_allocated(dev)
+               - held)
+    out["engines"] = {name: serve_8m_engine(
+        dev, sizes, name, corpus, oracle, sample,
+        small=small if name == "tiled" else None)
+        for name in ("tiled", "ell")}
+    exact_small = out["engines"]["tiled"].pop("small_topk")
     # The two-pass engine at B = 500 leaves about 2 GB of the card beside
     # the corpus and its index: it scores query chunks of
     # sizes.serve_8m_query_chunk.
@@ -4053,19 +4448,54 @@ def serve_8m(dev, sizes: Sizes) -> dict:
         dev, sizes, "tiled-pruned", corpus, oracle, sample,
         extra={"traversal": "two-pass",
                "query_chunk": sizes.serve_8m_query_chunk})
-    out["tiled_step"], tiled_bf16 = serve_8m_tiled_step(dev, sizes, corpus,
-                                                        oracle, sample)
+    # The BMP traversals at B = 64, k = 100; the grouped engine's one launch
+    # a group runs on its first bmp_grouped_rows queries.
+    rows = sizes.bmp_grouped_rows
+    out["bmp"] = {}
+    for label, name, extra, nq in (
+            ("tiled-pruned bmp", "tiled-pruned", {}, sizes.bmp_queries),
+            (f"tiled-pruned-approx theta {sizes.bmp_theta}",
+             "tiled-pruned-approx", {"theta": sizes.bmp_theta},
+             sizes.bmp_queries),
+            ("tiled-bmp-grouped", "tiled-bmp-grouped", {}, rows),
+            ("tiled-bmp-fused", "tiled-bmp-fused", {}, sizes.bmp_queries)):
+        out["bmp"][label] = serve_8m_bmp(
+            dev, sizes, label, name, extra, corpus, small.slice_rows(0, nq),
+            tuple(x[:nq] for x in small_f64),
+            tuple(x[:nq] for x in exact_small))
+    # The one-shard indexes, built while the corpus is held; the corpus
+    # goes before the steps: with it, the two-pass step's two [B, N]
+    # buffers and the tiled index would not fit the card.
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tidx, build_ms = timed("9d: build_sharded_tiled, 1 shard",
+                           lambda: build_sharded_tiled(corpus.docs, 1), dev)
+    tiled_build = dict(
+        build_s=build_ms / 1e3,
+        index_bytes=sum(t.numel() * t.element_size()
+                        for t in vars(tidx).values() if torch.is_tensor(t)),
+        build_peak_above_held=torch.cuda.max_memory_allocated(dev) - held,
+        held_before_build=held)
+    log(f"  9d tiled step index: {tiled_build['index_bytes']} B; the "
+        f"build's peak {tiled_build['build_peak_above_held']} B above the "
+        f"{held} B held before it")
     torch.cuda.reset_peak_memory_stats(dev)
     idx, build_ms = timed("9d: build_sharded_ell, 1 shard",
                           lambda: build_sharded_ell(corpus.docs, 1), dev)
-    del corpus
+    out["indexes_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    del corpus, small
     torch.cuda.empty_cache()
     local = idx.shard(0)
     live = int((local.terms < sizes.vocab).sum())
     log(f"  9d index: terms {tuple(idx.terms.shape)}, {live} live slots, "
-        f"{torch.cuda.memory_allocated(dev)} B held after the corpus went")
+        f"{torch.cuda.memory_allocated(dev)} B held after the corpus went "
+        f"(both one-shard indexes; the two indexes' build peak "
+        f"{out['indexes_peak_bytes']} B)")
     out.update(slots=int(idx.terms.numel()), live_slots=live,
                build_ms=build_ms)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ell_bf16 = None
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         cast0 = tdist.cast_bytes
@@ -4098,8 +4528,7 @@ def serve_8m(dev, sizes: Sizes) -> dict:
         else:
             res = check_bf16_exact("9d ell bf16 step", vals, ids, oracle,
                                    sample, k)
-            res["vs_tiled_step"] = same_bf16_topk(
-                "9d bf16: ell step vs tiled step", got, tiled_bf16)
+            ell_bf16 = got
         qw = q.to_dense().to(dtype)
         vals_in = idx.shard(0, dtype).values
         kernel_ms = event_ms(lambda: ell_ops.ell_gather(qw, local.terms,
@@ -4122,8 +4551,20 @@ def serve_8m(dev, sizes: Sizes) -> dict:
         del got, qw, vals_in
         torch.cuda.empty_cache()
     out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    log(f"  9d peak device memory: {out['peak_bytes']} B")
+    log(f"  9d ell steps' peak device memory: {out['peak_bytes']} B")
+    del idx, local
+    torch.cuda.empty_cache()
+    out["tiled_step"], tiled_bf16 = serve_8m_tiled_step(dev, sizes, tidx, q,
+                                                        oracle, sample)
+    out["tiled_step"].update(tiled_build)
+    out["bfloat16"]["vs_tiled_step"] = same_bf16_topk(
+        "9d bf16: ell step vs tiled step", ell_bf16, tiled_bf16)
+    del ell_bf16, tiled_bf16
+    out["two_pass_step"] = serve_8m_two_pass_step(dev, sizes, tidx, q,
+                                                  oracle, sample)
+    out["planner_db64"] = sharded_planner(sizes, tidx, q)
     return out
+
 
 
 # ---------------------------------------------------------------------------
@@ -6444,7 +6885,7 @@ def bf16_rows(dev, sizes: Sizes, rows, corpus, tiled, ell, qw_t, qw,
         err = compare(f"{name} bf16 at {sizes.docs} docs x {b} queries",
                       kernel(), plain(), tol=BF16_KERNEL_TOL)
         kernel_ms = event_ms(kernel, sizes.reps, dev)
-        plain_ms = event_ms(plain, 1, dev)
+        plain_ms = once_ms(plain, dev)  # run warm by the check above
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
         sub = dict(ms=kernel_ms, plain_ms=plain_ms,
@@ -6685,7 +7126,7 @@ def run(dev, sizes: Sizes) -> list[dict]:
     rows = []
     for name, s in specs.items():
         kernel_ms = event_ms(s["kernel"], sizes.reps, dev)
-        plain_ms = event_ms(s["plain"], max(1, sizes.reps // 2), dev)
+        plain_ms = once_ms(s["plain"], dev)  # run warm by the check above
         nbytes = s["stream"] + s["rest"]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
@@ -6790,8 +7231,8 @@ def run(dev, sizes: Sizes) -> list[dict]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"phase 9: sharded serving at serve_1m, world size 1: the six "
-        f"engines' steps, NCCL, launch.serve; {sizes.docs} docs x "
-        f"{sizes.queries} queries, k={sizes.k}")
+        f"engines' steps, NCCL; {sizes.docs} docs x {sizes.queries} "
+        f"queries, k={sizes.k}")
     for mod in counters.values():
         mod.launches = 0
     sharded = serve_sharded(dev, sizes)
@@ -6809,26 +7250,39 @@ def run(dev, sizes: Sizes) -> list[dict]:
                 "9a bf16 launches"].get(f"{row['name']}/bfloat16", 0)
     sub = next(r for r in rows if r["name"] == "bmp_scan")["bf16"]
     sub["max_abs_err"] = max(sub["max_abs_err"], bf16_errs["bmp_scan"])
-    print(json.dumps({"sharded": sharded}, default=float))
 
     # 9d. serve_8m on one card; phase 9's data is gone
-    del sharded
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"phase 9d: serve_8m, {sizes.serve_8m_docs} docs x {sizes.queries} "
         f"queries, k={sizes.k}, world size 1: RetrievalEngine.search through "
-        f"tiled, ell and tiled-pruned two-pass, then the tiled and ell steps "
-        f"in f32 and bf16")
+        f"tiled, ell and tiled-pruned two-pass; the BMP traversals at B = "
+        f"{sizes.bmp_queries}, k = {sizes.bmp_k}; then the ell and tiled "
+        f"steps in f32 and bf16 and the two-pass step")
     # Each engine's and each step's launches are counted apart, from its
     # first call to its last timed one, and checked there.
     big = serve_8m(dev, sizes)
     log(f"  launches in phase 9d: engines "
-        f"{ {n: e['launches'] for n, e in big['engines'].items()} }, tiled "
-        f"steps "
+        f"{ {n: e['launches'] for n, e in big['engines'].items()} }, BMP "
+        f"engines { {n: e['launches'] for n, e in big['bmp'].items()} }, "
+        f"tiled steps "
         f"{ {t: big['tiled_step'][t]['launches'] for t in DTYPE_TAGS} }, "
-        f"ell steps { {t: big[t]['launches'] for t in DTYPE_TAGS} }")
+        f"ell steps { {t: big[t]['launches'] for t in DTYPE_TAGS} }, "
+        f"two-pass step {big['two_pass_step']['launches']}")
     big["seconds"] = time.perf_counter() - t0
     log(f"phase 9d: {big['seconds']:.3f} s")
+
+    # 9c. the serve driver at serve_8m; 9d's data is gone
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"phase 9c: launch.serve at serve_8m, {sizes.serve_8m_docs} docs: "
+        f"--engine ell at B = {sizes.queries}, k = {sizes.k}; --engine "
+        f"tiled-bmp-fused at B = {sizes.bmp_queries}, k = {sizes.bmp_k}; "
+        f"--sched, {sizes.serve_8m_sched_requests} requests in micro-batches "
+        f"of {sizes.serve_8m_sched_batch}, k = {sizes.bmp_k}")
+    sharded.update(serve_driver_8m(dev, sizes))
+    log(f"phase 9c: {time.perf_counter() - t0:.3f} s")
+    print(json.dumps({"sharded": sharded}, default=float))
     for row in rows:
         if row["name"] == "ell_gather":
             row["serve_8m"] = {dt: {key: big[dt][key] for key in (
@@ -6852,10 +7306,23 @@ def run(dev, sizes: Sizes) -> list[dict]:
                 for key in ("kernel_ms", "bound_ms", "hbm_share",
                             "search_ms", "launches", "block_skip_frac",
                             "chunk_skip_frac")}
+            row["serve_8m_two_pass_step"] = {
+                key: big["two_pass_step"][key]
+                for key in ("kernel_ms", "bound_ms", "hbm_share", "step_ms",
+                            "launches", "block_skip_frac",
+                            "chunk_skip_frac")}
+        if row["name"] == "bmp_scan":
+            row["serve_8m"] = {label: {key: e[key] for key in (
+                "kernel_ms", "bound_ms", "bound_by", "kernel_launches",
+                "search_ms", "launches")} for label, e in big["bmp"].items()}
+            row["serve_8m_9c"] = {label: sharded[f"9c {label}"]["launches"]
+                                  for label in ("tiled-bmp-fused", "sched")}
+        if row["name"] == "ell_gather":
+            row["serve_8m_9c"] = sharded["9c ell"]["launches"]
     print(json.dumps({"serve_8m": big}, default=float))
 
-    # 10. the system comparison; phase 9d's data is gone
-    del big
+    # 10. the system comparison; the data of phases 9, 9c and 9d is gone
+    del big, sharded
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for mod in counters.values():

@@ -342,6 +342,9 @@ class RetrievalEngine:
                 scores = self.score(q, k=k, tau_init=t0)
                 v, i = topk.topk_two_stage(scores, k,
                                            block=self.config.topk_block)
+                # Freed before the next chunk is scored: one chunk's
+                # [q, N] scores live at a time.
+                del scores
                 out_v.append(v.cpu().numpy())
                 out_i.append(i.cpu().numpy())
         vals = np.concatenate(out_v, axis=0)
@@ -383,6 +386,7 @@ class RetrievalEngine:
                     self._deleted_original_order()[None, :], float("-inf"))
             v, i = topk.topk_two_stage(scores, min(k, self.num_docs),
                                        block=self.config.topk_block)
+            del scores
             out.append(torch.where(torch.isfinite(v), i, -1).cpu().numpy())
         return np.concatenate(out, axis=0)
 

@@ -106,14 +106,69 @@ def docs_csr(docs: SparseBatch, dtype=torch.float64) -> torch.Tensor:
     )
 
 
+# The float64 oracle's steps: at most 2^26 entries of float64 products
+# (postings x queries) a step, and ranges of 2^26 / B docs whose [B, range]
+# scores are selected from at once (512 MB each), so that the [B, N]
+# float64 scores never materialize (35.4 GB at serve_8m's B = 500).
+_ORACLE_ELEMS = 1 << 26
+
+
+def _scores_f64(qw_t: torch.Tensor, docs: SparseBatch) -> torch.Tensor:
+    """[B, R] float64 scores of the docs ``docs`` for the queries ``qw_t``
+    ([V, B] float64): each posting's products ``v * q_t`` (exact in
+    float64: two f32 factors), summed one doc at a time in slot order
+    (``segment_reduce``: a doc's sum reads its own postings alone), so a
+    score has the same bits whatever docs surround it, on either device.
+    Steps of at most ``_ORACLE_ELEMS`` products, split on doc boundaries
+    from the docs' posting counts (read on the host: the oracle is not on
+    the serve path)."""
+    b = qw_t.shape[1]
+    live = docs.term_ids >= 0
+    lengths = live.sum(dim=1)
+    cols = docs.term_ids[live].long()  # the postings in slot order
+    vals = docs.values[live].double()
+    ends = torch.cumsum(lengths, 0).cpu()  # lint: disable=host-sync -- the float64 oracle (not the serve path) splits its steps on doc boundaries by posting counts
+    out = torch.empty((b, docs.batch), dtype=torch.float64,
+                      device=qw_t.device)
+    per = max(1, _ORACLE_ELEMS // max(b, 1))
+    d0 = 0
+    while d0 < docs.batch:
+        p0 = int(ends[d0 - 1]) if d0 else 0
+        d1 = max(int(torch.searchsorted(ends, p0 + per, right=True)),
+                 d0 + 1)
+        p1 = int(ends[d1 - 1])
+        prods = qw_t.index_select(0, cols[p0:p1]).mul_(vals[p0:p1, None])
+        out[:, d0:d1] = torch.segment_reduce(
+            prods, "sum", lengths=lengths[d0:d1], axis=0).T
+        d0 = d1
+    return out
+
+
 def topk_f64(queries: SparseBatch, docs: SparseBatch, k: int):
-    """Float64 top-k (values, ids) [B, k] of the full batch, the exactness
-    oracle at any corpus size: the scores [B, N] come from the docs as CSR,
-    so the [N, V] corpus is never densified (``score_dense_f64`` would be
-    244 GB at 1M docs x V = 30,522)."""
-    scores = torch.sparse.mm(docs_csr(docs, torch.float64),
-                             queries.to_dense(torch.float64).T).T
-    return torch.topk(scores, min(k, docs.batch), dim=1)
+    """Float64 top-k (values, ids) [B, min(k, N)] of the full batch, the
+    exactness oracle at any corpus size; the [N, V] corpus is never
+    densified (``score_dense_f64`` would be 244 GB at 1M docs x V =
+    30,522).  A range of ``_ORACLE_ELEMS / B`` docs at a time: the range's
+    float64 scores (:func:`_scores_f64`: one doc's sum over its own
+    postings, in slot order), its top-k, merged into the running top-k,
+    so the ranges change no value.  Ties at the k-th value go to the lower
+    doc id, as ``lax.top_k`` breaks them; the values come in descending
+    order, equal values by ascending id."""
+    b, n = queries.batch, docs.batch
+    k = min(k, n)
+    qw_t = queries.to_dense(torch.float64).T.contiguous()
+    vals = torch.empty((b, 0), dtype=torch.float64, device=qw_t.device)
+    ids = torch.empty((b, 0), dtype=torch.int64, device=qw_t.device)
+    step = max(1, _ORACLE_ELEMS // max(b, 1))
+    for s in range(0, n, step):
+        scores = _scores_f64(qw_t, docs.slice_rows(s, min(step, n - s)))
+        v, i = topk_mod.topk(scores, k)
+        del scores
+        if s == 0:
+            vals, ids = v, i
+        else:  # the running list's ids are all lower: it goes first
+            vals, ids = topk_mod.merge_topk(vals, ids, v, i + s, k)
+    return vals, ids
 
 
 def _pad_queries_to_term_blocks(queries: SparseBatch,

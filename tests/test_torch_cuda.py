@@ -1642,3 +1642,74 @@ def test_lint_device_half_on_one_kernel(cuda):
         assert res[tool] == "clean" or res[tool].startswith("not checked")
     assert sanitize.memory_findings(results) == []
     assert sanitize.race_findings(results) == []
+
+
+def test_ranged_topk_f64_on_the_card_equals_the_one_shot(cuda, monkeypatch):
+    """The float64 oracle (``scoring.topk_f64``) at about 1M docs, B = 64,
+    k = 100: seven ranges of docs (``_ORACLE_ELEMS`` lowered; a ragged last
+    one) give the values and ids of the default call, one range of 2^26 /
+    64 docs, bit for bit (a score is one doc's sum over its own postings,
+    whatever the range), ties to the lower id in both."""
+    c = make_msmarco_like(1_000_003, 64, seed=61, device=cuda)
+    assert scoring._ORACLE_ELEMS // 64 >= 1_000_003  # one range
+    one = scoring.topk_f64(c.queries, c.docs, 100)
+    monkeypatch.setattr(scoring, "_ORACLE_ELEMS", 64 * 150_001)
+    got = scoring.topk_f64(c.queries, c.docs, 100)
+    assert got[0].shape == (64, 100)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def table11(cuda):
+    """About 1M msmarco-like docs, 64 queries and the exact ``tiled``
+    engine's top-100 (the engine defaults: doc_block 256, chunk 512)."""
+    c = make_msmarco_like(1_000_003, 64, seed=67, device=cuda)
+    exact = RetrievalEngine(c.docs, RetrievalConfig(engine="tiled", k=100),
+                            device=cuda).search(c.queries)
+    torch.cuda.empty_cache()
+    return c, exact
+
+
+@pytest.mark.parametrize("engine", ["tiled-pruned", "tiled-bmp-grouped",
+                                    "tiled-bmp-fused"])
+def test_bmp_engines_at_table11_regime_match_tiled_on_the_card(
+        cuda, table11, engine):
+    """Each exact BMP traversal at Table 11's B = 64, k = 100 over about 1M
+    docs (the engine defaults) launches ``bmp_scan`` and returns the exact
+    ``tiled`` engine's top-100: its scored blocks carry ``scatter_score``'s
+    very bits, ties to the lower id in both."""
+    c, exact = table11
+    eng = RetrievalEngine(c.docs, RetrievalConfig(engine=engine, k=100),
+                          device=cuda)
+    before = bmp_ops.launches
+    v, i = eng.search(c.queries)
+    assert bmp_ops.launches > before
+    assert (v == exact[0]).all() and (i == exact[1]).all()
+
+
+def test_search_frees_a_chunks_scores_before_the_next(cuda):
+    """``RetrievalEngine.search`` of two query chunks peaks, above what the
+    engine holds, within half a chunk's [q, N] scores of a one-chunk
+    search of the same shape: one chunk's scores plus the top-k's scratch
+    (the first chunk's scores are gone before the second is scored)."""
+    c = make_msmarco_like(1_000_003, 128, seed=71, device=cuda)
+    eng = RetrievalEngine(c.docs, RetrievalConfig(engine="tiled", k=100,
+                                                  query_chunk=64),
+                          device=cuda)
+    one = c.queries.slice_rows(0, 64)
+    eng.search(c.queries)  # warm-up
+
+    def peak(queries):
+        torch.cuda.synchronize(cuda)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        eng.search(queries)
+        torch.cuda.synchronize(cuda)
+        return torch.cuda.max_memory_allocated(cuda) - held
+
+    chunk = 64 * eng._index.padded_docs * 4
+    single, double = peak(one), peak(c.queries)
+    assert single >= chunk
+    assert double <= single + chunk // 2, (double, single, chunk)

@@ -526,6 +526,31 @@ def test_serve_driver_exact_on_cpu(flags, tmp_path):
     assert "serve.shard_step" in spans
 
 
+@pytest.mark.parametrize("flags", [
+    ["--engine", "ell"], ["--engine", "tiled-bmp-fused"], ["--sched"],
+])
+def test_serve_driver_oracle_in_ranges(flags, monkeypatch):
+    """The driver's float64 oracle a range of 7 docs at a time
+    (``scoring._ORACLE_ELEMS`` lowered) gives the overlap of the one-shot
+    oracle: 1.0, as ``test_serve_driver_exact_on_cpu`` holds it."""
+    from repro_torch.core import scoring as tscoring
+
+    argv = ["--device", "cpu", "--docs", "700", "--batch", "12", "--vocab",
+            "1000", "--k", "20", "--rounds", "1", "--max-batch", "4"]
+    calls = []
+    ranged = tscoring.topk_f64
+
+    def counted(queries, docs, k):
+        calls.append(docs.batch)
+        return ranged(queries, docs, k)
+
+    monkeypatch.setattr(tscoring, "_ORACLE_ELEMS", 12 * 7)
+    monkeypatch.setattr(tscoring, "topk_f64", counted)
+    out = serve.main(argv + flags)
+    assert calls == [700]
+    assert out["overlap"] == 1.0 and out["shards"] == 1
+
+
 def test_serve_driver_needs_a_card_by_default():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -42,6 +42,21 @@ def test_search_in_query_chunks(corpus, engine, extra):
                      oracle)
 
 
+@pytest.mark.parametrize("engine", ["tiled", "ell", "tiled-pruned"])
+def test_search_frees_each_chunk_and_keeps_its_bits(corpus, engine):
+    """Query chunks of 1, 3 and the whole batch (each chunk's scores freed
+    before the next is scored) give the same values and ids, bit for bit,
+    and JAX's search."""
+    c, oracle = corpus
+    got = [_pair(c, engine, {}, query_chunk=qc, k=20)[0].search(
+        port_batch(c.queries)) for qc in (1, 3, c.queries.batch)]
+    for other in got[1:]:
+        for a, b in zip(other, got[0]):
+            np.testing.assert_array_equal(a, b)
+    ref = _pair(c, engine, {}, k=20)[1]
+    assert_same_topk(got[0], ref.search(c.queries), oracle)
+
+
 @pytest.mark.parametrize("engine,extra", ENGINES, ids=IDS)
 def test_k_larger_than_num_docs_and_tau(corpus, engine, extra):
     c, oracle = corpus

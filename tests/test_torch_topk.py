@@ -97,3 +97,79 @@ def test_certify_tau_matches_jax(k_req):
             ttopk.certify_tau(torch.from_numpy(vals), k_req, p),
             jtopk.certify_tau(vals, k_req, p),
         )
+
+
+def _oracle_corpus(n, b, vocab, dyadic, seed):
+    """A port ``SparseBatch`` of docs and one of queries: docs 0-3 empty,
+    every doc from 40 on a copy of one before it (ties across the whole
+    range), weights multiples of 2^-8 when ``dyadic`` (every float64 sum
+    exact, in any order)."""
+    from repro_torch.core.sparse import SparseBatch
+
+    rng = np.random.default_rng(seed)
+
+    def rows(count, width):
+        ids = np.full((count, width), -1, np.int32)
+        vals = np.zeros((count, width), np.float32)
+        for r in range(count):
+            m = rng.integers(1, width + 1)
+            ids[r, :m] = rng.choice(vocab, m, replace=False)
+            v = rng.uniform(0.05, 3.0, m)
+            vals[r, :m] = np.round(v * 256) / 256 if dyadic else v
+        return ids, vals
+
+    d_ids, d_vals = rows(n, 12)
+    d_ids[:4], d_vals[:4] = -1, 0.0
+    src = rng.integers(0, 40, n - 40)
+    d_ids[40:], d_vals[40:] = d_ids[src], d_vals[src]
+    q_ids, q_vals = rows(b, 6)
+    docs = SparseBatch(torch.from_numpy(d_ids), torch.from_numpy(d_vals),
+                       vocab)
+    queries = SparseBatch(torch.from_numpy(q_ids), torch.from_numpy(q_vals),
+                          vocab)
+    return docs, queries
+
+
+def _numpy_f64_topk(docs, queries, k):
+    """The float64 top-k by numpy: dense scores, a stable argsort of their
+    negation (ties to the lower id)."""
+    def dense(batch):
+        out = np.zeros((batch.batch, batch.vocab_size))
+        ids, vals = batch.term_ids.numpy(), batch.values.numpy()
+        r, c = np.nonzero(ids >= 0)
+        out[r, ids[r, c]] = vals[r, c]
+        return out
+
+    scores = dense(queries) @ dense(docs).T
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(scores, order, 1), order
+
+
+@pytest.mark.parametrize("n,k", [(157, 30), (157, 157), (60, 80)])
+@pytest.mark.parametrize("dyadic", [True, False])
+def test_ranged_topk_f64_equals_one_shot_and_numpy(n, k, dyadic,
+                                                   monkeypatch):
+    """``scoring.topk_f64`` a range of 1 and of 3 docs a step
+    (``_ORACLE_ELEMS`` lowered) gives the one-shot call's values and ids
+    bit for bit, with ties at the k-th value (copied docs) to the lower
+    id, empty docs scoring 0 and k > N cut to N; on dyadic weights it is
+    numpy's float64 top-k (a stable argsort) bit for bit too."""
+    from repro_torch.core import scoring as tscoring
+
+    docs, queries = _oracle_corpus(n, 9, 300, dyadic, seed=n + k)
+    one = tscoring.topk_f64(queries, docs, k)
+    assert one[0].shape == (9, min(k, n)) and one[0].dtype == torch.float64
+    want_v, want_i = _numpy_f64_topk(docs, queries, min(k, n))
+    ties = 0
+    for rows in (1, 3):
+        monkeypatch.setattr(tscoring, "_ORACLE_ELEMS", 9 * rows)
+        got = tscoring.topk_f64(queries, docs, k)
+        _eq(got, one)
+    for row in range(9):
+        v = want_v[row]
+        ties += int(np.any((v[:-1] == v[1:]) & (v[1:] == v[-1])))
+    assert ties > 0  # the k-th value ties in some row
+    if dyadic:
+        _eq(one, (want_v, want_i))
+    else:
+        np.testing.assert_allclose(one[0].numpy(), want_v, rtol=1e-15)
